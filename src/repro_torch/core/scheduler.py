@@ -1,0 +1,287 @@
+"""Dual-mode scheduling (paper §IV-B, D1) on one device.
+
+Reference: ``repro/core/scheduler.py``.  One engine *step* processes one
+punctuation interval:
+
+  compute mode      batched PRE_PROCESS + op registration into blotters
+  state-access mode restructure + evaluate the postponed transaction batch
+  compute mode      batched POST_PROCESS over stored events + access results
+
+Two drivers share the per-interval logic:
+
+* ``run_stream(fused=False)`` — the host loop: one step per interval.
+* ``run_stream(fused=True)``  — the stream is reshaped to ``[n_intervals,
+  interval, ...]``; compute mode, the restructure plan and (on the
+  associative path) the coefficient scans run once for all intervals, and
+  only the values-dependent evaluation loops over intervals, carrying the
+  state.  The reference's ``lax.scan`` is that Python loop.
+
+The engine runs on the CUDA card unless built with ``device="cpu"``.  The
+chunked service API (``run_stream_chunk``, ``ensure_variant``,
+``carry_in``/``carry_out``) and the sharded driver come with later slices
+(ROADMAP A8, A9).
+"""
+from __future__ import annotations
+
+import dataclasses
+import functools
+from typing import Dict, List, Tuple
+
+import numpy as np
+import torch
+
+from ..convert import events_to_torch
+from ..kernels.megakernel.ops import fused_chain_eval
+from ..kernels.megakernel.ref import fused_chain_eval_ref
+from ..kernels.runtime import resolve_device
+from .blotter import AppSpec, build_opbatch
+from .engines import (CHAIN_SCHEMES, EngineStats, NOT_PORTED, evaluate,
+                      simple_affine_luts, tstream_scan_coefs,
+                      tstream_scan_execute, tstream_scan_plan)
+from .restructure import megakernel_engaged, restructure
+from .types import OpResults, StateStore, tree_index
+
+
+@dataclasses.dataclass(frozen=True)
+class EngineConfig:
+    scheme: str = "tstream"
+    # launch the hand-written kernels (on a CUDA tensor; a CPU tensor takes
+    # each kernel's plain twin); False runs the plain PyTorch path throughout
+    use_kernels: bool = True
+    # restructure backbone: "auto" resolves the partition -> packed-sort ->
+    # lexsort ladder; "megakernel" forces the fused chain-evaluation rung
+    restructure_method: str = "auto"
+    # threads per block for a kernel, as (kernel, value) pairs, e.g.
+    # (("segscan", 128), ("radix_partition", 512)); () keeps the defaults
+    kernel_block_params: tuple = ()
+
+    def block_param(self, kernel: str):
+        return dict(self.kernel_block_params).get(kernel)
+
+
+class DualModeEngine:
+    """The TStream engine bound to one application, on one device."""
+
+    def __init__(self, app: AppSpec, store: StateStore,
+                 cfg: EngineConfig = EngineConfig(), *, device=None):
+        self.app = app
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        self.init_store = store.to(self.device)
+
+    def step(self, values: torch.Tensor, events: Dict, ts_base: int
+             ) -> Tuple[Dict, torch.Tensor, EngineStats]:
+        """Process one punctuation interval. Returns (outputs, values', stats)."""
+        values = torch.as_tensor(values, dtype=torch.float32).to(self.device)
+        store = dataclasses.replace(self.init_store, values=values)
+        res, ebs, values, stats = _step_impl(
+            store, events_to_torch(events, self.device), ts_base,
+            app=self.app, cfg=self.cfg)
+        outs = self._outs(_stack([res]), _stack([ebs]), 1)
+        return outs[0], values, stats
+
+    def run_stream(self, values, event_stream: Dict[str, np.ndarray],
+                   punct_interval: int, fused: bool = True):
+        """Drive an event stream punctuation by punctuation.
+
+        ``values`` is the initial state ``[S+1, W]``; it is copied once and
+        the copy carries the state (the caller's tensor is left as it was).
+        ``event_stream`` holds numpy columns; a trailing partial interval is
+        dropped.  Returns ``(outputs, values')``: a list with one dict of
+        numpy arrays per interval, and the final state on the engine's
+        device.  Both drivers give the same outputs and final state.
+        """
+        values = torch.as_tensor(values, dtype=torch.float32).to(
+            self.device, copy=True)
+        n = len(next(iter(event_stream.values())))
+        n_intervals = n // punct_interval
+        if n_intervals == 0:
+            return [], values
+        if not fused:
+            res_l, ebs_l = [], []
+            for i in range(n_intervals):
+                sl = slice(i * punct_interval, (i + 1) * punct_interval)
+                batch = events_to_torch(
+                    {k: np.asarray(v)[sl] for k, v in event_stream.items()},
+                    self.device)
+                store = dataclasses.replace(self.init_store, values=values)
+                res, ebs, values, _ = _step_impl(store, batch,
+                                                 i * punct_interval,
+                                                 app=self.app, cfg=self.cfg)
+                res_l.append(res)
+                ebs_l.append(ebs)
+            return self._outs(_stack(res_l), _stack(ebs_l), n_intervals), values
+
+        batched = {}
+        for k, v in event_stream.items():
+            v = np.asarray(v)[: n_intervals * punct_interval]
+            batched[k] = v.reshape((n_intervals, punct_interval) + v.shape[1:])
+        res_all, ebs_all, values, _ = _fused_impl(
+            values, events_to_torch(batched, self.device), 0,
+            app=self.app, cfg=self.cfg, store=self.init_store)
+        return self._outs(res_all, ebs_all, n_intervals), values
+
+    def _outs(self, res_all, ebs_all, n_intervals: int) -> List[Dict]:
+        """Shared output program + one bulk device-to-host copy, split per
+        interval."""
+        outs = {k: v.cpu().numpy()
+                for k, v in _post_stream(res_all, ebs_all, app=self.app).items()}
+        return [{k: v[i] for k, v in outs.items()} for i in range(n_intervals)]
+
+
+def _stack(dicts: List[Dict[str, torch.Tensor]]) -> Dict[str, torch.Tensor]:
+    return {k: torch.stack([d[k] for d in dicts]) for k in dicts[0]}
+
+
+def _eval_interval(store: StateStore, ops, *, app: AppSpec,
+                   cfg: EngineConfig):
+    """State-access mode for one interval: restructure once, evaluate.
+
+    The reference's abort repass is not ported: GS and TP never take it
+    (ROADMAP A7).
+    """
+    pres = None
+    if cfg.scheme in CHAIN_SCHEMES:
+        pres = restructure(ops, store.pad_uid, rowmajor_ts=True,
+                           light=app.associative_only,
+                           method=cfg.restructure_method,
+                           use_kernels=cfg.use_kernels,
+                           threads=cfg.block_param("radix_partition"))
+    return evaluate(store, ops, app.funs, cfg.scheme,
+                    associative_only=app.associative_only,
+                    has_gates=app.has_gates, use_kernels=cfg.use_kernels,
+                    prestructured=pres)
+
+
+def _post_stream(res_all, ebs_all, *, app: AppSpec):
+    """Post-process a whole stream's stacked per-op results.
+
+    THE output program: every driver evaluates to per-op results stacked as
+    ``[n_intervals, N, ...]`` and post-processes them here in one batched
+    call.
+    """
+    n_i, n = res_all["success"].shape
+    batch = n // app.max_ops
+    shaped = OpResults(
+        pre=res_all["pre"].reshape(n_i, batch, app.max_ops, -1)[..., :app.width],
+        post=res_all["post"].reshape(n_i, batch, app.max_ops,
+                                     -1)[..., :app.width],
+        success=res_all["success"].reshape(n_i, batch, app.max_ops),
+    )
+    return app.post_process(ebs_all, shaped)
+
+
+def _step_impl(store: StateStore, events, ts_base, *, app: AppSpec,
+               cfg: EngineConfig):
+    # -- compute mode: pre-process + postpone state access (D1) ------------
+    ops, ebs = build_opbatch(app, store, events, ts_base)
+    # -- state access mode: dynamic restructuring execution (D2) -----------
+    res, values, stats = _eval_interval(store, ops, app=app, cfg=cfg)
+    return res, ebs, values, stats
+
+
+def _fused_impl(values, events_b, ts0: int, *, app: AppSpec,
+                cfg: EngineConfig, store: StateStore):
+    """Whole-stream driver over ``[n_intervals, interval, ...]`` events.
+
+    ``values`` is the engine's private state copy, carried across intervals.
+    Everything values-independent (op registration, the restructure plan,
+    and on the associative path the coefficient scans and commit maps) runs
+    once for all intervals before the loop.
+    """
+    some = next(iter(events_b.values()))
+    n_intervals, interval = some.shape[0], some.shape[1]
+    store = dataclasses.replace(store, values=values)
+
+    # compute mode for ALL intervals at once (interval-parallel)
+    ts_bases = ts0 + torch.arange(n_intervals, dtype=torch.int32,
+                                  device=values.device) * interval
+    ops_all, ebs_all = build_opbatch(app, store, events_b, ts_bases)
+
+    if cfg.scheme in ("tstream", "tstream_scan") and app.associative_only:
+        res_all, values, stats = _fused_assoc(store, ops_all, app=app,
+                                              cfg=cfg)
+        return res_all, ebs_all, values, stats
+
+    # generic path, as far as the lock schedule needs it
+    if cfg.scheme in CHAIN_SCHEMES:
+        raise NotImplementedError(
+            f"fused scheme {cfg.scheme!r} on a non-associative app "
+            + NOT_PORTED)
+    res_l, stats = [], []
+    for i in range(n_intervals):
+        st = dataclasses.replace(store, values=values)
+        res, values, s = _eval_interval(st, tree_index(ops_all, i), app=app,
+                                        cfg=cfg)
+        res_l.append(res)
+        stats.append(s)
+    return _stack(res_l), ebs_all, values, stats
+
+
+def _fused_assoc(store: StateStore, ops_all, *, app: AppSpec,
+                 cfg: EngineConfig):
+    """Associative fast path: the per-interval body is O(N) gathers and
+    elementwise work.
+
+    The one-pass restructure plan (one radix launch for all intervals), the
+    coefficient scans (one launch per scan over the flattened stream) and
+    the commit maps run before the loop; results return to flat layout in
+    the body and stack per interval.
+    """
+    luts = simple_affine_luts(app.funs, store.device)
+    if megakernel_engaged(ops_all.uid.shape[-1], store.values.shape[0],
+                          method=cfg.restructure_method,
+                          has_max=any(store.table_is_max),
+                          funs_simple=luts is not None):
+        return _fused_assoc_mega(store, ops_all, luts=luts, cfg=cfg)
+
+    pres_all = restructure(ops_all, store.pad_uid, rowmajor_ts=True,
+                           light=True, method=cfg.restructure_method,
+                           use_kernels=cfg.use_kernels,
+                           threads=cfg.block_param("radix_partition"))
+    plan_all = tstream_scan_plan(store, ops_all, app.funs,
+                                 prestructured=pres_all,
+                                 use_kernels=cfg.use_kernels)
+    plan_all = tstream_scan_coefs(plan_all, use_kernels=cfg.use_kernels,
+                                  threads=cfg.block_param("segscan"))
+
+    values = store.values
+    res_l, stats = [], []
+    for i in range(ops_all.uid.shape[0]):
+        res, values, s = tstream_scan_execute(values, tree_index(plan_all, i),
+                                              store.pad_uid)
+        res_l.append(res)
+        stats.append(s)
+    return _stack(res_l), values, stats
+
+
+def _fused_assoc_mega(store: StateStore, ops_all, *, luts,
+                      cfg: EngineConfig):
+    """Megakernel rung of the associative fast path.
+
+    The hoisted plan shrinks to the partition permutation and histograms
+    (``geometry=False``); each interval's chains are evaluated by ONE fused
+    launch (``kernels/megakernel``), which commits into the carried state in
+    place, bit-identical to the staged rungs.
+    """
+    a_lut, b_lut = luts
+    sops_all, ch_all = restructure(
+        ops_all, store.pad_uid, rowmajor_ts=True, light=True,
+        method="partition", use_kernels=cfg.use_kernels, geometry=False,
+        threads=cfg.block_param("radix_partition"))
+    if cfg.use_kernels:
+        evaluate_chains = functools.partial(
+            fused_chain_eval, threads=cfg.block_param("megakernel"))
+    else:
+        evaluate_chains = fused_chain_eval_ref
+
+    values = store.values
+    res_l, stats = [], []
+    for i in range(ops_all.uid.shape[0]):
+        ch = tree_index(ch_all, i)
+        res, values, s = evaluate_chains(
+            values, tree_index(sops_all, i), ch, store.pad_uid,
+            a_lut=a_lut, b_lut=b_lut)
+        res_l.append({k: ch.untake(v) for k, v in res.items()})
+        stats.append(s)
+    return _stack(res_l), values, stats

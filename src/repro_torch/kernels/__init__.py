@@ -1,0 +1,13 @@
+"""Hand-written CUDA kernels of the state-access hot path, for Hopper.
+
+radix_partition — stable within-bucket rank + histogram: the restructure
+                  backbone (one launch ranks every interval of a stream)
+segscan         — exclusive segmented affine and max scans of the chain
+                  coefficients (the staged rung)
+megakernel      — fused coefficient / scan / gather / commit evaluation of
+                  one interval (the megakernel rung)
+
+Each directory holds ``ops.py`` (the wrapper: kernel on a CUDA tensor, twin
+on a CPU one) and ``ref.py`` (the plain-PyTorch twin); the CUDA sources are
+under ``csrc/`` and build at first use (``_build.py``).
+"""

@@ -1,0 +1,204 @@
+"""The CUDA kernels against their plain-PyTorch twins, on the card.
+
+Every test here needs an NVIDIA card: it is marked ``cuda``, checks for the
+card itself and skips without one.  The file imports no JAX, so it runs on a
+machine that has only PyTorch:
+
+    PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
+
+Bars: radix_partition and the megakernel bitwise; the segscans to
+rtol = atol = 1e-5 (the kernel associates a segment's sums differently
+from the twin's Hillis-Steele sweep).  Shapes the kernels cannot take raise.
+"""
+import numpy as np
+import pytest
+import torch
+
+from repro_torch import LAUNCHES, reset_launches
+from repro_torch.apps import ALL_APPS
+from repro_torch.core import types as T
+from repro_torch.core.engines import simple_affine_luts
+from repro_torch.core.restructure import restructure
+from repro_torch.core.scheduler import DualModeEngine, EngineConfig
+from repro_torch.kernels.megakernel.ops import fused_chain_eval
+from repro_torch.kernels.megakernel.ref import fused_chain_eval_ref
+from repro_torch.kernels.radix_partition.ops import radix_partition_rank
+from repro_torch.kernels.radix_partition.ref import radix_partition_rank_ref
+from repro_torch.kernels.segscan.ops import segscan_affine, segscan_max
+from repro_torch.kernels.segscan.ref import segscan_affine_ref, segscan_max_ref
+
+from torch_parity import assert_outputs_close, need_card
+
+pytestmark = pytest.mark.cuda
+
+FUNS = (T.F_NOP, T.F_READ, T.F_PUT, T.F_ADD)
+
+
+@pytest.mark.parametrize("bn,n,k", [(1, 1, 1), (200, 5000, 10_001),
+                                    (3, 9000, 201), (200, 2000, 201),
+                                    (2, 300, 50_000)])
+def test_radix_partition_matches_twin(bn, n, k):
+    dev = need_card()
+    g = torch.Generator().manual_seed(bn * n + k)
+    keys = torch.randint(0, k, (bn, n), generator=g,
+                         dtype=torch.int32).to(dev)
+    reset_launches()
+    r, c = radix_partition_rank(keys, k)
+    r0, c0 = radix_partition_rank_ref(keys, k)
+    assert LAUNCHES["radix_partition"] == 1
+    assert torch.equal(r, r0) and torch.equal(c, c0)
+    r1, c1 = radix_partition_rank(keys[0], k)      # one interval
+    assert torch.equal(r1, r0[0]) and torch.equal(c1, c0[0])
+
+
+def test_radix_partition_raises_on_what_it_cannot_take():
+    dev = need_card()
+    keys = torch.zeros((2, 10), dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="shared memory"):
+        radix_partition_rank(keys, 1 << 20)
+    with pytest.raises(ValueError, match="int32"):
+        radix_partition_rank(keys.long(), 4)
+    with pytest.raises(ValueError, match="contiguous"):
+        radix_partition_rank(keys.t(), 4)
+
+
+@pytest.mark.parametrize("n,w,avg", [(1, 1, 2), (1000, 1, 3),
+                                     (400_000, 32, 5), (77_777, 3, 500),
+                                     (300_000, 1, 1e9)])
+def test_segscan_matches_twin(n, w, avg):
+    dev = need_card()
+    g = torch.Generator().manual_seed(n + w)
+    a = (torch.rand(n, w, generator=g) * 1.5).to(dev)
+    b = ((torch.rand(n, w, generator=g) - 0.5) * 4).to(dev)
+    f = (torch.rand(n, generator=g) < 1.0 / avg).to(dev)
+    reset_launches()
+    A, B = segscan_affine(a, b, f)
+    M = segscan_max(b, f)
+    assert LAUNCHES["segscan_affine"] == 1 and LAUNCHES["segscan_max"] == 1
+    A0, B0 = segscan_affine_ref(f, a, b)
+    M0 = segscan_max_ref(f, b)
+    torch.testing.assert_close(A, A0, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(B, B0, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(M, M0, rtol=1e-5, atol=1e-5)
+
+
+def _mega_case(name, dev):
+    rng = np.random.default_rng(7)
+    if name == "odd_n_skewed":
+        s = 37
+        p = 1.0 / np.arange(1, s + 1, dtype=np.float64)
+        uid, valid = rng.choice(s, 160, p=p / p.sum()), rng.random(160) > .15
+    elif name == "single_chain":
+        s, uid, valid = 8, np.full((40,), 3), np.ones((40,), bool)
+    elif name == "all_pad":
+        s, uid, valid = 8, rng.integers(0, 8, 24), np.zeros((24,), bool)
+    elif name == "n1":
+        s, uid, valid = 4, np.zeros((1,), np.int64), np.ones((1,), bool)
+    else:   # a GS-sized interval: 5,000 rows over 10,000 slots
+        s = 10_000
+        uid, valid = rng.integers(0, s, 5000), rng.random(5000) > .01
+    n = uid.shape[0]
+    idx = torch.arange(n, dtype=torch.int32)
+    ops = T.OpBatch(
+        uid=torch.from_numpy(uid.astype(np.int32)), ts=idx // 4,
+        txn=idx // 4, slot=idx % 4, kind=torch.zeros(n, dtype=torch.int32),
+        fun=torch.from_numpy(rng.integers(0, len(FUNS), n).astype(np.int32)),
+        gate=torch.full((n,), -1, dtype=torch.int32),
+        operand=torch.from_numpy(rng.normal(size=(n, 2)).astype(np.float32)),
+        valid=torch.from_numpy(valid))
+    ops = T.OpBatch(**{k: v.to(dev) for k, v in vars(ops).items()})
+    sops, ch = restructure(ops, s, rowmajor_ts=True, light=True,
+                           method="partition", geometry=False,
+                           use_kernels=False)
+    return sops, ch, s
+
+
+@pytest.mark.parametrize("case", ["odd_n_skewed", "single_chain", "all_pad",
+                                  "n1", "gs_sized"])
+def test_megakernel_matches_twin(case):
+    dev = need_card()
+    sops, ch, s = _mega_case(case, dev)
+    a_lut, b_lut = simple_affine_luts(FUNS, dev)
+    values = torch.randn(s + 1, 2, device=dev)
+    reset_launches()
+    res, vals, _ = fused_chain_eval(values.clone(), sops, ch, s,
+                                    a_lut=a_lut, b_lut=b_lut)
+    assert LAUNCHES["megakernel"] == 1
+    res0, vals0, _ = fused_chain_eval_ref(values.clone(), sops, ch, s,
+                                          a_lut=a_lut, b_lut=b_lut)
+    assert torch.equal(vals, vals0)
+    for k in res0:
+        assert torch.equal(res[k], res0[k]), k
+
+
+def test_megakernel_raises_when_the_interval_overflows_a_block():
+    dev = need_card()
+    sops, ch, s = _mega_case("gs_sized", dev)
+    a_lut, b_lut = simple_affine_luts(FUNS, dev)
+    wide = T.OpBatch(**{**vars(sops),
+                        "operand": sops.operand.repeat(1, 8).contiguous()})
+    with pytest.raises(ValueError, match="shared memory"):
+        fused_chain_eval(torch.zeros(s + 1, 16, device=dev), wide, ch, s,
+                         a_lut=a_lut, b_lut=b_lut)
+
+
+@pytest.mark.parametrize("threads", [32, 96, 1024])
+def test_kernels_at_other_block_sizes(threads):
+    """The block size (``EngineConfig.kernel_block_params``) changes no bit:
+    no kernel's association depends on it."""
+    dev = need_card()
+    g = torch.Generator().manual_seed(threads)
+    keys = torch.randint(0, 10_001, (3, 5000), generator=g,
+                         dtype=torch.int32).to(dev)
+    r, c = radix_partition_rank(keys, 10_001, threads=threads)
+    r0, c0 = radix_partition_rank(keys, 10_001)
+    assert torch.equal(r, r0) and torch.equal(c, c0)
+    a = torch.rand(40_000, 32, generator=g).to(dev)
+    b = torch.randn(40_000, 32, generator=g).to(dev)
+    f = (torch.rand(40_000, generator=g) < 0.2).to(dev)
+    for x, y in zip(segscan_affine(a, b, f, threads=threads),
+                    segscan_affine(a, b, f)):
+        assert torch.equal(x, y)
+    assert torch.equal(segscan_max(b, f, threads=threads), segscan_max(b, f))
+    sops, ch, s = _mega_case("gs_sized", dev)
+    a_lut, b_lut = simple_affine_luts(FUNS, dev)
+    values = torch.randn(s + 1, 2, device=dev)
+    res, vals, _ = fused_chain_eval(values.clone(), sops, ch, s, a_lut=a_lut,
+                                    b_lut=b_lut, threads=threads)
+    res0, vals0, _ = fused_chain_eval(values.clone(), sops, ch, s,
+                                      a_lut=a_lut, b_lut=b_lut)
+    assert torch.equal(vals, vals0)
+    for k in res0:
+        assert torch.equal(res[k], res0[k]), k
+    with pytest.raises(ValueError, match="multiple of 32"):
+        segscan_max(b, f, threads=48)
+
+
+@pytest.mark.parametrize("app_name,method", [("gs", "megakernel"),
+                                             ("tp", "partition"),
+                                             ("gs", "partition")])
+def test_engine_on_card_matches_cpu(app_name, method):
+    """The port on the card (kernels) against the port on the CPU (twins):
+    the final state bitwise where the path holds no segscan, else to
+    rtol = atol = 1e-5; outputs to 1e-5."""
+    dev = need_card()
+    app = ALL_APPS[app_name]
+    stream = app.gen_events(np.random.default_rng(11), 4 * 128)
+    cfg = EngineConfig(restructure_method=method)
+    runs = {}
+    for d in (dev, torch.device("cpu")):
+        store = app.make_store(device=d)
+        reset_launches()
+        runs[d.type] = DualModeEngine(app, store, cfg, device=d).run_stream(
+            store.values, stream, 128)
+        if d.type == "cuda":
+            assert LAUNCHES["radix_partition"] == 1
+            staged = method != "megakernel"
+            assert LAUNCHES["megakernel"] == (0 if staged else 4)
+            assert LAUNCHES["segscan_affine"] == (1 if staged else 0)
+    (o1, v1), (o0, v0) = runs["cuda"], runs["cpu"]
+    if method == "megakernel":
+        assert torch.equal(v1.cpu(), v0)
+    else:
+        torch.testing.assert_close(v1.cpu(), v0, rtol=1e-5, atol=1e-5)
+    assert_outputs_close(o1, o0, f"{app_name} card vs cpu")

@@ -1,0 +1,16 @@
+"""The slice end to end for TP: the port's run_stream against JAX's.
+
+Under every ``restructure_method`` and both drivers (fused and host loop):
+final state and per-op pre/post/success bitwise, post-processed outputs to
+rtol = atol = 1e-5 (``log1p`` and division differ between torch and XLA
+CPU), and the port's fused driver equal to its host loop.
+"""
+import pytest
+
+from torch_slice import METHODS, check_slice_against_reference
+
+
+@pytest.mark.parametrize("method", METHODS)
+@pytest.mark.parametrize("fused", [True, False])
+def test_tp_slice_matches_reference(method, fused):
+    check_slice_against_reference("tp", method, fused)
