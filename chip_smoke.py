@@ -1,25 +1,40 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's main path on one CUDA card and check it.
+"""Drive the PyTorch port's main paths on one CUDA card and check them.
 
 Run from the repository root:  python3 chip_smoke.py [--seed N]
 
 1. Prints the card (nvidia-smi name and power limit, torch's device name).
 2. Builds the CUDA kernels from ``src/repro_torch/csrc`` (timed as set-up).
-3. Kernel phase: at the main path's shapes, holds each kernel against its
-   plain-PyTorch twin on the card (radix_partition and the megakernel
-   bitwise, the segscans to rtol = atol = 1e-5) and times both with CUDA
-   events; runs each kernel at two other block sizes, which must change no
-   bit; and prints the rung that ``restructure_method="auto"`` resolves to
-   at these shapes.
-4. End-to-end phase: ``DualModeEngine.run_stream(fused=True)`` on the card
-   for GS (10,000 keys, theta 0.6, megakernel rung) and TP (100 segments,
-   theta 0.2, partition rung), 200 intervals of 500 events each, with the
-   launch counters set to 0 just before each run and read just after; every
-   kernel must have launched.  The final state is held against the port's
-   CPU run of the same seeded stream (GS bitwise, TP rtol 1e-5) and the
-   post-processed outputs to rtol = atol = 1e-5; a small stream is held
-   against the sequential ``lock`` oracle on the CPU.
-5. Prints one JSON line of kernel numbers, the card line again, and last
+3. Kernel phase: at the main paths' shapes, holds each kernel against its
+   plain-PyTorch twin on the card (radix_partition, the megakernel, alone
+   and batched over 4 shards, and hash_probe bitwise; the segscans to
+   rtol = atol = 1e-5) and times both with CUDA events; runs each kernel at
+   two other block sizes, which must change no bit; and prints the rung
+   that ``restructure_method="auto"`` resolves to at these shapes.
+4. End-to-end phase, single device: ``DualModeEngine.run_stream(fused=True)``
+   on the card for GS (10,000 keys, theta 0.6, megakernel rung) and TP (100
+   segments, theta 0.2, partition rung), 200 intervals of 500 events each.
+   The final state is held against the port's CPU run of the same seeded
+   stream (GS bitwise, TP rtol 1e-5) and the post-processed outputs to
+   rtol = atol = 1e-5; a small stream is held against the sequential
+   ``lock`` oracle on the CPU.  Both apps also run once on the default
+   ``"auto"`` rung, held to the forced rung's card run to 1e-5.
+5. Sharded phase: the sharded fused driver on a ``ShardMesh`` on the card,
+   same streams: GS on 4 shards, ``shared_nothing``, megakernel rung, with
+   and without the hash-probe route (the two bitwise equal in state,
+   outputs and exchange stats, and bitwise equal to the single-device
+   megakernel run); TP on a (2, 2) socket x core mesh,
+   ``shared_per_socket``, partition rung, and GS ``shared_everything`` on 4
+   shards, partition rung, 20 intervals, each held to the single-device
+   card run of the same rung to rtol = atol = 1e-5 (the CUDA segscan's
+   association depends on where a chain lies among its tiles).  No run may
+   drop an op.
+6. Every driven run of phases 4 and 5 follows one uncounted warm-up run of
+   the same engine and stream, sets the launch counters to 0 just before it
+   and reads them just after; every kernel must have launched.  Each run
+   prints an ``e2e`` line (wall s, events/s, launches, exchange stats) and
+   a ``profile`` line: the device's busy share of one more, profiled run.
+7. Prints one JSON line of kernel numbers, the card line again, and last
    ``{"ok": true, "device": {...}}``.
 
 Any failure raises and exits non-zero.  Without a CUDA card it exits 1 and
@@ -153,7 +168,41 @@ def plans(stream, dev):
             out[name]["plan"] = tstream_scan_plan(store, ops, app.funs,
                                                   prestructured=pres,
                                                   use_kernels=False)
+        else:
+            out[name]["ops"] = ops
+            out[name]["events"] = ev
+    out["shard"] = shard_inputs(out["gs"], dev)
     return out
+
+
+def shard_inputs(gs, dev):
+    """The sharded GS path's kernel inputs (4 shards, shared_nothing), built
+    with the plain path on the card: the hash probe's table and its queries
+    (every op's uid, 1,000,000 for the stream), and the batched megakernel's
+    first interval of every shard."""
+    from repro_torch.convert import events_to_torch
+    from repro_torch.core.mesh import ShardMesh
+    from repro_torch.core.restructure import restructure
+    from repro_torch.core.scheduler import DualModeEngine, EngineConfig
+    from repro_torch.core.types import tree_index
+
+    cfg = EngineConfig(restructure_method="megakernel", use_kernels=False,
+                       use_hash_probe_route=True)
+    eng = DualModeEngine(gs["app"], gs["store"], cfg, device=dev,
+                         mesh=ShardMesh((4,), ("dev",), device=dev))
+    sh = eng._sharded
+    rops, _, _, cap = sh.route(events_to_torch(gs["events"], dev))
+    lpad = sh.own.per
+    sops, ch = restructure(tree_index(rops, 0), lpad, rowmajor_ts=True,
+                           light=True, method="partition", use_kernels=False,
+                           geometry=False)
+    values = sh.carry_in(gs["store"].values).reshape(4, lpad + 1, -1)
+    print(f"sharded gs: 4 shards x {rops.uid.shape[-1]} received rows per "
+          f"interval (capacity {cap} per bucket), {lpad + 1} slots per block; "
+          f"probe table {list(sh.probe.table.shape)}")
+    return dict(table=sh.probe.table,
+                queries=gs["ops"].uid.reshape(-1).contiguous(),
+                values=values, sops=sops, ch=ch, lpad=lpad)
 
 
 def kernel_phase(p) -> dict:
@@ -252,14 +301,9 @@ def kernel_phase(p) -> dict:
     n, w = sops.operand.shape
     s = store.values.shape[0]
     steps = math.ceil(math.log2(n)) if n > 1 else 0
-    # Least bytes of this interval: per row its flag, valid, fun and uid
-    # (10 B) and its operand, pre and post (12 B a lane); per chain one
-    # gather of its slot, and per chain other than the pad's one commit;
-    # the pad slot's zeroing and the LUTs.
     chains = int(ch.n_chains)
     commits = int((ch.counts[:store.pad_uid] > 0).sum())
-    mk_bytes = (10.0 * n + 12.0 * n * w + 4.0 * (chains + commits + 1) * w
-                + 5.0 * a_lut.numel())
+    mk_bytes = mega_bytes(n, w, chains, commits, a_lut.numel())
     print(f"kernel megakernel rows={n} W={w} slots={s} chains={chains}: "
           f"max_abs_err=0 ms={ms} plain_ms={plain} host_ms={host} "
           f"bytes={mk_bytes}")
@@ -268,18 +312,100 @@ def kernel_phase(p) -> dict:
         source="src/repro_torch/csrc/megakernel.cu", ms=ms, plain_ms=plain,
         err=0.0, bound=bound(mk_bytes, 3.0 * steps * n * w + 8.0 * n * w))
 
+    rows["megakernel"]["batched"] = batched_megakernel(p["shard"], a_lut,
+                                                       b_lut)
+    rows["hash_probe"] = hash_probe_row(p["shard"])
     block_size_check(p, plan, (sops, ch, a_lut, b_lut))
     return rows
+
+
+def mega_bytes(n, w, chains, commits, n_luts) -> float:
+    """Least bytes of one megakernel problem: per row its flag, valid, fun
+    and uid (10 B) and its operand, pre and post (12 B a lane); per chain
+    one gather of its slot, and per chain other than the pad's one commit;
+    the pad slot's zeroing and the LUTs."""
+    return (10.0 * n + 12.0 * n * w + 4.0 * (chains + commits + 1) * w
+            + 5.0 * n_luts)
+
+
+def batched_megakernel(sh, a_lut, b_lut) -> dict:
+    """The megakernel as the sharded GS path launches it: the first interval
+    of all 4 shards in one launch, one block each; bitwise against the twin."""
+    from repro_torch.kernels.megakernel.ops import fused_chain_eval
+    from repro_torch.kernels.megakernel.ref import fused_chain_eval_ref
+
+    sops, ch, lpad = sh["sops"], sh["ch"], sh["lpad"]
+    res1, v1, _ = fused_chain_eval(sh["values"].clone(), sops, ch, lpad,
+                                   a_lut=a_lut, b_lut=b_lut)
+    res0, v0, _ = fused_chain_eval_ref(sh["values"].clone(), sops, ch, lpad,
+                                       a_lut=a_lut, b_lut=b_lut)
+    torch.cuda.synchronize()
+    assert_equal(v1, v0, "batched megakernel values")
+    for k in res0:
+        assert_equal(res1[k], res0[k], f"batched megakernel {k}")
+    scratch = sh["values"].clone()
+    ms, host = cuda_ms(lambda: fused_chain_eval(
+        scratch, sops, ch, lpad, a_lut=a_lut, b_lut=b_lut), 50)
+    plain, _ = cuda_ms(lambda: fused_chain_eval_ref(
+        sh["values"], sops, ch, lpad, a_lut=a_lut, b_lut=b_lut), 10)
+    b, n, w = sops.operand.shape
+    chains = int(ch.n_chains.sum())
+    commits = int((ch.counts[:, :lpad] > 0).sum())
+    # every problem's bytes; the LUTs are read once
+    nbytes = (b * mega_bytes(n, w, 0, 0, 0) + 4.0 * (chains + commits) * w
+              + 5.0 * a_lut.numel())
+    steps = math.ceil(math.log2(n)) if n > 1 else 0
+    bnd = bound(nbytes, b * (3.0 * steps * n * w + 8.0 * n * w))
+    print(f"kernel megakernel[batched] problems={b} rows={n} W={w} "
+          f"slots={lpad + 1} chains={chains}: max_abs_err=0 ms={ms} "
+          f"plain_ms={plain} host_ms={host} bytes={nbytes} bound_ms={bnd[0]}")
+    return dict(ms=ms, plain_ms=plain, bound=bnd)
+
+
+def hash_probe_row(sh) -> dict:
+    """hash_probe at GS's probe shape: every op's uid of the 200 x 500 event
+    stream (1,000,000 queries) against the 2,500 x 8 table; bitwise."""
+    from repro_torch.kernels.hash_probe.ops import hash_probe
+    from repro_torch.kernels.hash_probe.ref import (ASSOC, MAX_PROBES,
+                                                    bucket_of, hash_probe_ref)
+
+    table, q = sh["table"], sh["queries"]
+    s1 = hash_probe(q, table)
+    s0 = hash_probe_ref(q, table)
+    torch.cuda.synchronize()
+    assert_equal(s1, s0, "hash_probe slots")
+    if bool((s0 < 0).any()):
+        raise AssertionError("hash_probe: a uid of the store was not found")
+    ms, host = cuda_ms(lambda: hash_probe(q, table), 50)
+    plain, _ = cuda_ms(lambda: hash_probe_ref(q, table), 5)
+    n, n_buckets = q.shape[0], table.shape[0]
+    # Operations this data needs: per query the hash (multiply, shift,
+    # modulo), per probe made a bucket index (add, modulo), and the compares
+    # up to the matching way; counted against the f32 rate.
+    hit = s0.long()
+    probes = (hit // ASSOC - bucket_of(q, n_buckets).long()) % n_buckets + 1
+    compares = (probes - 1) * ASSOC + hit % ASSOC + 1
+    n_ops = float((3 + 2 * probes + compares).sum())
+    assert int(probes.max()) <= MAX_PROBES
+    nbytes = 8.0 * n + 4.0 * table.numel()
+    print(f"kernel hash_probe queries={n} table={list(table.shape)}: "
+          f"max_abs_err=0 ms={ms} plain_ms={plain} host_ms={host} "
+          f"bytes={nbytes} ops={n_ops} probes_mean={float(probes.double().mean())}")
+    return dict(replaces="src/repro/kernels/hash_probe/kernel.py:62",
+                source="src/repro_torch/csrc/hash_probe.cu", ms=ms,
+                plain_ms=plain, err=0.0, bound=bound(nbytes, n_ops))
 
 
 def block_size_check(p, plan, mega) -> None:
     """Each kernel at block sizes other than its default, as
     ``EngineConfig.kernel_block_params`` sets them: no bit may change."""
+    from repro_torch.kernels.hash_probe.ops import hash_probe
     from repro_torch.kernels.megakernel.ops import fused_chain_eval
     from repro_torch.kernels.radix_partition.ops import radix_partition_rank
     from repro_torch.kernels.segscan.ops import segscan_affine, segscan_max
 
     keys, k = p["gs"]["keys"], p["gs"]["store"].pad_uid + 1
+    sh = p["shard"]
     w = plan.af.shape[-1]
     flags = plan.ch.seg_start.reshape(-1).contiguous()
     a = plan.af.reshape(-1, w).contiguous()
@@ -291,14 +417,24 @@ def block_size_check(p, plan, mega) -> None:
                 affine=segscan_affine(a, b, flags), max=(segscan_max(m, flags),),
                 mega=fused_chain_eval(store.values.clone(), sops, ch,
                                       store.pad_uid, a_lut=a_lut,
-                                      b_lut=b_lut)[:2])
+                                      b_lut=b_lut)[:2],
+                mega_batched=fused_chain_eval(
+                    sh["values"].clone(), sh["sops"], sh["ch"], sh["lpad"],
+                    a_lut=a_lut, b_lut=b_lut)[:2],
+                probe=(hash_probe(sh["queries"], sh["table"]),))
     for threads in (64, 512):
         got = dict(radix=radix_partition_rank(keys, k, threads=threads),
                    affine=segscan_affine(a, b, flags, threads=threads),
                    max=(segscan_max(m, flags, threads=threads),),
                    mega=fused_chain_eval(store.values.clone(), sops, ch,
                                          store.pad_uid, a_lut=a_lut,
-                                         b_lut=b_lut, threads=threads)[:2])
+                                         b_lut=b_lut, threads=threads)[:2],
+                   mega_batched=fused_chain_eval(
+                       sh["values"].clone(), sh["sops"], sh["ch"],
+                       sh["lpad"], a_lut=a_lut, b_lut=b_lut,
+                       threads=threads)[:2],
+                   probe=(hash_probe(sh["queries"], sh["table"],
+                                     threads=threads),))
         for name, outs in got.items():
             for i, (x, y) in enumerate(zip(outs, base[name])):
                 pairs = ([(x[j], y[j]) for j in y] if isinstance(y, dict)
@@ -306,88 +442,208 @@ def block_size_check(p, plan, mega) -> None:
                 for u, v in pairs:
                     assert_equal(u, v, f"{name} output {i} at {threads} "
                                  "threads per block")
-    print("block sizes: radix_partition, segscan_affine, segscan_max and the "
-          "megakernel at 64 and 512 threads per block equal their default "
-          "runs bit for bit")
+    print("block sizes: radix_partition, segscan_affine, segscan_max, the "
+          "megakernel (one problem and 4 shards) and hash_probe at 64 and 512 "
+          "threads per block equal their default runs bit for bit")
 
 
-def run(app_name, method, stream, dev):
+# The sharded runs: label, app, rung, layout, mesh shape, axis names,
+# hash-probe route, intervals.
+SHARDED = (
+    ("gs/shared_nothing/probe", "gs", "megakernel", "shared_nothing", (4,),
+     ("dev",), True, N_INTERVALS),
+    ("gs/shared_nothing", "gs", "megakernel", "shared_nothing", (4,),
+     ("dev",), False, N_INTERVALS),
+    ("tp/shared_per_socket", "tp", "partition", "shared_per_socket", (2, 2),
+     ("socket", "core"), False, N_INTERVALS),
+    ("gs/shared_everything", "gs", "partition", "shared_everything", (4,),
+     ("dev",), False, 20),
+)
+
+
+def engine(app_name, method, dev, *, mesh=None, layout="shared_nothing",
+           probe=False):
     from repro_torch.apps import ALL_APPS
     from repro_torch.core.scheduler import DualModeEngine, EngineConfig
     app = ALL_APPS[app_name]
-    store = app.make_store(device=dev)
-    eng = DualModeEngine(app, store, EngineConfig(restructure_method=method),
-                         device=dev)
-    if dev.type == "cuda":
+    cfg = EngineConfig(restructure_method=method, use_hash_probe_route=probe)
+    return DualModeEngine(app, app.make_store(device=dev), cfg, device=dev,
+                          mesh=mesh, layout=layout)
+
+
+def timed(eng, stream):
+    """One ``run_stream`` on the engine's device: host clock around it, with
+    a synchronize before and after on the card."""
+    cuda = eng.device.type == "cuda"
+    if cuda:
         torch.cuda.synchronize()
     t0 = time.perf_counter()
-    outs, values = eng.run_stream(store.values, stream, INTERVAL, fused=True)
-    if dev.type == "cuda":
+    outs, values = eng.run_stream(eng.init_store.values, stream, INTERVAL,
+                                  fused=True)
+    if cuda:
         torch.cuda.synchronize()
     return outs, values.cpu(), time.perf_counter() - t0
 
 
-def end_to_end(stream, card, cuda) -> dict:
+def run(app_name, method, stream, dev):
+    return timed(engine(app_name, method, dev), stream)
+
+
+def counted(eng, stream, launches):
+    """A driven run: launch counters to 0 just before, read just after.
+
+    An uncounted run of the same engine and stream goes first, so the timed
+    run finds the CUDA modules of its kernels loaded (they load lazily, at
+    a kernel's first launch) and the allocator warm, as a long-running
+    engine would."""
     from repro_torch import LAUNCHES, reset_launches
+    timed(eng, stream)
+    reset_launches()
+    outs, values, wall = timed(eng, stream)
+    got = dict(LAUNCHES)
+    for k, v in got.items():
+        launches[k] += v
+    if not torch.isfinite(values).all():
+        raise AssertionError("non-finite final state")
+    return outs, values, wall, got
+
+
+def profiled(eng, stream, label) -> None:
+    """One more run under torch.profiler: the device's busy share of the
+    wall time and the kernels that take it (the profiler's own cost
+    lengthens the wall time)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        _, _, wall = timed(eng, stream)
+    dev = [e for e in prof.key_averages()
+           if e.device_type == DeviceType.CUDA]
+    busy = sum(e.self_device_time_total for e in dev) / 1e6
+    if busy <= 0:
+        print(f"profile {label}: wall_s={wall} device time not measured "
+              "(the profiler saw no CUDA activity)")
+        return
+    top = sorted(dev, key=lambda e: -e.self_device_time_total)[:6]
+    print(f"profile {label}: wall_s={wall} device_busy_s={busy} "
+          f"busy_share={busy / wall} top: " + "; ".join(
+              f"{e.key[:48]} {e.self_device_time_total / 1e3:.3f} ms "
+              f"x{e.count}" for e in top))
+
+
+def check_outputs(outs, ref, what, n_intervals, bitwise=False) -> None:
+    if len(outs) != n_intervals or len(ref) != n_intervals:
+        raise AssertionError(f"{what}: {len(outs)} intervals out")
+    for i, (o, oc) in enumerate(zip(outs, ref)):
+        for k in oc:
+            if o[k].shape != (INTERVAL,):
+                raise AssertionError(f"{what} {k}: shape {o[k].shape}")
+            if bitwise and not np.array_equal(o[k], oc[k]):
+                raise AssertionError(f"{what} interval {i} {k}: not bitwise "
+                                     "equal")
+            assert_close(o[k], oc[k], f"{what} interval {i} {k}")
+
+
+def end_to_end(stream, card, cuda, launches) -> dict:
+    """The single-device driver on the card, forced rungs and "auto"."""
     cpu = torch.device("cpu")
-    launches = {k: 0 for k in LAUNCHES}
+    single = {}
     for app_name, method in (("gs", "megakernel"), ("tp", "partition")):
-        reset_launches()
-        outs, values, wall = run(app_name, method, stream[app_name], cuda)
-        got = dict(LAUNCHES)
+        eng = engine(app_name, method, cuda)
+        outs, values, wall, got = counted(eng, stream[app_name], launches)
         print(f"e2e {app_name} rung={method} intervals={N_INTERVALS}x"
               f"{INTERVAL}: wall_s={wall} events_per_s="
               f"{N_INTERVALS * INTERVAL / wall} launches={got} card={card}")
-        for k, v in got.items():
-            launches[k] += v
+        single[app_name, method] = (outs, values)
         outs_c, values_c, wall_c = run(app_name, method, stream[app_name], cpu)
         print(f"e2e {app_name} cpu reference: wall_s={wall_c}")
-        if not torch.isfinite(values).all():
-            raise AssertionError(f"{app_name}: non-finite final state")
         if app_name == "gs":
             assert_equal(values, values_c, "gs final state vs CPU run")
         else:
             assert_close(values, values_c, "tp final state vs CPU run")
-        if len(outs) != N_INTERVALS or len(outs_c) != N_INTERVALS:
-            raise AssertionError(f"{app_name}: {len(outs)} intervals out")
-        for i, (o, oc) in enumerate(zip(outs, outs_c)):
-            for k in oc:
-                if o[k].shape != (INTERVAL,):
-                    raise AssertionError(f"{app_name} {k}: shape {o[k].shape}")
-                assert_close(o[k], oc[k], f"{app_name} interval {i} {k}")
+        check_outputs(outs, outs_c, app_name, N_INTERVALS)
         print(f"e2e {app_name}: state and outputs agree with the CPU run "
               f"(state max abs err {max_err(values, values_c)})")
-    needed = {"radix_partition", "segscan_affine", "segscan_max",
-              "megakernel"}
-    missing = sorted(k for k in needed if launches[k] <= 0)
-    if missing:
-        raise AssertionError(f"kernels never launched on the main path: "
-                             f"{missing} ({launches})")
-    return launches
+        profiled(eng, stream[app_name], app_name)
+
+    # the default rung, which a user who sets nothing gets
+    for app_name, forced in (("gs", "megakernel"), ("tp", "partition")):
+        eng = engine(app_name, "auto", cuda)
+        outs, values, wall, got = counted(eng, stream[app_name], launches)
+        print(f"e2e {app_name} rung=auto intervals={N_INTERVALS}x{INTERVAL}: "
+              f"wall_s={wall} events_per_s={N_INTERVALS * INTERVAL / wall} "
+              f"launches={got} card={card}")
+        ref_outs, ref_values = single[app_name, forced]
+        assert_close(values, ref_values, f"{app_name} auto vs {forced}: state")
+        check_outputs(outs, ref_outs, f"{app_name} auto", N_INTERVALS)
+        print(f"e2e {app_name} rung=auto: agrees with the {forced} run "
+              f"(state max abs err {max_err(values, ref_values)})")
+        profiled(eng, stream[app_name], f"{app_name} rung=auto")
+    return single
 
 
-def profile_phase(stream, cuda) -> None:
-    """One more run of each app under torch.profiler: the device's busy
-    share of the wall time and the kernels that take it (the profiler's own
-    cost lengthens the wall time)."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    for app_name, method in (("gs", "megakernel"), ("tp", "partition")):
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            _, _, wall = run(app_name, method, stream[app_name], cuda)
-        dev = [e for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA]
-        busy = sum(e.self_device_time_total for e in dev) / 1e6
-        if busy <= 0:
-            print(f"profile {app_name}: wall_s={wall} device time not "
-                  "measured (the profiler saw no CUDA activity)")
-            continue
-        top = sorted(dev, key=lambda e: -e.self_device_time_total)[:6]
-        print(f"profile {app_name}: wall_s={wall} device_busy_s={busy} "
-              f"busy_share={busy / wall} top: " + "; ".join(
-                  f"{e.key[:48]} {e.self_device_time_total / 1e3:.3f} ms "
-                  f"x{e.count}" for e in top))
+def sharded_phase(stream, card, cuda, single, launches) -> None:
+    """The sharded fused driver on a ShardMesh on the card."""
+    from repro_torch.core.mesh import ShardMesh
+    results = {}
+    for label, app_name, method, layout, shape, names, probe, n_i in SHARDED:
+        st = {k: np.asarray(v)[: n_i * INTERVAL]
+              for k, v in stream[app_name].items()}
+        eng = engine(app_name, method, cuda,
+                     mesh=ShardMesh(shape, names, device=cuda), layout=layout,
+                     probe=probe)
+        outs, values, wall, got = counted(eng, st, launches)
+        ex = eng.last_exchange_stats
+        print(f"e2e sharded {label} mesh={shape} rung={method} "
+              f"intervals={n_i}x{INTERVAL}: wall_s={wall} events_per_s="
+              f"{n_i * INTERVAL / wall} launches={got} "
+              f"dropped={int(np.sum(ex['dropped']))} "
+              f"shipped={int(np.sum(ex['shipped']))} "
+              f"max_fill={int(np.max(ex['max_fill']))} "
+              f"capacity={int(ex['capacity'])} exchanged_rows_per_device="
+              f"{int(ex['exchanged_rows_per_device'])} "
+              f"shard_load={ex['shard_load'].tolist()} card={card}")
+        if int(np.sum(ex["dropped"])) != 0:
+            raise AssertionError(f"sharded {label}: the exchange dropped ops")
+        want = dict(radix_partition=2, hash_probe=int(probe),
+                    megakernel=n_i if method == "megakernel" else 0,
+                    segscan_affine=0 if method == "megakernel" else 1,
+                    segscan_max=1 if app_name == "tp" else 0)
+        if got != want:
+            raise AssertionError(f"sharded {label}: launches {got}, "
+                                 f"expected {want}")
+        # the single-device run of the same rung on the card
+        if n_i == N_INTERVALS:
+            ref_outs, ref_values = single[app_name, method]
+        else:
+            ref_outs, ref_values, _ = timed(engine(app_name, method, cuda),
+                                            st)
+        if method == "megakernel":
+            assert_equal(values, ref_values, f"sharded {label} state vs "
+                         "single device")
+        else:
+            assert_close(values, ref_values, f"sharded {label} state vs "
+                         "single device")
+        check_outputs(outs, ref_outs, f"sharded {label}", n_i,
+                      bitwise=method == "megakernel")
+        bar = "bitwise" if method == "megakernel" else "rtol = atol = 1e-5"
+        print(f"e2e sharded {label}: state and outputs agree with the "
+              f"single-device card run ({bar}; state max abs err "
+              f"{max_err(values, ref_values)})")
+        results[label] = (outs, values, ex)
+        profiled(eng, st, f"sharded {label}")
+
+    # the probe route and the direct gather route identically
+    o1, v1, e1 = results["gs/shared_nothing/probe"]
+    o0, v0, e0 = results["gs/shared_nothing"]
+    assert_equal(v1, v0, "gs probe route vs gather: state")
+    check_outputs(o1, o0, "gs probe route vs gather", N_INTERVALS,
+                  bitwise=True)
+    for k in e0:
+        if not np.array_equal(e1[k], e0[k]):
+            raise AssertionError(f"gs probe route vs gather: stats {k}")
+    print("e2e sharded gs: the hash-probe route gives the same bits as the "
+          "direct gather (state, outputs, exchange stats)")
 
 
 def oracle_check(cuda) -> None:
@@ -439,9 +695,19 @@ def main() -> int:
 
     rows = kernel_phase(plans(stream, cuda))
     oracle_check(cuda)
-    launches = end_to_end(stream, card, cuda)
-    profile_phase(stream, cuda)
+    from repro_torch import LAUNCHES
+    launches = {k: 0 for k in LAUNCHES}
+    single = end_to_end(stream, card, cuda, launches)
+    sharded_phase(stream, card, cuda, single, launches)
+    missing = sorted(k for k in LAUNCHES if launches[k] <= 0)
+    if missing:
+        raise AssertionError(f"kernels never launched on the driven paths: "
+                             f"{missing} ({launches})")
 
+    bm = rows["megakernel"].pop("batched")
+    print(f"kernel megakernel[batched 4 shards]: ms={bm['ms']} plain_ms="
+          f"{bm['plain_ms']} bound_ms={bm['bound'][0]} ({bm['bound'][1]}) | "
+          f"{card}")
     kernels = []
     for name, r in rows.items():
         bound_ms, bound_by = r["bound"]

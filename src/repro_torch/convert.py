@@ -5,6 +5,8 @@ helpers build the port's ``StateStore`` from a store's fields given as numpy
 arrays (for example a JAX store's ``np.asarray(store.values)`` and its
 static table fields), take one back to numpy, and move a numpy event stream
 onto a device with its dtypes kept (int32 keys, float32 values, bool flags).
+``probe_table_from_halves`` turns the reference's hash-probe table into the
+port's, so that both packages can probe the same table.
 """
 from __future__ import annotations
 
@@ -53,3 +55,12 @@ def events_to_torch(stream: Dict[str, np.ndarray], device
     dev = resolve_device(device)
     return {k: torch.from_numpy(np.ascontiguousarray(v)).to(dev)
             for k, v in stream.items()}
+
+
+def probe_table_from_halves(lo: np.ndarray, hi: np.ndarray) -> np.ndarray:
+    """The reference's hash-probe table, two float32 tables of exact 16-bit
+    key halves, as the port's int32 key table (empty halves ``0xFFFF`` ->
+    -1)."""
+    lo = np.asarray(lo).astype(np.int64)
+    hi = np.asarray(hi).astype(np.int64)
+    return ((hi << 16) | lo).astype(np.uint32).view(np.int32)

@@ -132,7 +132,10 @@ def tstream_scan_plan(store: StateStore, ops: OpBatch,
     # affine coefficients; max-table and invalid ops become identity
     a, b = affine_coeffs(funs, sops.fun, sops.operand)
     if has_max:
-        is_max_s = store.uid_is_max()[sops.uid.long()]
+        flags = store.uid_is_max()
+        is_max_s = take_along(flags.expand(tuple(sops.uid.shape[:-1])
+                                           + tuple(flags.shape[-1:])),
+                              sops.uid)
         neutralize = (is_max_s | ~sops.valid)[..., None]
     else:
         is_max_s = None
@@ -149,10 +152,11 @@ def tstream_scan_plan(store: StateStore, ops: OpBatch,
                         sops.operand, torch.full_like(sops.operand,
                                                       float("-inf")))
 
-    if ch.counts is not None and ch.counts.shape[-1] == store.values.shape[0]:
+    n_slots = store.values.shape[-2]
+    if ch.counts is not None and ch.counts.shape[-1] == n_slots:
         commit_pos, commit_ok = commit_from_histogram(ch.counts, ch.starts)
     else:
-        commit_pos, commit_ok = commit_index(sops.uid, store.values.shape[0])
+        commit_pos, commit_ok = commit_index(sops.uid, n_slots)
     return ScanPlan(sops=sops, ch=ch, af=a, bf=b, afi=None, bfi=None,
                     mx=m, mxi=None, is_max_s=is_max_s,
                     commit_pos=commit_pos, commit_ok=commit_ok)
@@ -201,24 +205,28 @@ def tstream_scan_execute(values: torch.Tensor, plan: ScanPlan,
                          pad_uid: int, *, raw: bool = False):
     """Values-dependent stage for ONE interval: O(N) gathers and elementwise
     work plus one [S+1] select.  ``raw=True`` keeps results in sorted layout.
+
+    ``values`` [S+1, W] with plan fields [N], or a stack of shard stores
+    [B, S+1, W] with plan fields [B, N] (the sharded driver's interval of
+    every shard).
     """
     sops, ch = plan.sops, plan.ch
-    n = sops.uid.shape[0]
-    v0 = values[sops.uid.long()]                               # [N, W]
+    n = sops.uid.shape[-1]
+    v0 = take_along(values, sops.uid)                          # [N, W]
     pre = plan.af * v0 + plan.bf
     post = plan.afi * v0 + plan.bfi
     if plan.mx is not None:
-        mmask = plan.is_max_s[:, None]
+        mmask = plan.is_max_s[..., None]
         pre = torch.where(mmask, torch.maximum(v0, plan.mx), pre)
         post = torch.where(mmask, torch.maximum(v0, plan.mxi), post)
 
     # commit: the last op of each chain defines the new state value
-    committed = post[plan.commit_pos.long()]                   # [S+1, W]
-    new_values = torch.where(plan.commit_ok[:, None], committed, values)
-    new_values[pad_uid] = 0.0
+    committed = take_along(post, plan.commit_pos)              # [S+1, W]
+    new_values = torch.where(plan.commit_ok[..., None], committed, values)
+    new_values[..., pad_uid, :] = 0.0
 
     # invalid (padding) ops record nothing
-    vmask = sops.valid[:, None]
+    vmask = sops.valid[..., None]
     res = dict(pre=torch.where(vmask, pre, torch.zeros_like(pre)),
                post=torch.where(vmask, post, torch.zeros_like(post)),
                success=sops.valid.clone())

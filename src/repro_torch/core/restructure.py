@@ -233,7 +233,7 @@ def _flag_at(idx: torch.Tensor, keep: torch.Tensor, n: int) -> torch.Tensor:
                       device=idx.device)
     tgt = torch.where(keep, idx, torch.full_like(idx, n)).long()
     out.scatter_(-1, tgt, torch.ones_like(tgt, dtype=torch.bool))
-    return out[..., :n]
+    return out[..., :n].contiguous()   # kernels take contiguous rows
 
 
 def _partition_chains(major: torch.Tensor, n_buckets: int, *,
@@ -244,8 +244,12 @@ def _partition_chains(major: torch.Tensor, n_buckets: int, *,
     Chains)``.  ``geometry=False`` skips seg_id/pos/seg_end, which only the
     staged scan path reads (the megakernel's light plan)."""
     n = major.shape[-1]
-    if use_kernels:
-        rank, counts = radix_partition_rank(major, n_buckets, threads=threads)
+    lead = tuple(major.shape[:-1])
+    if use_kernels:   # the kernel ranks [BN, N]: every batch row, one launch
+        rank, counts = radix_partition_rank(major.reshape(-1, n), n_buckets,
+                                            threads=threads)
+        rank = rank.reshape(major.shape)
+        counts = counts.reshape(lead + (n_buckets,))
     else:
         rank, counts = radix_partition_rank_ref(major, n_buckets)
     starts, inv, order = partition_permutation(major, rank, counts)

@@ -16,10 +16,11 @@ Two drivers share the per-interval logic:
   only the values-dependent evaluation loops over intervals, carrying the
   state.  The reference's ``lax.scan`` is that Python loop.
 
-The engine runs on the CUDA card unless built with ``device="cpu"``.  The
-chunked service API (``run_stream_chunk``, ``ensure_variant``,
-``carry_in``/``carry_out``) and the sharded driver come with later slices
-(ROADMAP A8, A9).
+The engine runs on the CUDA card unless built with ``device="cpu"``.  Built
+with a ``mesh`` (``core/mesh.ShardMesh``) it runs the sharded fused driver
+instead (``core/sharded_stream``).  The chunked service API
+(``run_stream_chunk``, ``ensure_variant``) comes with a later slice
+(ROADMAP A8).
 """
 from __future__ import annotations
 
@@ -30,7 +31,7 @@ from typing import Dict, List, Tuple
 import numpy as np
 import torch
 
-from ..convert import events_to_torch
+from .. import convert
 from ..kernels.megakernel.ops import fused_chain_eval
 from ..kernels.megakernel.ref import fused_chain_eval_ref
 from ..kernels.runtime import resolve_device
@@ -54,20 +55,41 @@ class EngineConfig:
     # threads per block for a kernel, as (kernel, value) pairs, e.g.
     # (("segscan", 128), ("radix_partition", 512)); () keeps the defaults
     kernel_block_params: tuple = ()
+    # sharded streaming: resolve uid -> owner through the hash-probe kernel
+    # instead of the direct-addressed gather (DESIGN.md §2.5)
+    use_hash_probe_route: bool = False
 
     def block_param(self, kernel: str):
         return dict(self.kernel_block_params).get(kernel)
 
 
 class DualModeEngine:
-    """The TStream engine bound to one application, on one device."""
+    """The TStream engine bound to one application, on one device.
+
+    With ``mesh`` the engine is shard-parallel: the ownership permutation
+    and routing tables are built once here, and ``run_stream`` runs the
+    whole stream through the sharded fused driver on the mesh's shards.
+    The mesh's device must be the engine's.
+    """
 
     def __init__(self, app: AppSpec, store: StateStore,
-                 cfg: EngineConfig = EngineConfig(), *, device=None):
+                 cfg: EngineConfig = EngineConfig(), *, device=None,
+                 mesh=None, layout: str = "shared_nothing",
+                 exchange_slack: float = 2.0):
         self.app = app
         self.cfg = cfg
         self.device = resolve_device(device)
         self.init_store = store.to(self.device)
+        self._sharded = None
+        self.last_exchange_stats = None
+        if mesh is not None:
+            if mesh.device != self.device:
+                raise ValueError(f"mesh on {mesh.device}, engine on "
+                                 f"{self.device}: they must be the same")
+            from .sharded_stream import ShardedStream
+            self._sharded = ShardedStream(app, self.init_store, cfg, mesh,
+                                          layout,
+                                          exchange_slack=exchange_slack)
 
     def step(self, values: torch.Tensor, events: Dict, ts_base: int
              ) -> Tuple[Dict, torch.Tensor, EngineStats]:
@@ -75,7 +97,7 @@ class DualModeEngine:
         values = torch.as_tensor(values, dtype=torch.float32).to(self.device)
         store = dataclasses.replace(self.init_store, values=values)
         res, ebs, values, stats = _step_impl(
-            store, events_to_torch(events, self.device), ts_base,
+            store, convert.events_to_torch(events, self.device), ts_base,
             app=self.app, cfg=self.cfg)
         outs = self._outs(_stack([res]), _stack([ebs]), 1)
         return outs[0], values, stats
@@ -90,9 +112,21 @@ class DualModeEngine:
         dropped.  Returns ``(outputs, values')``: a list with one dict of
         numpy arrays per interval, and the final state on the engine's
         device.  Both drivers give the same outputs and final state.
+
+        An engine built with a ``mesh`` runs the sharded fused driver
+        (fused only); its exchange stats land in ``last_exchange_stats``
+        and overflow drops are logged.
         """
         values = torch.as_tensor(values, dtype=torch.float32).to(
             self.device, copy=True)
+        if self._sharded is not None:
+            if not fused:
+                raise ValueError("the sharded run_stream has no unfused "
+                                 "host loop: pass fused=True")
+            outs, values = self._sharded.run_stream(values, event_stream,
+                                                    punct_interval)
+            self.last_exchange_stats = self._sharded.last_stats
+            return outs, values
         n = len(next(iter(event_stream.values())))
         n_intervals = n // punct_interval
         if n_intervals == 0:
@@ -101,7 +135,7 @@ class DualModeEngine:
             res_l, ebs_l = [], []
             for i in range(n_intervals):
                 sl = slice(i * punct_interval, (i + 1) * punct_interval)
-                batch = events_to_torch(
+                batch = convert.events_to_torch(
                     {k: np.asarray(v)[sl] for k, v in event_stream.items()},
                     self.device)
                 store = dataclasses.replace(self.init_store, values=values)
@@ -117,9 +151,33 @@ class DualModeEngine:
             v = np.asarray(v)[: n_intervals * punct_interval]
             batched[k] = v.reshape((n_intervals, punct_interval) + v.shape[1:])
         res_all, ebs_all, values, _ = _fused_impl(
-            values, events_to_torch(batched, self.device), 0,
+            values, convert.events_to_torch(batched, self.device), 0,
             app=self.app, cfg=self.cfg, store=self.init_store)
         return self._outs(res_all, ebs_all, n_intervals), values
+
+    # -- carry and ownership (reference: scheduler.py, elastic carry API) --
+    def carry_in(self, values):
+        """Canonical [S+1, W] values -> the driver's resident carry."""
+        if self._sharded is not None:
+            return self._sharded.carry_in(values)
+        return values
+
+    def carry_out(self, carry):
+        """Resident carry -> canonical [S+1, W] values."""
+        if self._sharded is not None:
+            return self._sharded.carry_out(carry)
+        return carry
+
+    @property
+    def owners(self):
+        """Current ownership overrides (() = pure striping)."""
+        return self._sharded.owners if self._sharded is not None else ()
+
+    def rebind_ownership(self, overrides) -> None:
+        """Rebind the sharded plan to ``overrides`` without moving data;
+        identity on the single-device driver."""
+        if self._sharded is not None and overrides != self._sharded.owners:
+            self._sharded.set_ownership(overrides)
 
     def _outs(self, res_all, ebs_all, n_intervals: int) -> List[Dict]:
         """Shared output program + one bulk device-to-host copy, split per

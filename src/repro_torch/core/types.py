@@ -160,6 +160,9 @@ class StateStore:
     Slot S is the padding chain.  Table t owns slots
     ``[table_base[t], table_base[t] + table_capacity[t])``; ``table_is_max``
     marks max-typed tables, ``slot_is_max`` optionally overrides per slot.
+    The sharded driver's local store may stack one block per shard
+    (``values`` ``[n_shards, S+1, W]``, ``slot_is_max`` ``[n_shards, S+1]``;
+    ``ownership.make_local_store``).
     """
 
     values: torch.Tensor                   # f32[S+1, W]
@@ -170,11 +173,11 @@ class StateStore:
 
     @property
     def n_slots(self) -> int:
-        return self.values.shape[0] - 1
+        return self.values.shape[-2] - 1
 
     @property
     def pad_uid(self) -> int:
-        return self.values.shape[0] - 1
+        return self.values.shape[-2] - 1
 
     @property
     def device(self) -> torch.device:
@@ -187,7 +190,7 @@ class StateStore:
         """bool[S+1]: whether each slot belongs to a max-type table."""
         if self.slot_is_max is not None:
             return self.slot_is_max
-        flags = torch.zeros(self.values.shape[0], dtype=torch.bool,
+        flags = torch.zeros(self.values.shape[-2], dtype=torch.bool,
                             device=self.values.device)
         for t, (b, c) in enumerate(zip(self.table_base, self.table_capacity)):
             if self.table_is_max[t]:

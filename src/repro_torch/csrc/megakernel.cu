@@ -1,8 +1,11 @@
-// Fused chain evaluation of one sorted interval: coefficients, segmented
-// affine scan, state gather, apply and commit in one launch.
+// Fused chain evaluation of sorted intervals: coefficients, segmented affine
+// scan, state gather, apply and commit in one launch, one block per problem.
 //
 // Replaces: src/repro/kernels/megakernel/kernel.py::fused_chain_pallas (body
-// _fused_chain_kernel).  For one interval of N sorted rows over W lanes:
+// _fused_chain_kernel).  A launch takes a batch of independent problems, each
+// one interval of N sorted rows over W lanes with its own state block of S
+// slots (the single-device driver: a batch of one; the sharded driver: one
+// interval of every shard).  For each problem:
 //   a, b  = (a_lut[fun], b_lut[fun] ? operand : 0), identity (1, 0) if invalid
 //   (A, B) = exclusive segmented scan of the maps v -> a*v + b, (Ai, Bi) = the
 //           row's own map after it
@@ -27,7 +30,12 @@
 // matmul, and each chain's last row stores its post with a plain store: every
 // slot has one writer, so no atomics.  All gathers finish before the first
 // commit store (the unmasked posts wait in shared memory across a barrier),
-// and the commit writes the carried state in place.
+// and the commit writes the carried state in place.  Problems share nothing,
+// so block b reads and writes only problem b's rows and state block (strides
+// N and S * W); one block per problem keeps each problem's shared-memory
+// need at one problem's: flattening every shard into one block would put
+// GS's 4 shards x 2,504 received rows (slack 2) near the one-block limit of
+// about 13,000 rows x lanes.
 #include "common.cuh"
 
 #include <limits.h>
@@ -58,8 +66,19 @@ __global__ void fused_chain_kernel(const uint8_t* __restrict__ seg_start,
                                    float* __restrict__ values,
                                    float* __restrict__ pre,
                                    float* __restrict__ post, int n, int w,
-                                   int pad_uid) {
+                                   int slots, int pad_uid) {
   extern __shared__ float smem[];
+  {  // this block's problem
+    const int64_t b = blockIdx.x;
+    seg_start += b * n;
+    fun += b * n;
+    valid += b * n;
+    uid += b * n;
+    operand += b * n * w;
+    values += b * slots * w;
+    pre += b * n * w;
+    post += b * n * w;
+  }
   const int nw = n * w;
   float* abuf[2] = {smem, smem + nw};
   float* bbuf[2] = {smem + 2 * nw, smem + 3 * nw};
@@ -148,22 +167,26 @@ REPRO_EXPORT int megakernel_smem_bytes(int n, int w) {
   return bytes > INT_MAX ? INT_MAX : static_cast<int>(bytes);
 }
 
-// seg_start, valid: u8[n]; fun, uid: i32[n]; operand, pre, post: f32[n, w];
-// a_lut: f32[n_funs]; b_lut: u8[n_funs]; values: f32[S, w], updated in place.
+// seg_start, valid: u8[batch, n]; fun, uid: i32[batch, n]; operand, pre,
+// post: f32[batch, n, w]; a_lut: f32[n_funs]; b_lut: u8[n_funs]; values:
+// f32[batch, slots, w], updated in place.
 REPRO_EXPORT int megakernel_fused_chain(const void* seg_start, const void* fun,
                                         const void* valid, const void* uid,
                                         const void* operand, const void* a_lut,
                                         const void* b_lut, void* values,
-                                        void* pre, void* post, int n, int w,
-                                        int pad_uid, int threads, void* stream) {
+                                        void* pre, void* post, int batch, int n,
+                                        int w, int slots, int pad_uid,
+                                        int threads, void* stream) {
   const size_t smem = static_cast<size_t>(megakernel_smem_bytes(n, w));
   cudaError_t err = set_smem(fused_chain_kernel, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  fused_chain_kernel<<<1, threads, smem, static_cast<cudaStream_t>(stream)>>>(
+  fused_chain_kernel<<<batch, threads, smem,
+                       static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint8_t*>(seg_start), static_cast<const int32_t*>(fun),
       static_cast<const uint8_t*>(valid), static_cast<const int32_t*>(uid),
       static_cast<const float*>(operand), static_cast<const float*>(a_lut),
       static_cast<const uint8_t*>(b_lut), static_cast<float*>(values),
-      static_cast<float*>(pre), static_cast<float*>(post), n, w, pad_uid);
+      static_cast<float*>(pre), static_cast<float*>(post), n, w, slots,
+      pad_uid);
   return static_cast<int>(cudaGetLastError());
 }

@@ -5,7 +5,10 @@ radix_partition — stable within-bucket rank + histogram: the restructure
 segscan         — exclusive segmented affine and max scans of the chain
                   coefficients (the staged rung)
 megakernel      — fused coefficient / scan / gather / commit evaluation of
-                  one interval (the megakernel rung)
+                  one interval, or of one interval of every shard (the
+                  megakernel rung)
+hash_probe      — key -> slot in a bucketed hash table: the sharded
+                  driver's owner lookup under ``use_hash_probe_route``
 
 Each directory holds ``ops.py`` (the wrapper: kernel on a CUDA tensor, twin
 on a CPU one) and ``ref.py`` (the plain-PyTorch twin); the CUDA sources are

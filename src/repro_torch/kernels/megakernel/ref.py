@@ -4,7 +4,7 @@ This is the staged ``plan -> coefs -> execute`` operation sequence inlined op
 for op (the same LUT coefficient expansion, ``segmented_scan_affine`` and
 compose / apply / commit arithmetic), so it equals the staged path bit for
 bit.  It is the CPU path of ``ops.fused_chain_eval`` and the kernel's oracle
-on the card.
+on the card, and takes the same leading batch of problems.
 """
 from __future__ import annotations
 
@@ -15,14 +15,14 @@ def fused_chain_eval_ref(values: torch.Tensor, sops, ch, pad_uid: int, *,
                          a_lut: torch.Tensor, b_lut: torch.Tensor):
     from ...core.engines import scan_stats
     from ...core.restructure import (commit_from_histogram,
-                                     segmented_scan_affine)
+                                     segmented_scan_affine, take_along)
 
-    n = sops.uid.shape[0]
+    n = sops.uid.shape[-1]
     fid = sops.fun.long()
-    a = a_lut.to(sops.operand.dtype)[fid][:, None].expand(sops.operand.shape)
-    b = torch.where(b_lut[fid][:, None], sops.operand,
+    a = a_lut.to(sops.operand.dtype)[fid][..., None].expand(sops.operand.shape)
+    b = torch.where(b_lut[fid][..., None], sops.operand,
                     torch.zeros_like(sops.operand))
-    neutralize = (~sops.valid)[:, None]
+    neutralize = (~sops.valid)[..., None]
     a = torch.where(neutralize, torch.ones_like(a), a)
     b = torch.where(neutralize, torch.zeros_like(b), b)
 
@@ -30,16 +30,16 @@ def fused_chain_eval_ref(values: torch.Tensor, sops, ch, pad_uid: int, *,
     Ai = a * A
     Bi = a * B + b
 
-    v0 = values[sops.uid.long()]
+    v0 = take_along(values, sops.uid)
     pre = A * v0 + B
     post = Ai * v0 + Bi
 
     commit_pos, commit_ok = commit_from_histogram(ch.counts, ch.starts)
-    committed = post[commit_pos.long()]
-    new_values = torch.where(commit_ok[:, None], committed, values)
-    new_values[pad_uid] = 0.0
+    committed = take_along(post, commit_pos)
+    new_values = torch.where(commit_ok[..., None], committed, values)
+    new_values[..., pad_uid, :] = 0.0
 
-    vmask = sops.valid[:, None]
+    vmask = sops.valid[..., None]
     res = dict(pre=torch.where(vmask, pre, torch.zeros_like(pre)),
                post=torch.where(vmask, post, torch.zeros_like(post)),
                success=sops.valid.clone())

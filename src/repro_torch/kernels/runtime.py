@@ -14,7 +14,8 @@ from typing import Optional, Union
 
 import torch
 
-KERNELS = ("radix_partition", "segscan_affine", "segscan_max", "megakernel")
+KERNELS = ("radix_partition", "segscan_affine", "segscan_max", "megakernel",
+           "hash_probe")
 
 LAUNCHES = {k: 0 for k in KERNELS}
 

@@ -6,9 +6,13 @@ machine that has only PyTorch:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
-Bars: radix_partition and the megakernel bitwise; the segscans to
-rtol = atol = 1e-5 (the kernel associates a segment's sums differently
-from the twin's Hillis-Steele sweep).  Shapes the kernels cannot take raise.
+Bars: radix_partition, the megakernel (one problem or a batch) and
+hash_probe bitwise; the segscans to rtol = atol = 1e-5 (the kernel
+associates a segment's sums differently from the twin's Hillis-Steele
+sweep).  Shapes the kernels cannot take raise.  The sharded driver on the
+card is held to the single-device driver on the card: bitwise on the
+megakernel rung, to rtol = atol = 1e-5 where the staged rung's segscans run
+(their association depends on where a chain lies among the kernel's tiles).
 """
 import numpy as np
 import pytest
@@ -19,7 +23,11 @@ from repro_torch.apps import ALL_APPS
 from repro_torch.core import types as T
 from repro_torch.core.engines import simple_affine_luts
 from repro_torch.core.restructure import restructure
+from repro_torch.core.mesh import ShardMesh
 from repro_torch.core.scheduler import DualModeEngine, EngineConfig
+from repro_torch.core.types import tree_index
+from repro_torch.kernels.hash_probe.ops import hash_probe
+from repro_torch.kernels.hash_probe.ref import build_table, hash_probe_ref
 from repro_torch.kernels.megakernel.ops import fused_chain_eval
 from repro_torch.kernels.megakernel.ref import fused_chain_eval_ref
 from repro_torch.kernels.radix_partition.ops import radix_partition_rank
@@ -202,3 +210,113 @@ def test_engine_on_card_matches_cpu(app_name, method):
     else:
         torch.testing.assert_close(v1.cpu(), v0, rtol=1e-5, atol=1e-5)
     assert_outputs_close(o1, o0, f"{app_name} card vs cpu")
+
+
+@pytest.mark.parametrize("n_keys,n_buckets,n_queries", [
+    (10_000, 2500, 1_000_000), (200, 64, 400_000), (50, 64, 1),
+    (4000, 2048, 1000)])
+def test_hash_probe_matches_twin(n_keys, n_buckets, n_queries):
+    dev = need_card()
+    rng = np.random.default_rng(n_keys + n_queries)
+    keys = (np.arange(n_keys, dtype=np.int32) if n_keys != 4000 else
+            rng.choice(2**31 - 1, n_keys, replace=False).astype(np.int32))
+    table = torch.from_numpy(build_table(keys, n_buckets)).to(dev)
+    q = rng.choice(keys, n_queries).astype(np.int32)
+    if n_queries >= 8:   # absent keys, and keys past the sign bit
+        q[:4] = [-1, -(2**31), 2**31 - 1, n_keys + 3]
+    q = torch.from_numpy(q).to(dev)
+    reset_launches()
+    got = hash_probe(q, table)
+    assert LAUNCHES["hash_probe"] == 1
+    want = hash_probe_ref(q, table)
+    assert torch.equal(got, want)
+    for threads in (32, 96, 1024):
+        assert torch.equal(hash_probe(q, table, threads=threads), want)
+
+
+def test_hash_probe_raises_on_what_it_cannot_take():
+    dev = need_card()
+    table = torch.full((64, 8), -1, dtype=torch.int32, device=dev)
+    q = torch.zeros(10, dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="int32"):
+        hash_probe(q.long(), table)
+    with pytest.raises(ValueError, match="n_buckets"):
+        hash_probe(q, table[:, :4].contiguous())
+    with pytest.raises(ValueError, match="multiple of 32"):
+        hash_probe(q, table, threads=48)
+
+
+def test_batched_megakernel_matches_twin_and_single_calls():
+    """One launch over a batch of problems (the sharded driver's interval of
+    every shard) equals the twin and one launch per problem, bitwise."""
+    dev = need_card()
+    rng = np.random.default_rng(3)
+    b, s, n = 4, 2000, 1500
+    idx = torch.arange(n, dtype=torch.int32).repeat(b, 1)
+    uid = rng.integers(0, s, (b, n))
+    uid[1] = 5                                       # one long chain
+    ops = T.OpBatch(
+        uid=torch.from_numpy(uid.astype(np.int32)), ts=idx // 4,
+        txn=idx // 4, slot=idx % 4,
+        kind=torch.zeros((b, n), dtype=torch.int32),
+        fun=torch.from_numpy(rng.integers(0, len(FUNS), (b, n)).astype(
+            np.int32)),
+        gate=torch.full((b, n), -1, dtype=torch.int32),
+        operand=torch.from_numpy(rng.normal(size=(b, n, 2)).astype(
+            np.float32)),
+        valid=torch.from_numpy(rng.random((b, n)) > 0.1))
+    ops = T.OpBatch(**{k: v.to(dev) for k, v in vars(ops).items()})
+    sops, ch = restructure(ops, s, rowmajor_ts=True, light=True,
+                           method="partition", geometry=False,
+                           use_kernels=False)
+    a_lut, b_lut = simple_affine_luts(FUNS, dev)
+    values = torch.randn(b, s + 1, 2, device=dev)
+    reset_launches()
+    res, vals, _ = fused_chain_eval(values.clone(), sops, ch, s,
+                                    a_lut=a_lut, b_lut=b_lut)
+    assert LAUNCHES["megakernel"] == 1
+    res0, vals0, _ = fused_chain_eval_ref(values.clone(), sops, ch, s,
+                                          a_lut=a_lut, b_lut=b_lut)
+    assert torch.equal(vals, vals0)
+    for k in res0:
+        assert torch.equal(res[k], res0[k]), k
+    for i in range(b):
+        r1, v1, _ = fused_chain_eval(values[i].clone(), tree_index(sops, i),
+                                     tree_index(ch, i), s, a_lut=a_lut,
+                                     b_lut=b_lut)
+        assert torch.equal(v1, vals[i])
+        for k in r1:
+            assert torch.equal(r1[k], res[k][i]), k
+
+
+@pytest.mark.parametrize("app_name,method,layout,shape,names,probe", [
+    ("gs", "megakernel", "shared_nothing", (4,), ("dev",), True),
+    ("gs", "megakernel", "shared_per_socket", (2, 2), ("socket", "core"),
+     False),
+    ("gs", "partition", "shared_everything", (4,), ("dev",), False),
+    ("tp", "partition", "shared_per_socket", (2, 2), ("socket", "core"),
+     True)])
+def test_sharded_on_card_matches_single_device_on_card(
+        app_name, method, layout, shape, names, probe):
+    dev = need_card()
+    app = ALL_APPS[app_name]
+    stream = app.gen_events(np.random.default_rng(11), 4 * 128)
+    store = app.make_store(device=dev)
+    cfg = EngineConfig(restructure_method=method, use_hash_probe_route=probe)
+    o0, v0 = DualModeEngine(app, store, cfg, device=dev).run_stream(
+        store.values, stream, 128)
+    eng = DualModeEngine(app, store, cfg, device=dev,
+                         mesh=ShardMesh(shape, names, device=dev),
+                         layout=layout, exchange_slack=8.0)
+    reset_launches()
+    o1, v1 = eng.run_stream(store.values, stream, 128)
+    assert int(np.sum(eng.last_exchange_stats["dropped"])) == 0
+    assert LAUNCHES["radix_partition"] == 2       # exchange + restructure
+    assert LAUNCHES["hash_probe"] == (1 if probe else 0)
+    if method == "megakernel":
+        assert LAUNCHES["megakernel"] == 4
+        assert torch.equal(v1, v0)
+    else:
+        assert LAUNCHES["segscan_affine"] == 1
+        torch.testing.assert_close(v1, v0, rtol=1e-5, atol=1e-5)
+    assert_outputs_close(o1, o0, f"{app_name}/{layout} sharded vs single")

@@ -9,6 +9,8 @@
   path as its ``threads`` argument.
 * ``chip_smoke.py`` fails, and prints no result, without a card and when it
   stands alone in a directory.
+* Every kernel that counts launches has a CUDA source, a wrapper and a
+  plain-PyTorch twin.
 """
 import ast
 import importlib
@@ -27,7 +29,7 @@ from repro_torch.convert import (events_to_torch, store_from_numpy,
                                  store_to_numpy)
 from repro_torch.core.scheduler import DualModeEngine, EngineConfig
 from repro_torch.core.types import make_store
-from repro_torch.kernels.runtime import resolve_device
+from repro_torch.kernels.runtime import KERNELS, LAUNCHES, resolve_device
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
@@ -189,3 +191,17 @@ def test_chip_smoke_fails_without_card_or_repo(tmp_path):
     for proc in runs:
         assert proc.returncode != 0, proc.stdout[-2000:]
         assert '"ok"' not in proc.stdout, proc.stdout[-2000:]
+
+
+@pytest.mark.parametrize("name", KERNELS)
+def test_every_kernel_has_source_wrapper_and_twin(name):
+    """``runtime.KERNELS`` names each launch counter; the two segscans share
+    one source and one module directory."""
+    stem = "segscan" if name.startswith("segscan_") else name
+    port = ROOT / "src" / "repro_torch"
+    assert (port / "csrc" / f"{stem}.cu").is_file()
+    for f in ("ops.py", "ref.py"):
+        assert (port / "kernels" / stem / f).is_file(), f
+    assert name in LAUNCHES
+    importlib.import_module(f"repro_torch.kernels.{stem}.ops")
+    importlib.import_module(f"repro_torch.kernels.{stem}.ref")
