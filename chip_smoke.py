@@ -6,29 +6,34 @@ Run from the repository root:  python3 chip_smoke.py [--seed N]
 1. Prints the card (nvidia-smi name and power limit, torch's device name).
 2. Builds the CUDA kernels from ``src/repro_torch/csrc`` (timed as set-up).
 3. Kernel phase: at the main paths' shapes, holds each kernel against its
-   plain-PyTorch twin on the card (radix_partition, the megakernel, alone
-   and batched over 4 shards, and hash_probe bitwise; the segscans to
-   rtol = atol = 1e-5) and times both with CUDA events; runs each kernel at
-   two other block sizes, which must change no bit; and prints the rung
-   that ``restructure_method="auto"`` resolves to at these shapes.
+   plain-PyTorch twin on the card (radix_partition, the megakernel and
+   hash_probe bitwise; the segscans to rtol = atol = 1e-5) and times both
+   with CUDA events; runs each kernel at 64, 512 and 1024 threads per
+   block, which must change no bit; and prints the rung that
+   ``restructure_method="auto"`` resolves to at these shapes.  The
+   megakernel is timed on the whole stream in one call (GS: 200 intervals;
+   sharded GS: 200 intervals of 4 shards), held against its stream twin
+   and a loop of its per-interval twin, and on one interval (alone and
+   batched over 4 shards).
 4. End-to-end phase, single device: ``DualModeEngine.run_stream(fused=True)``
-   on the card for GS (10,000 keys, theta 0.6, megakernel rung) and TP (100
-   segments, theta 0.2, partition rung), 200 intervals of 500 events each.
-   The final state is held against the port's CPU run of the same seeded
+   on the card for GS (10,000 keys, theta 0.6, megakernel rung: one
+   megakernel call, three launches, for the stream) and TP (100 segments,
+   theta 0.2, partition rung), 200 intervals of 500 events each.  The
+   final state is held against the port's CPU run of the same seeded
    stream (GS bitwise, TP rtol 1e-5) and the post-processed outputs to
    rtol = atol = 1e-5; a small stream is held against the sequential
    ``lock`` oracle on the CPU.  Both apps also run once on the default
    ``"auto"`` rung, held to the forced rung's card run to 1e-5.
 5. Sharded phase: the sharded fused driver on a ``ShardMesh`` on the card,
-   same streams: GS on 4 shards, ``shared_nothing``, megakernel rung, with
-   and without the hash-probe route (the two bitwise equal in state,
-   outputs and exchange stats, and bitwise equal to the single-device
-   megakernel run); TP on a (2, 2) socket x core mesh,
-   ``shared_per_socket``, partition rung, and GS ``shared_everything`` on 4
-   shards, partition rung, 20 intervals, each held to the single-device
-   card run of the same rung to rtol = atol = 1e-5 (the CUDA segscan's
-   association depends on where a chain lies among its tiles).  No run may
-   drop an op.
+   same streams: GS on 4 shards, ``shared_nothing``, megakernel rung (one
+   megakernel call for every shard's stream), with and without the
+   hash-probe route (the two bitwise equal in state, outputs and exchange
+   stats, and bitwise equal to the single-device megakernel run); TP on a
+   (2, 2) socket x core mesh, ``shared_per_socket``, partition rung, and GS
+   ``shared_everything`` on 4 shards, partition rung, 20 intervals, each
+   held to the single-device card run of the same rung to rtol = atol =
+   1e-5 (the CUDA segscan's association depends on where a chain lies
+   among its tiles).  No run may drop an op.
 6. Every driven run of phases 4 and 5 follows one uncounted warm-up run of
    the same engine and stream, sets the launch counters to 0 just before it
    and reads them just after; every kernel must have launched.  Each run
@@ -44,7 +49,6 @@ from __future__ import annotations
 
 import argparse
 import json
-import math
 import os
 import subprocess
 import sys
@@ -178,13 +182,12 @@ def plans(stream, dev):
 def shard_inputs(gs, dev):
     """The sharded GS path's kernel inputs (4 shards, shared_nothing), built
     with the plain path on the card: the hash probe's table and its queries
-    (every op's uid, 1,000,000 for the stream), and the batched megakernel's
-    first interval of every shard."""
+    (every op's uid, 1,000,000 for the stream), and the megakernel's stream
+    of every shard's received rows."""
     from repro_torch.convert import events_to_torch
     from repro_torch.core.mesh import ShardMesh
     from repro_torch.core.restructure import restructure
     from repro_torch.core.scheduler import DualModeEngine, EngineConfig
-    from repro_torch.core.types import tree_index
 
     cfg = EngineConfig(restructure_method="megakernel", use_kernels=False,
                        use_hash_probe_route=True)
@@ -193,8 +196,8 @@ def shard_inputs(gs, dev):
     sh = eng._sharded
     rops, _, _, cap = sh.route(events_to_torch(gs["events"], dev))
     lpad = sh.own.per
-    sops, ch = restructure(tree_index(rops, 0), lpad, rowmajor_ts=True,
-                           light=True, method="partition", use_kernels=False,
+    sops, ch = restructure(rops, lpad, rowmajor_ts=True, light=True,
+                           method="partition", use_kernels=False,
                            geometry=False)
     values = sh.carry_in(gs["store"].values).reshape(4, lpad + 1, -1)
     print(f"sharded gs: 4 shards x {rops.uid.shape[-1]} received rows per "
@@ -203,6 +206,19 @@ def shard_inputs(gs, dev):
     return dict(table=sh.probe.table,
                 queries=gs["ops"].uid.reshape(-1).contiguous(),
                 values=values, sops=sops, ch=ch, lpad=lpad)
+
+
+def work(kernel, x, k=None):
+    """(bytes, operations) of a radix_partition or segscan call on ``x``
+    (keys [bn, n] over k buckets, or coefficient rows [n, W]): each input
+    read once, each output written once."""
+    if kernel == "radix_partition":     # keys in; ranks and counts out
+        bn, n = x.shape
+        return 4.0 * (2 * bn * n + bn * k), float(bn * n)
+    n, w = x.shape                      # flags and coefficients in; scans out
+    if kernel == "segscan_affine":
+        return n + 16.0 * n * w, 3.0 * n * w
+    return n + 8.0 * n * w, 1.0 * n * w
 
 
 def kernel_phase(p) -> dict:
@@ -231,13 +247,13 @@ def kernel_phase(p) -> dict:
         assert_equal(c1, c0, f"radix_partition counts ({name})")
         ms, host = cuda_ms(lambda: radix_partition_rank(keys, k), 20)
         plain, _ = cuda_ms(lambda: radix_partition_rank_ref(keys, k), 5)
-        bn, n = keys.shape
         print(f"kernel radix_partition[{name}] keys={list(keys.shape)} K={k}: "
               f"max_abs_err=0 ms={ms} plain_ms={plain} host_ms={host}")
+        nb, n_ops = work("radix_partition", keys, k)
         rad["ms"] += ms
         rad["plain_ms"] += plain
-        rad["bytes"] += 4.0 * (2 * bn * n + bn * k)
-        rad["ops"] += float(bn * n)
+        rad["bytes"] += nb
+        rad["ops"] += n_ops
     rows["radix_partition"] = dict(
         replaces="src/repro/kernels/radix_partition/kernel.py:78",
         source="src/repro_torch/csrc/radix_partition.cu", ms=rad["ms"],
@@ -259,14 +275,12 @@ def kernel_phase(p) -> dict:
     torch.cuda.synchronize()
     for what, x, y in (("A", A1, A0), ("B", B1, B0), ("M", M1, M0)):
         assert_close(x.cpu().numpy(), y.cpu().numpy(), f"segscan {what}")
-    for name, fn, ref, err, nb, nops in (
+    for name, fn, ref, err in (
             ("segscan_affine", lambda: segscan_affine(a, b, flags),
              lambda: segscan_affine_ref(flags, a, b),
-             max(max_err(A1, A0), max_err(B1, B0)),
-             n + 16.0 * n * w, 3.0 * n * w),
+             max(max_err(A1, A0), max_err(B1, B0))),
             ("segscan_max", lambda: segscan_max(m, flags),
-             lambda: segscan_max_ref(flags, m), max_err(M1, M0),
-             n + 8.0 * n * w, 1.0 * n * w)):
+             lambda: segscan_max_ref(flags, m), max_err(M1, M0))):
         ms, host = cuda_ms(fn, 20)
         plain, _ = cuda_ms(ref, 3)
         print(f"kernel {name} rows={n} W={w}: max_abs_err={err} ms={ms} "
@@ -276,89 +290,155 @@ def kernel_phase(p) -> dict:
                       if name == "segscan_affine" else
                       "src/repro/kernels/segscan/kernel.py:151"),
             source="src/repro_torch/csrc/segscan.cu", ms=ms, plain_ms=plain,
-            err=err, bound=bound(nb, nops))
+            err=err, bound=bound(*work(name, a)))
 
-    # megakernel: one GS interval (5,000 rows, W = 1, 10,001 slots); bitwise
+    # megakernel: GS's whole stream in one call (200 x 5,000 rows, W = 1,
+    # 10,001 slots), then sharded GS's; bitwise.  The JSON row is GS's.
     store = p["gs"]["store"]
     sops_all, ch_all = p["gs"]["pres"]
-    sops, ch = tree_index(sops_all, 0), tree_index(ch_all, 0)
     a_lut, b_lut = simple_affine_luts(p["gs"]["app"].funs, store.device)
-    v1 = store.values.clone()
-    res1, v1, _ = fused_chain_eval(v1, sops, ch, store.pad_uid,
-                                   a_lut=a_lut, b_lut=b_lut)
-    res0, v0, _ = fused_chain_eval_ref(store.values.clone(), sops, ch,
-                                       store.pad_uid, a_lut=a_lut,
-                                       b_lut=b_lut)
-    torch.cuda.synchronize()
-    assert_equal(v1, v0, "megakernel values")
-    for k in res0:
-        assert_equal(res1[k], res0[k], f"megakernel {k}")
-    scratch = store.values.clone()
-    ms, host = cuda_ms(lambda: fused_chain_eval(
-        scratch, sops, ch, store.pad_uid, a_lut=a_lut, b_lut=b_lut), 50)
-    plain, _ = cuda_ms(lambda: fused_chain_eval_ref(
-        store.values, sops, ch, store.pad_uid, a_lut=a_lut, b_lut=b_lut), 10)
-    n, w = sops.operand.shape
-    s = store.values.shape[0]
-    steps = math.ceil(math.log2(n)) if n > 1 else 0
-    chains = int(ch.n_chains)
-    commits = int((ch.counts[:store.pad_uid] > 0).sum())
-    mk_bytes = mega_bytes(n, w, chains, commits, a_lut.numel())
-    print(f"kernel megakernel rows={n} W={w} slots={s} chains={chains}: "
-          f"max_abs_err=0 ms={ms} plain_ms={plain} host_ms={host} "
-          f"bytes={mk_bytes}")
-    rows["megakernel"] = dict(
-        replaces="src/repro/kernels/megakernel/kernel.py:119",
-        source="src/repro_torch/csrc/megakernel.cu", ms=ms, plain_ms=plain,
-        err=0.0, bound=bound(mk_bytes, 3.0 * steps * n * w + 8.0 * n * w))
-
-    rows["megakernel"]["batched"] = batched_megakernel(p["shard"], a_lut,
-                                                       b_lut)
+    rows["megakernel"] = stream_megakernel(
+        "gs", store.values, sops_all, ch_all, store.pad_uid, a_lut, b_lut)
+    sh = p["shard"]
+    rows["megakernel"]["sharded"] = stream_megakernel(
+        "sharded gs", sh["values"], sh["sops"], sh["ch"], sh["lpad"], a_lut,
+        b_lut)
+    one = slice(0, 1)
+    sops, ch = tree_index(sops_all, one), tree_index(ch_all, one)
+    rows["megakernel"]["interval"] = interval_megakernel(
+        "interval", store.values, sops, ch, store.pad_uid, a_lut, b_lut)
+    rows["megakernel"]["batched"] = interval_megakernel(
+        "batched 4 shards", sh["values"], tree_index(sh["sops"], one),
+        tree_index(sh["ch"], one), sh["lpad"], a_lut, b_lut)
     rows["hash_probe"] = hash_probe_row(p["shard"])
-    block_size_check(p, plan, (sops, ch, a_lut, b_lut))
+    block_size_check(p, plan, (sops_all, ch_all, a_lut, b_lut))
     return rows
 
 
-def mega_bytes(n, w, chains, commits, n_luts) -> float:
-    """Least bytes of one megakernel problem: per row its flag, valid, fun
-    and uid (10 B) and its operand, pre and post (12 B a lane); per chain
-    one gather of its slot, and per chain other than the pad's one commit;
-    the pad slot's zeroing and the LUTs."""
-    return (10.0 * n + 12.0 * n * w + 4.0 * (chains + commits + 1) * w
-            + 5.0 * n_luts)
+def mega_work(values, sops, ch, pad_uid, n_luts):
+    """(bytes, operations) of one megakernel call on this data.
+
+    Bytes: each input of the function read once and each output written
+    once: per row its chain-start flag, valid, fun, uid and flat position
+    (14 B) and its success flag (1 B); per row and lane its operand, pre
+    and post (12 B); the state in and out (8 B a slot and lane); the LUTs.
+    The slot histograms are left out: the function finds each chain's end
+    from the flags, and only this design reads them.  Operations: the
+    scan's 3 per row, lane and step for the ceil(log2 L) steps this data
+    needs (L each interval's longest chain other than the pad chain, or
+    the pad chain where a row of it is valid), 8 per row and lane to
+    compose and apply, 2 per touched slot and lane for the carry."""
+    w = values.shape[-1]
+    rows = sops.uid.numel()
+    pad_valid = (sops.valid & (sops.uid == pad_uid)).any(dim=-1)
+    longest = torch.maximum(
+        ch.counts[..., :pad_uid].amax(dim=-1),
+        torch.where(pad_valid, ch.counts[..., pad_uid], 0)).double()
+    steps = torch.ceil(torch.log2(torch.clamp(longest, min=1)))
+    n = sops.uid.shape[-1]
+    touched = int((ch.counts[..., :pad_uid] > 0).sum())
+    nbytes = (15.0 * rows + 12.0 * rows * w + 8.0 * values.numel()
+              + 5.0 * n_luts)
+    n_ops = (3.0 * float(steps.sum()) * n * w + 8.0 * rows * w
+             + 2.0 * touched * w)
+    return nbytes, n_ops
 
 
-def batched_megakernel(sh, a_lut, b_lut) -> dict:
-    """The megakernel as the sharded GS path launches it: the first interval
-    of all 4 shards in one launch, one block each; bitwise against the twin."""
+def phase_ms(fn, iters, names) -> dict:
+    """Device ms per call of each named kernel over ``iters`` calls of
+    ``fn``, from torch.profiler ("not measured" if it sees none)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for name in names:
+        t = sum(e.self_device_time_total for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA and name in e.key)
+        out[name] = t / 1e3 / iters if t > 0 else "not measured"
+    return out
+
+
+def stream_megakernel(label, values, sops, ch, pad_uid, a_lut, b_lut) -> dict:
+    """The megakernel on a whole stream in one call: bitwise against its
+    stream twin and a loop of its per-interval twin; timed per call."""
+    from repro_torch import LAUNCHES
+    from repro_torch.core.types import tree_index
+    from repro_torch.kernels.megakernel.ops import fused_chain_eval
+    from repro_torch.kernels.megakernel.ref import (fused_chain_eval_ref,
+                                                    fused_chain_stream_ref)
+
+    before = LAUNCHES["megakernel"]
+    res1, v1, _ = fused_chain_eval(values.clone(), sops, ch, pad_uid,
+                                   a_lut=a_lut, b_lut=b_lut)
+    per_call = LAUNCHES["megakernel"] - before
+    res0, v0, _ = fused_chain_stream_ref(values.clone(), sops, ch, pad_uid,
+                                         a_lut=a_lut, b_lut=b_lut)
+    torch.cuda.synchronize()
+    assert_equal(v1, v0, f"megakernel[stream {label}] values")
+    for k in res0:
+        assert_equal(res1[k], res0[k], f"megakernel[stream {label}] {k}")
+    v = values.clone()
+    for i in range(sops.uid.shape[0]):
+        chi = tree_index(ch, i)
+        r, v, _ = fused_chain_eval_ref(v, tree_index(sops, i), chi, pad_uid,
+                                       a_lut=a_lut, b_lut=b_lut)
+        for k in r:
+            assert_equal(res1[k][i], chi.untake(r[k]),
+                         f"megakernel[stream {label}] {k}, interval {i}, vs "
+                         "the per-interval twin")
+    assert_equal(v1, v, f"megakernel[stream {label}] values vs the "
+                 "per-interval twin")
+    scratch = values.clone()
+    ms, host = cuda_ms(lambda: fused_chain_eval(
+        scratch, sops, ch, pad_uid, a_lut=a_lut, b_lut=b_lut), 20)
+    plain, _ = cuda_ms(lambda: fused_chain_stream_ref(
+        values, sops, ch, pad_uid, a_lut=a_lut, b_lut=b_lut), 3)
+    nbytes, n_ops = mega_work(values, sops, ch, pad_uid, a_lut.numel())
+    bnd = bound(nbytes, n_ops)
+    phases = phase_ms(lambda: fused_chain_eval(
+        scratch, sops, ch, pad_uid, a_lut=a_lut, b_lut=b_lut), 10,
+        ("scan_kernel", "carry_kernel", "apply_kernel"))
+    print(f"kernel megakernel[stream {label}] intervals x problems x rows = "
+          f"{list(sops.uid.shape)} W={values.shape[-1]} slots="
+          f"{values.shape[-2]}: max_abs_err=0 (stream twin and per-interval "
+          f"twin) ms={ms} plain_ms={plain} host_ms={host} bytes={nbytes} "
+          f"ops={n_ops} bound_ms={bnd[0]} ({bnd[1]}) launches_per_call="
+          f"{per_call} phases_ms={phases}")
+    return dict(replaces="src/repro/kernels/megakernel/kernel.py:119",
+                source="src/repro_torch/csrc/megakernel.cu", ms=ms,
+                plain_ms=plain, err=0.0, bound=bnd, launches_per_call=per_call)
+
+
+def interval_megakernel(label, values, sops, ch, pad_uid, a_lut,
+                        b_lut) -> dict:
+    """The megakernel on one interval (K = 1), as the merging sharded
+    layouts call it: bitwise against the per-interval twin; timed."""
+    from repro_torch.core.types import tree_index
     from repro_torch.kernels.megakernel.ops import fused_chain_eval
     from repro_torch.kernels.megakernel.ref import fused_chain_eval_ref
 
-    sops, ch, lpad = sh["sops"], sh["ch"], sh["lpad"]
-    res1, v1, _ = fused_chain_eval(sh["values"].clone(), sops, ch, lpad,
+    res1, v1, _ = fused_chain_eval(values.clone(), sops, ch, pad_uid,
                                    a_lut=a_lut, b_lut=b_lut)
-    res0, v0, _ = fused_chain_eval_ref(sh["values"].clone(), sops, ch, lpad,
+    s0, c0 = tree_index(sops, 0), tree_index(ch, 0)
+    res0, v0, _ = fused_chain_eval_ref(values.clone(), s0, c0, pad_uid,
                                        a_lut=a_lut, b_lut=b_lut)
     torch.cuda.synchronize()
-    assert_equal(v1, v0, "batched megakernel values")
+    assert_equal(v1, v0, f"megakernel[{label}] values")
     for k in res0:
-        assert_equal(res1[k], res0[k], f"batched megakernel {k}")
-    scratch = sh["values"].clone()
+        assert_equal(res1[k][0], c0.untake(res0[k]), f"megakernel[{label}] {k}")
+    scratch = values.clone()
     ms, host = cuda_ms(lambda: fused_chain_eval(
-        scratch, sops, ch, lpad, a_lut=a_lut, b_lut=b_lut), 50)
+        scratch, sops, ch, pad_uid, a_lut=a_lut, b_lut=b_lut), 50)
     plain, _ = cuda_ms(lambda: fused_chain_eval_ref(
-        sh["values"], sops, ch, lpad, a_lut=a_lut, b_lut=b_lut), 10)
-    b, n, w = sops.operand.shape
-    chains = int(ch.n_chains.sum())
-    commits = int((ch.counts[:, :lpad] > 0).sum())
-    # every problem's bytes; the LUTs are read once
-    nbytes = (b * mega_bytes(n, w, 0, 0, 0) + 4.0 * (chains + commits) * w
-              + 5.0 * a_lut.numel())
-    steps = math.ceil(math.log2(n)) if n > 1 else 0
-    bnd = bound(nbytes, b * (3.0 * steps * n * w + 8.0 * n * w))
-    print(f"kernel megakernel[batched] problems={b} rows={n} W={w} "
-          f"slots={lpad + 1} chains={chains}: max_abs_err=0 ms={ms} "
-          f"plain_ms={plain} host_ms={host} bytes={nbytes} bound_ms={bnd[0]}")
+        values, s0, c0, pad_uid, a_lut=a_lut, b_lut=b_lut), 10)
+    bnd = bound(*mega_work(values, sops, ch, pad_uid, a_lut.numel()))
+    print(f"kernel megakernel[{label}] problems x rows = "
+          f"{list(sops.uid.shape[1:])} W={values.shape[-1]}: max_abs_err=0 "
+          f"ms={ms} plain_ms={plain} host_ms={host} bound_ms={bnd[0]}")
     return dict(ms=ms, plain_ms=plain, bound=bnd)
 
 
@@ -418,18 +498,18 @@ def block_size_check(p, plan, mega) -> None:
                 mega=fused_chain_eval(store.values.clone(), sops, ch,
                                       store.pad_uid, a_lut=a_lut,
                                       b_lut=b_lut)[:2],
-                mega_batched=fused_chain_eval(
+                mega_sharded=fused_chain_eval(
                     sh["values"].clone(), sh["sops"], sh["ch"], sh["lpad"],
                     a_lut=a_lut, b_lut=b_lut)[:2],
                 probe=(hash_probe(sh["queries"], sh["table"]),))
-    for threads in (64, 512):
+    for threads in (64, 512, 1024):
         got = dict(radix=radix_partition_rank(keys, k, threads=threads),
                    affine=segscan_affine(a, b, flags, threads=threads),
                    max=(segscan_max(m, flags, threads=threads),),
                    mega=fused_chain_eval(store.values.clone(), sops, ch,
                                          store.pad_uid, a_lut=a_lut,
                                          b_lut=b_lut, threads=threads)[:2],
-                   mega_batched=fused_chain_eval(
+                   mega_sharded=fused_chain_eval(
                        sh["values"].clone(), sh["sops"], sh["ch"],
                        sh["lpad"], a_lut=a_lut, b_lut=b_lut,
                        threads=threads)[:2],
@@ -443,8 +523,8 @@ def block_size_check(p, plan, mega) -> None:
                     assert_equal(u, v, f"{name} output {i} at {threads} "
                                  "threads per block")
     print("block sizes: radix_partition, segscan_affine, segscan_max, the "
-          "megakernel (one problem and 4 shards) and hash_probe at 64 and 512 "
-          "threads per block equal their default runs bit for bit")
+          "megakernel (GS's stream and sharded GS's) and hash_probe at 64, 512 "
+          "and 1024 threads per block equal their default runs bit for bit")
 
 
 # The sharded runs: label, app, rung, layout, mesh shape, axis names,
@@ -489,15 +569,78 @@ def run(app_name, method, stream, dev):
     return timed(engine(app_name, method, dev), stream)
 
 
-def counted(eng, stream, launches):
+# The call sites of the kernels whose launch shapes differ between runs:
+# (module, attribute, kernel) for shape_times.
+CALL_SITES = (("repro_torch.core.restructure", "radix_partition_rank",
+               "radix_partition"),
+              ("repro_torch.core.ownership", "radix_partition_rank",
+               "radix_partition"),
+              ("repro_torch.kernels.segscan.ops", "segscan_affine",
+               "segscan_affine"),
+              ("repro_torch.kernels.segscan.ops", "segscan_max",
+               "segscan_max"))
+
+
+def recording(fn):
+    """Run ``fn()`` with the CALL_SITES wrapped to record each call's
+    arguments; returns ``[(kernel, wrapper, args, kwargs), ...]``."""
+    import importlib
+    calls, saved = [], []
+    for mod_name, attr, kernel in CALL_SITES:
+        mod = importlib.import_module(mod_name)
+        real = getattr(mod, attr)
+        saved.append((mod, attr, real))
+
+        def rec(*args, _real=real, _kernel=kernel, **kw):
+            calls.append((_kernel, _real, args, kw))
+            return _real(*args, **kw)
+        setattr(mod, attr, rec)
+    try:
+        fn()
+    finally:
+        for mod, attr, real in saved:
+            setattr(mod, attr, real)
+    return calls
+
+
+def shape_times(label, calls, card) -> None:
+    """Time each recorded kernel call alone (CUDA events, stream held) at
+    the shape the run launched it with, beside its bound."""
+    for kernel, fn, args, kw in calls:
+        x = args[0]
+        if kernel == "radix_partition":
+            what = f"keys={list(x.shape)} K={args[1]}"
+            bnd = bound(*work(kernel, x, args[1]))
+        else:
+            what = f"rows={x.shape[0]} W={x.shape[1]}"
+            bnd = bound(*work(kernel, x))
+        ms, _ = cuda_ms(lambda: fn(*args, **kw), 20)
+        print(f"shape {kernel}[{label}] {what}: ms={ms} bound_ms={bnd[0]} "
+              f"({bnd[1]}) | {card}")
+
+
+def counted(eng, stream, launches, label=None, card=""):
     """A driven run: launch counters to 0 just before, read just after.
 
     An uncounted run of the same engine and stream goes first, so the timed
     run finds the CUDA modules of its kernels loaded (they load lazily, at
     a kernel's first launch) and the allocator warm, as a long-running
-    engine would."""
+    engine would.  With a ``label``, that run records the launch shapes of
+    radix_partition and the segscans, which are then timed alone.  Its
+    recorded calls that launch (non-empty inputs) must number what its
+    launch counts say, so a call site missing from CALL_SITES fails."""
     from repro_torch import LAUNCHES, reset_launches
-    timed(eng, stream)
+    reset_launches()
+    calls = recording(lambda: timed(eng, stream))
+    for kernel in {k for _, _, k in CALL_SITES}:
+        seen = sum(1 for k, _, args, _ in calls
+                   if k == kernel and args[0].numel())
+        if seen != LAUNCHES[kernel]:
+            raise AssertionError(
+                f"{kernel}: {LAUNCHES[kernel]} launches but {seen} recorded "
+                "calls; a call site is missing from CALL_SITES")
+    if label is not None:
+        shape_times(label, calls, card)
     reset_launches()
     outs, values, wall = timed(eng, stream)
     got = dict(LAUNCHES)
@@ -550,10 +693,14 @@ def end_to_end(stream, card, cuda, launches) -> dict:
     single = {}
     for app_name, method in (("gs", "megakernel"), ("tp", "partition")):
         eng = engine(app_name, method, cuda)
-        outs, values, wall, got = counted(eng, stream[app_name], launches)
+        outs, values, wall, got = counted(eng, stream[app_name], launches,
+                                          f"{app_name} rung={method}", card)
         print(f"e2e {app_name} rung={method} intervals={N_INTERVALS}x"
               f"{INTERVAL}: wall_s={wall} events_per_s="
               f"{N_INTERVALS * INTERVAL / wall} launches={got} card={card}")
+        if method == "megakernel" and got["megakernel"] != 3:
+            raise AssertionError(f"{app_name}: {got['megakernel']} megakernel "
+                                 "launches, expected one call (3 launches)")
         single[app_name, method] = (outs, values)
         outs_c, values_c, wall_c = run(app_name, method, stream[app_name], cpu)
         print(f"e2e {app_name} cpu reference: wall_s={wall_c}")
@@ -569,7 +716,8 @@ def end_to_end(stream, card, cuda, launches) -> dict:
     # the default rung, which a user who sets nothing gets
     for app_name, forced in (("gs", "megakernel"), ("tp", "partition")):
         eng = engine(app_name, "auto", cuda)
-        outs, values, wall, got = counted(eng, stream[app_name], launches)
+        outs, values, wall, got = counted(eng, stream[app_name], launches,
+                                          f"{app_name} rung=auto", card)
         print(f"e2e {app_name} rung=auto intervals={N_INTERVALS}x{INTERVAL}: "
               f"wall_s={wall} events_per_s={N_INTERVALS * INTERVAL / wall} "
               f"launches={got} card={card}")
@@ -592,7 +740,8 @@ def sharded_phase(stream, card, cuda, single, launches) -> None:
         eng = engine(app_name, method, cuda,
                      mesh=ShardMesh(shape, names, device=cuda), layout=layout,
                      probe=probe)
-        outs, values, wall, got = counted(eng, st, launches)
+        outs, values, wall, got = counted(eng, st, launches,
+                                          f"sharded {label}", card)
         ex = eng.last_exchange_stats
         print(f"e2e sharded {label} mesh={shape} rung={method} "
               f"intervals={n_i}x{INTERVAL}: wall_s={wall} events_per_s="
@@ -606,7 +755,7 @@ def sharded_phase(stream, card, cuda, single, launches) -> None:
         if int(np.sum(ex["dropped"])) != 0:
             raise AssertionError(f"sharded {label}: the exchange dropped ops")
         want = dict(radix_partition=2, hash_probe=int(probe),
-                    megakernel=n_i if method == "megakernel" else 0,
+                    megakernel=3 if method == "megakernel" else 0,
                     segscan_affine=0 if method == "megakernel" else 1,
                     segscan_max=1 if app_name == "tp" else 0)
         if got != want:
@@ -704,10 +853,12 @@ def main() -> int:
         raise AssertionError(f"kernels never launched on the driven paths: "
                              f"{missing} ({launches})")
 
-    bm = rows["megakernel"].pop("batched")
-    print(f"kernel megakernel[batched 4 shards]: ms={bm['ms']} plain_ms="
-          f"{bm['plain_ms']} bound_ms={bm['bound'][0]} ({bm['bound'][1]}) | "
-          f"{card}")
+    for label in ("sharded", "interval", "batched"):
+        r = rows["megakernel"].pop(label)
+        print(f"kernel megakernel[{label}]: ms={r['ms']} plain_ms="
+              f"{r['plain_ms']} bound_ms={r['bound'][0]} ({r['bound'][1]})"
+              + (f" launches_per_call={r['launches_per_call']}"
+                 if "launches_per_call" in r else "") + f" | {card}")
     kernels = []
     for name, r in rows.items():
         bound_ms, bound_by = r["bound"]

@@ -14,7 +14,8 @@ Two drivers share the per-interval logic:
   interval, ...]``; compute mode, the restructure plan and (on the
   associative path) the coefficient scans run once for all intervals, and
   only the values-dependent evaluation loops over intervals, carrying the
-  state.  The reference's ``lax.scan`` is that Python loop.
+  state.  The reference's ``lax.scan`` is that Python loop; on the
+  megakernel rung it is one megakernel call for the whole stream.
 
 The engine runs on the CUDA card unless built with ``device="cpu"``.  Built
 with a ``mesh`` (``core/mesh.ShardMesh``) it runs the sharded fused driver
@@ -33,7 +34,7 @@ import torch
 
 from .. import convert
 from ..kernels.megakernel.ops import fused_chain_eval
-from ..kernels.megakernel.ref import fused_chain_eval_ref
+from ..kernels.megakernel.ref import fused_chain_stream_ref
 from ..kernels.runtime import resolve_device
 from .blotter import AppSpec, build_opbatch
 from .engines import (CHAIN_SCHEMES, EngineStats, NOT_PORTED, evaluate,
@@ -318,9 +319,10 @@ def _fused_assoc_mega(store: StateStore, ops_all, *, luts,
     """Megakernel rung of the associative fast path.
 
     The hoisted plan shrinks to the partition permutation and histograms
-    (``geometry=False``); each interval's chains are evaluated by ONE fused
-    launch (``kernels/megakernel``), which commits into the carried state in
-    place, bit-identical to the staged rungs.
+    (``geometry=False``); ONE call of ``kernels/megakernel`` then evaluates
+    every interval's chains, carrying the state from one interval to the
+    next and committing it in place, bit-identical to the staged rungs.  Its
+    results come back in flat layout.
     """
     a_lut, b_lut = luts
     sops_all, ch_all = restructure(
@@ -331,15 +333,6 @@ def _fused_assoc_mega(store: StateStore, ops_all, *, luts,
         evaluate_chains = functools.partial(
             fused_chain_eval, threads=cfg.block_param("megakernel"))
     else:
-        evaluate_chains = fused_chain_eval_ref
-
-    values = store.values
-    res_l, stats = [], []
-    for i in range(ops_all.uid.shape[0]):
-        ch = tree_index(ch_all, i)
-        res, values, s = evaluate_chains(
-            values, tree_index(sops_all, i), ch, store.pad_uid,
-            a_lut=a_lut, b_lut=b_lut)
-        res_l.append({k: ch.untake(v) for k, v in res.items()})
-        stats.append(s)
-    return _stack(res_l), values, stats
+        evaluate_chains = fused_chain_stream_ref
+    return evaluate_chains(store.values, sops_all, ch_all, store.pad_uid,
+                           a_lut=a_lut, b_lut=b_lut)

@@ -36,7 +36,9 @@ The port keeps every shard on the engine's device, with the shards as a
 tensor axis (``core/mesh.py``): the body works on ``[n_intervals,
 n_shards, ...]`` tensors and folds both axes into the batch axes the kernels
 take, so no Python loop over shards runs; the loop over intervals carries
-``[n_shards, lpad+1, W]`` state blocks.  On the card the staged rung's
+``[n_shards, lpad+1, W]`` state blocks (on the megakernel rung of
+``shared_nothing``, which merges nothing, one megakernel call carries them
+through the whole stream).  On the card the staged rung's
 segscans run over the flat concatenation of every shard's rows, and the CUDA
 segscan's association depends on where a chain lies among its tiles
 (``csrc/segscan.cu``), so there a sharded run with max tables (TP) agrees
@@ -50,6 +52,7 @@ carry (ROADMAP A8, A9).
 """
 from __future__ import annotations
 
+import functools
 import logging
 from typing import Dict, Optional
 
@@ -58,7 +61,7 @@ import torch
 
 from .. import convert
 from ..kernels.megakernel.ops import fused_chain_eval
-from ..kernels.megakernel.ref import fused_chain_eval_ref
+from ..kernels.megakernel.ref import fused_chain_stream_ref
 from .blotter import AppSpec, build_opbatch
 from .engines import (simple_affine_luts, tstream_scan_coefs,
                       tstream_scan_execute, tstream_scan_plan)
@@ -394,7 +397,7 @@ class ShardedStream:
         return rops, plans, ebs_all, cap
 
     def _evaluate(self, vals0, sim_d, rops):
-        """State-access mode: the interval loop carries every shard's block.
+        """State-access mode: the intervals carry every shard's block.
 
         ``vals0``: ``[n_dev, lpad+1, W]`` state blocks, one per shard;
         ``sim_d``: their per-slot max flags or None.  Returns the final
@@ -438,26 +441,30 @@ class ShardedStream:
         if megakernel_engaged(rows, lpad + 1, method=cfg.restructure_method,
                               has_max=sim_d is not None,
                               funs_simple=luts is not None):
-            # megakernel rung: a geometry-free partition plan, then ONE
-            # launch per interval evaluates every shard's chains
+            # megakernel rung: a geometry-free partition plan, then ONE call
+            # for the whole stream evaluates every shard's chains; a layout
+            # that merges after every interval calls it once per interval
             a_lut, b_lut = luts
             sops_all, ch_all = restructure_stream(
                 rops, lpad, rowmajor_ts=True, light=True, method="partition",
                 use_kernels=cfg.use_kernels, geometry=False,
                 threads=threads_radix)
             if cfg.use_kernels:
-                def evaluate_chains(*a, **kw):
-                    return fused_chain_eval(
-                        *a, threads=cfg.block_param("megakernel"), **kw)
+                evaluate_chains = functools.partial(
+                    fused_chain_eval, threads=cfg.block_param("megakernel"))
             else:
-                evaluate_chains = fused_chain_eval_ref
+                evaluate_chains = fused_chain_stream_ref
+            if own_mask is None:
+                res, vals, _ = evaluate_chains(vals, sops_all, ch_all, lpad,
+                                               a_lut=a_lut, b_lut=b_lut)
+                return vals, res
             for i in range(n_intervals):
-                ch = tree_index(ch_all, i)
+                at = slice(i, i + 1)
                 res, vals, _ = evaluate_chains(
-                    vals, tree_index(sops_all, i), ch, lpad, a_lut=a_lut,
-                    b_lut=b_lut)
+                    vals, tree_index(sops_all, at), tree_index(ch_all, at),
+                    lpad, a_lut=a_lut, b_lut=b_lut)
                 vals = merge(vals)
-                res_l.append({k: ch.untake(v) for k, v in res.items()})
+                res_l.append({k: v[0] for k, v in res.items()})
         else:
             pres_all = restructure_stream(
                 rops, lpad, rowmajor_ts=True, light=True,

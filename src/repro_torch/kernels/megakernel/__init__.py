@@ -1,5 +1,6 @@
-"""Megakernel: fused chain evaluation of one sorted interval."""
+"""Megakernel: fused chain evaluation of a stream of sorted intervals."""
 from .ops import fused_chain_eval
-from .ref import fused_chain_eval_ref
+from .ref import fused_chain_eval_ref, fused_chain_stream_ref
 
-__all__ = ["fused_chain_eval", "fused_chain_eval_ref"]
+__all__ = ["fused_chain_eval", "fused_chain_eval_ref",
+           "fused_chain_stream_ref"]

@@ -6,8 +6,9 @@ machine that has only PyTorch:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
-Bars: radix_partition, the megakernel (one problem or a batch) and
-hash_probe bitwise; the segscans to rtol = atol = 1e-5 (the kernel
+Bars: radix_partition, the megakernel (a stack of intervals, of one problem
+or a batch, against its stream twin and against a loop of the per-interval
+twin) and hash_probe bitwise; the segscans to rtol = atol = 1e-5 (the kernel
 associates a segment's sums differently from the twin's Hillis-Steele
 sweep).  Shapes the kernels cannot take raise.  The sharded driver on the
 card is held to the single-device driver on the card: bitwise on the
@@ -29,7 +30,8 @@ from repro_torch.core.types import tree_index
 from repro_torch.kernels.hash_probe.ops import hash_probe
 from repro_torch.kernels.hash_probe.ref import build_table, hash_probe_ref
 from repro_torch.kernels.megakernel.ops import fused_chain_eval
-from repro_torch.kernels.megakernel.ref import fused_chain_eval_ref
+from repro_torch.kernels.megakernel.ref import (fused_chain_eval_ref,
+                                                fused_chain_stream_ref)
 from repro_torch.kernels.radix_partition.ops import radix_partition_rank
 from repro_torch.kernels.radix_partition.ref import radix_partition_rank_ref
 from repro_torch.kernels.segscan.ops import segscan_affine, segscan_max
@@ -121,30 +123,155 @@ def _mega_case(name, dev):
     return sops, ch, s
 
 
+def _fields(x, fn):
+    """``fn`` applied to every tensor field of an OpBatch or Chains."""
+    return type(x)(**{k: None if v is None else fn(v)
+                      for k, v in vars(x).items()})
+
+
+def _stack1(x):
+    """A one-interval stack (leading axis of 1) of a plan's fields."""
+    return _fields(x, lambda v: v[None])
+
+
+def _assert_per_interval(res, vals, values, sops, ch, s, a_lut, b_lut):
+    """A stream call's results against a loop of the per-interval twin,
+    untaken to flat layout, bitwise."""
+    v = values
+    for k in range(sops.uid.shape[0]):
+        chk = tree_index(ch, k)
+        r0, v, _ = fused_chain_eval_ref(v, tree_index(sops, k), chk, s,
+                                        a_lut=a_lut, b_lut=b_lut)
+        for key in r0:
+            assert torch.equal(res[key][k], chk.untake(r0[key])), (k, key)
+    assert torch.equal(vals, v)
+
+
+def _stream_case(k, b, n, s, invalid, theta, dev, w=1, dead=None,
+                 on_pad=()):
+    """A stack of K sorted intervals of ``b`` problems (``b = 0``: values
+    [S+1, W], no batch axis) over ``s`` real slots, Zipf-skewed uids; the
+    interval ``dead`` holds padding only; for each ``(interval, m)`` of
+    ``on_pad`` the interval's first m ops are on the pad slot."""
+    rng = np.random.default_rng(k * n + s)
+    lead = (k, b) if b else (k,)
+    p = 1.0 / np.arange(1, s + 1, dtype=np.float64) ** theta
+    uid = rng.choice(s, lead + (n,), p=p / p.sum())
+    for kk, m in on_pad:
+        uid[kk, ..., :m] = s
+    idx = torch.arange(n, dtype=torch.int32).expand(lead + (n,))
+    ops = T.OpBatch(
+        uid=torch.from_numpy(uid.astype(np.int32)), ts=idx // 10,
+        txn=idx // 10, slot=idx % 10,
+        kind=torch.zeros(lead + (n,), dtype=torch.int32),
+        fun=torch.from_numpy(rng.integers(0, len(FUNS), lead + (n,)).astype(
+            np.int32)),
+        gate=torch.full(lead + (n,), -1, dtype=torch.int32),
+        operand=torch.from_numpy(rng.normal(size=lead + (n, w)).astype(
+            np.float32)),
+        valid=torch.from_numpy(rng.random(lead + (n,)) >= invalid))
+    if dead is not None:
+        ops.valid[dead] = False
+    ops = _fields(ops, lambda v: v.contiguous().to(dev))
+    sops, ch = restructure(ops, s, rowmajor_ts=True, light=True,
+                           method="partition", geometry=False,
+                           use_kernels=False)
+    values = torch.from_numpy(rng.normal(size=lead[1:] + (s + 1, w)).astype(
+        np.float32)).to(dev)
+    return sops, ch, values
+
+
+@pytest.mark.parametrize("shape", ["gs", "sharded_gs"])
+def test_stream_megakernel_matches_twins_at_main_path_shapes(shape):
+    """The whole stream in one call at GS's shape (200 intervals x 5,000
+    rows, W = 1, 10,001 slots) and at sharded GS's (200 x 4 shards x 2,504
+    received rows, half of them padding, 2,501 slots a shard): bitwise
+    against the stream twin and against a loop of the per-interval twin."""
+    dev = need_card()
+    if shape == "gs":
+        s, b = 10_000, 0
+        sops, ch, values = _stream_case(200, 0, 5000, s, 0.01, 0.6, dev)
+    else:
+        s, b = 2500, 4
+        sops, ch, values = _stream_case(200, 4, 2504, s, 0.5, 0.6, dev)
+    a_lut, b_lut = simple_affine_luts(FUNS, dev)
+    reset_launches()
+    res, vals, _ = fused_chain_eval(values.clone(), sops, ch, s, a_lut=a_lut,
+                                    b_lut=b_lut)
+    assert LAUNCHES["megakernel"] == 3
+    res0, vals0, _ = fused_chain_stream_ref(values.clone(), sops, ch, s,
+                                            a_lut=a_lut, b_lut=b_lut)
+    assert torch.equal(vals, vals0)
+    for key in res0:
+        assert torch.equal(res[key], res0[key]), key
+    _assert_per_interval(res, vals, values.clone(), sops, ch, s, a_lut, b_lut)
+    for threads in (64, 1024):
+        r1, v1, _ = fused_chain_eval(values.clone(), sops, ch, s,
+                                     a_lut=a_lut, b_lut=b_lut,
+                                     threads=threads)
+        assert torch.equal(v1, vals)
+        for key in r1:
+            assert torch.equal(r1[key], res[key]), (threads, key)
+
+
+def test_stream_megakernel_padding_interval_and_lanes():
+    """A stack with an interval of padding only, W = 3 lanes and hot chains:
+    bitwise against a loop of the per-interval twin."""
+    dev = need_card()
+    a_lut, b_lut = simple_affine_luts(FUNS, dev)
+    sops, ch, values = _stream_case(7, 0, 300, 50, 0.3, 1.1, dev, w=3,
+                                    dead=3)
+    assert int(ch.counts[3, :50].sum()) == 0
+    res, vals, _ = fused_chain_eval(values.clone(), sops, ch, 50,
+                                    a_lut=a_lut, b_lut=b_lut)
+    _assert_per_interval(res, vals, values.clone(), sops, ch, 50, a_lut,
+                         b_lut)
+
+
+@pytest.mark.parametrize("b", [0, 3])
+def test_stream_megakernel_valid_rows_on_the_pad_slot(b):
+    """Valid ops on the pad slot, in the first interval (they read its
+    initial value) and in a later one whose pad chain is its longest chain
+    (they read 0): bitwise against both twins."""
+    dev = need_card()
+    a_lut, b_lut = simple_affine_luts(FUNS, dev)
+    sops, ch, values = _stream_case(5, b, 400, 60, 0.1, 0.8, dev, w=2,
+                                    on_pad=((0, 9), (2, 250)))
+    assert bool((sops.valid & (sops.uid == 60))[0].any())
+    res, vals, _ = fused_chain_eval(values.clone(), sops, ch, 60,
+                                    a_lut=a_lut, b_lut=b_lut)
+    res0, vals0, _ = fused_chain_stream_ref(values.clone(), sops, ch, 60,
+                                            a_lut=a_lut, b_lut=b_lut)
+    assert torch.equal(vals, vals0)
+    for key in res0:
+        assert torch.equal(res[key], res0[key]), key
+    _assert_per_interval(res, vals, values.clone(), sops, ch, 60, a_lut,
+                         b_lut)
+
+
 @pytest.mark.parametrize("case", ["odd_n_skewed", "single_chain", "all_pad",
                                   "n1", "gs_sized"])
 def test_megakernel_matches_twin(case):
+    """One interval (K = 1) against the per-interval twin, bitwise."""
     dev = need_card()
     sops, ch, s = _mega_case(case, dev)
+    sops, ch = _stack1(sops), _stack1(ch)
     a_lut, b_lut = simple_affine_luts(FUNS, dev)
     values = torch.randn(s + 1, 2, device=dev)
     reset_launches()
     res, vals, _ = fused_chain_eval(values.clone(), sops, ch, s,
                                     a_lut=a_lut, b_lut=b_lut)
-    assert LAUNCHES["megakernel"] == 1
-    res0, vals0, _ = fused_chain_eval_ref(values.clone(), sops, ch, s,
-                                          a_lut=a_lut, b_lut=b_lut)
-    assert torch.equal(vals, vals0)
-    for k in res0:
-        assert torch.equal(res[k], res0[k]), k
+    assert LAUNCHES["megakernel"] == 3
+    _assert_per_interval(res, vals, values.clone(), sops, ch, s, a_lut, b_lut)
 
 
 def test_megakernel_raises_when_the_interval_overflows_a_block():
     dev = need_card()
     sops, ch, s = _mega_case("gs_sized", dev)
+    sops, ch = _stack1(sops), _stack1(ch)
     a_lut, b_lut = simple_affine_luts(FUNS, dev)
     wide = T.OpBatch(**{**vars(sops),
-                        "operand": sops.operand.repeat(1, 8).contiguous()})
+                        "operand": sops.operand.repeat(1, 1, 8).contiguous()})
     with pytest.raises(ValueError, match="shared memory"):
         fused_chain_eval(torch.zeros(s + 1, 16, device=dev), wide, ch, s,
                          a_lut=a_lut, b_lut=b_lut)
@@ -169,6 +296,7 @@ def test_kernels_at_other_block_sizes(threads):
         assert torch.equal(x, y)
     assert torch.equal(segscan_max(b, f, threads=threads), segscan_max(b, f))
     sops, ch, s = _mega_case("gs_sized", dev)
+    sops, ch = _stack1(sops), _stack1(ch)
     a_lut, b_lut = simple_affine_luts(FUNS, dev)
     values = torch.randn(s + 1, 2, device=dev)
     res, vals, _ = fused_chain_eval(values.clone(), sops, ch, s, a_lut=a_lut,
@@ -202,7 +330,8 @@ def test_engine_on_card_matches_cpu(app_name, method):
         if d.type == "cuda":
             assert LAUNCHES["radix_partition"] == 1
             staged = method != "megakernel"
-            assert LAUNCHES["megakernel"] == (0 if staged else 4)
+            # one stream call of three launches, not one per interval
+            assert LAUNCHES["megakernel"] == (0 if staged else 3)
             assert LAUNCHES["segscan_affine"] == (1 if staged else 0)
     (o1, v1), (o0, v0) = runs["cuda"], runs["cpu"]
     if method == "megakernel":
@@ -247,8 +376,8 @@ def test_hash_probe_raises_on_what_it_cannot_take():
 
 
 def test_batched_megakernel_matches_twin_and_single_calls():
-    """One launch over a batch of problems (the sharded driver's interval of
-    every shard) equals the twin and one launch per problem, bitwise."""
+    """One call over a batch of problems (the sharded driver's interval of
+    every shard) equals the twins and one call per problem, bitwise."""
     dev = need_card()
     rng = np.random.default_rng(3)
     b, s, n = 4, 2000, 1500
@@ -269,24 +398,22 @@ def test_batched_megakernel_matches_twin_and_single_calls():
     sops, ch = restructure(ops, s, rowmajor_ts=True, light=True,
                            method="partition", geometry=False,
                            use_kernels=False)
+    sops, ch = _stack1(sops), _stack1(ch)
     a_lut, b_lut = simple_affine_luts(FUNS, dev)
     values = torch.randn(b, s + 1, 2, device=dev)
     reset_launches()
     res, vals, _ = fused_chain_eval(values.clone(), sops, ch, s,
                                     a_lut=a_lut, b_lut=b_lut)
-    assert LAUNCHES["megakernel"] == 1
-    res0, vals0, _ = fused_chain_eval_ref(values.clone(), sops, ch, s,
-                                          a_lut=a_lut, b_lut=b_lut)
-    assert torch.equal(vals, vals0)
-    for k in res0:
-        assert torch.equal(res[k], res0[k]), k
+    assert LAUNCHES["megakernel"] == 3
+    _assert_per_interval(res, vals, values.clone(), sops, ch, s, a_lut, b_lut)
     for i in range(b):
-        r1, v1, _ = fused_chain_eval(values[i].clone(), tree_index(sops, i),
-                                     tree_index(ch, i), s, a_lut=a_lut,
-                                     b_lut=b_lut)
+        def one(x):
+            return _fields(x, lambda v: v[:, i].contiguous())
+        r1, v1, _ = fused_chain_eval(values[i].clone(), one(sops), one(ch), s,
+                                     a_lut=a_lut, b_lut=b_lut)
         assert torch.equal(v1, vals[i])
         for k in r1:
-            assert torch.equal(r1[k], res[k][i]), k
+            assert torch.equal(r1[k], res[k][:, i]), k
 
 
 @pytest.mark.parametrize("app_name,method,layout,shape,names,probe", [
@@ -314,7 +441,9 @@ def test_sharded_on_card_matches_single_device_on_card(
     assert LAUNCHES["radix_partition"] == 2       # exchange + restructure
     assert LAUNCHES["hash_probe"] == (1 if probe else 0)
     if method == "megakernel":
-        assert LAUNCHES["megakernel"] == 4
+        # shared_nothing: one stream call; a merging layout one per interval
+        calls = 1 if layout == "shared_nothing" else 4
+        assert LAUNCHES["megakernel"] == 3 * calls
         assert torch.equal(v1, v0)
     else:
         assert LAUNCHES["segscan_affine"] == 1

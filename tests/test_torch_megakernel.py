@@ -1,10 +1,14 @@
-"""The megakernel's plain-PyTorch twin against the JAX package, bitwise.
+"""The megakernel's per-interval plain-PyTorch twin against the JAX
+package, bitwise.
 
-Held against both the Pallas kernel ``fused_chain_pallas`` (interpret mode,
-as the JAX package's own tests run it) and ``fused_chain_eval_ref``, on the
-odd shapes of ``tests/test_megakernel.py``: a row count that is not a lane
-multiple with skewed buckets, one chain, all padding, one row, a padded
-tail.  The CUDA kernel is held against the twin in ``test_torch_cuda.py``.
+``fused_chain_eval_ref`` (one interval) is held against both the Pallas
+kernel ``fused_chain_pallas`` (interpret mode, as the JAX package's own tests
+run it) and the JAX ``fused_chain_eval_ref``, on the odd shapes of
+``tests/test_megakernel.py``: a row count that is not a lane multiple with
+skewed buckets, one chain, all padding, one row, a padded tail.  The stream
+twin and the stream wrapper are held to it in
+``test_torch_megakernel_stream.py``; the CUDA kernel is held against the
+twins in ``test_torch_cuda.py``.
 """
 import jax
 import jax.numpy as jnp
@@ -21,7 +25,6 @@ from repro.kernels.megakernel import fused_chain_eval_ref as j_fused_ref
 from repro_torch.core import types as T
 from repro_torch.core.engines import simple_affine_luts
 from repro_torch.core.restructure import restructure
-from repro_torch.kernels.megakernel.ops import fused_chain_eval
 from repro_torch.kernels.megakernel.ref import fused_chain_eval_ref
 
 from torch_parity import assert_dict_equal, np_, port_ops
@@ -87,8 +90,9 @@ def test_megakernel_twin_matches_pallas_and_ref(case):
     sops, ch = restructure(port_ops(jops), n_slots, rowmajor_ts=True,
                            light=True, method="partition", geometry=False)
     ta, tb = simple_affine_luts(T_FUNS)
-    res, vals, stats = fused_chain_eval(torch.from_numpy(values.copy()), sops,
-                                        ch, n_slots, a_lut=ta, b_lut=tb)
+    res, vals, stats = fused_chain_eval_ref(torch.from_numpy(values.copy()),
+                                            sops, ch, n_slots, a_lut=ta,
+                                            b_lut=tb)
     assert stats.path == "megakernel"
     for tag, (jres, jvals, _) in want.items():
         np.testing.assert_array_equal(np_(vals), np.asarray(jvals),
