@@ -6,8 +6,9 @@ Run from the repository root:  python3 chip_smoke.py [--seed N]
 1. Prints the card (nvidia-smi name and power limit, torch's device name).
 2. Builds the CUDA kernels from ``src/repro_torch/csrc`` (timed as set-up).
 3. Kernel phase: at the main paths' shapes, holds each kernel against its
-   plain-PyTorch twin on the card (radix_partition, the megakernel and
-   hash_probe bitwise; the segscans to rtol = atol = 1e-5) and times both
+   plain-PyTorch twin on the card (radix_partition, the megakernel,
+   hash_probe and segscan_max bitwise; segscan_affine to rtol = atol =
+   1e-5; a second segscan call equal to the first) and times both
    with CUDA events; runs each kernel at 64, 512 and 1024 threads per
    block, which must change no bit; and prints the rung that
    ``restructure_method="auto"`` resolves to at these shapes.  The
@@ -63,6 +64,7 @@ import torch  # noqa: E402
 # Published H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit).
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS = 67e12          # float32 outside the tensor cores
+L2_BYTES = 50e6            # a launch shape whose bytes fit here is timed warm
 
 N_INTERVALS = 200
 INTERVAL = 500
@@ -260,7 +262,8 @@ def kernel_phase(p) -> dict:
         plain_ms=rad["plain_ms"], err=rad["err"],
         bound=bound(rad["bytes"], rad["ops"]))
 
-    # segscan affine / max: TP's flattened stream [400,000, 32]; 1e-5
+    # segscan affine / max: TP's flattened stream [400,000, 32]; affine to
+    # 1e-5, max bitwise
     plan = p["tp"]["plan"]
     w = plan.af.shape[-1]
     flags = plan.ch.seg_start.reshape(-1).contiguous()
@@ -273,8 +276,17 @@ def kernel_phase(p) -> dict:
     M1 = segscan_max(m, flags)
     M0 = segscan_max_ref(flags, m)
     torch.cuda.synchronize()
-    for what, x, y in (("A", A1, A0), ("B", B1, B0), ("M", M1, M0)):
+    for what, x, y in (("A", A1, A0), ("B", B1, B0)):
         assert_close(x.cpu().numpy(), y.cpu().numpy(), f"segscan {what}")
+    assert_equal(M1, M0, "segscan M")
+    # the carry across tiles is chained in a fixed order: a second call
+    # gives the same bits
+    A2, B2 = segscan_affine(a, b, flags)
+    for what, x, y in (("A", A2, A1), ("B", B2, B1),
+                       ("M", segscan_max(m, flags), M1)):
+        assert_equal(x, y, f"segscan {what}, second call vs first")
+    print("segscan: affine within 1e-5 of its twin, max bitwise; a second "
+          "call of each equals the first bit for bit")
     for name, fn, ref, err in (
             ("segscan_affine", lambda: segscan_affine(a, b, flags),
              lambda: segscan_affine_ref(flags, a, b),
@@ -283,14 +295,16 @@ def kernel_phase(p) -> dict:
              lambda: segscan_max_ref(flags, m), max_err(M1, M0))):
         ms, host = cuda_ms(fn, 20)
         plain, _ = cuda_ms(ref, 3)
+        bnd = bound(*work(name, a))
         print(f"kernel {name} rows={n} W={w}: max_abs_err={err} ms={ms} "
-              f"plain_ms={plain} host_ms={host}")
+              f"plain_ms={plain} host_ms={host} bound_ms={bnd[0]} "
+              f"share_of_bound={bnd[0] / ms}")
         rows[name] = dict(
             replaces=("src/repro/kernels/segscan/kernel.py:130"
                       if name == "segscan_affine" else
                       "src/repro/kernels/segscan/kernel.py:151"),
             source="src/repro_torch/csrc/segscan.cu", ms=ms, plain_ms=plain,
-            err=err, bound=bound(*work(name, a)))
+            err=err, bound=bnd)
 
     # megakernel: GS's whole stream in one call (200 x 5,000 rows, W = 1,
     # 10,001 slots), then sharded GS's; bitwise.  The JSON row is GS's.
@@ -605,18 +619,26 @@ def recording(fn):
 
 def shape_times(label, calls, card) -> None:
     """Time each recorded kernel call alone (CUDA events, stream held) at
-    the shape the run launched it with, beside its bound."""
+    the shape the run launched it with, beside its bound.  A segscan line
+    also gives its share of the bound and whether its bytes fit the L2
+    cache: such a shape, timed back to back, reads its inputs from L2 and
+    may beat the HBM bound."""
     for kernel, fn, args, kw in calls:
         x = args[0]
         if kernel == "radix_partition":
             what = f"keys={list(x.shape)} K={args[1]}"
-            bnd = bound(*work(kernel, x, args[1]))
+            nbytes, n_ops = work(kernel, x, args[1])
         else:
             what = f"rows={x.shape[0]} W={x.shape[1]}"
-            bnd = bound(*work(kernel, x))
+            nbytes, n_ops = work(kernel, x)
+        bnd = bound(nbytes, n_ops)
         ms, _ = cuda_ms(lambda: fn(*args, **kw), 20)
+        extra = ""
+        if kernel != "radix_partition":
+            extra = (f" share_of_bound={bnd[0] / ms} bytes={nbytes}"
+                     + (" fits_l2" if nbytes <= L2_BYTES else ""))
         print(f"shape {kernel}[{label}] {what}: ms={ms} bound_ms={bnd[0]} "
-              f"({bnd[1]}) | {card}")
+              f"({bnd[1]}){extra} | {card}")
 
 
 def counted(eng, stream, launches, label=None, card=""):
@@ -687,6 +709,18 @@ def check_outputs(outs, ref, what, n_intervals, bitwise=False) -> None:
             assert_close(o[k], oc[k], f"{what} interval {i} {k}")
 
 
+def check_scans(label, app_name, method, got) -> None:
+    """One launch of each segscan the rung runs per ``run_stream``: the
+    staged and "auto" rungs scan the whole stream once (max only for TP's
+    max tables); the megakernel rung runs none."""
+    staged = method != "megakernel"
+    want = dict(segscan_affine=int(staged),
+                segscan_max=int(staged and app_name == "tp"))
+    if {k: got[k] for k in want} != want:
+        raise AssertionError(f"{label}: segscan launches {got}, expected "
+                             f"{want}")
+
+
 def end_to_end(stream, card, cuda, launches) -> dict:
     """The single-device driver on the card, forced rungs and "auto"."""
     cpu = torch.device("cpu")
@@ -698,6 +732,7 @@ def end_to_end(stream, card, cuda, launches) -> dict:
         print(f"e2e {app_name} rung={method} intervals={N_INTERVALS}x"
               f"{INTERVAL}: wall_s={wall} events_per_s="
               f"{N_INTERVALS * INTERVAL / wall} launches={got} card={card}")
+        check_scans(f"{app_name} rung={method}", app_name, method, got)
         if method == "megakernel" and got["megakernel"] != 3:
             raise AssertionError(f"{app_name}: {got['megakernel']} megakernel "
                                  "launches, expected one call (3 launches)")
@@ -721,6 +756,7 @@ def end_to_end(stream, card, cuda, launches) -> dict:
         print(f"e2e {app_name} rung=auto intervals={N_INTERVALS}x{INTERVAL}: "
               f"wall_s={wall} events_per_s={N_INTERVALS * INTERVAL / wall} "
               f"launches={got} card={card}")
+        check_scans(f"{app_name} rung=auto", app_name, "auto", got)
         ref_outs, ref_values = single[app_name, forced]
         assert_close(values, ref_values, f"{app_name} auto vs {forced}: state")
         check_outputs(outs, ref_outs, f"{app_name} auto", N_INTERVALS)

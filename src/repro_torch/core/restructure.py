@@ -381,7 +381,9 @@ def commit_from_histogram(counts: torch.Tensor, starts: torch.Tensor):
 
 
 def _shift_rows(x: torch.Tensor, d: int, fill, ax: int) -> torch.Tensor:
-    """x shifted d rows down along ``ax``, ``fill`` in the first d rows."""
+    """x shifted d rows down along ``ax``, ``fill`` in the first d rows (all
+    of them where x has fewer, as for an empty x)."""
+    d = min(d, x.shape[ax])
     shape = list(x.shape)
     shape[ax] = d
     pad = torch.full(shape, fill, dtype=x.dtype, device=x.device)

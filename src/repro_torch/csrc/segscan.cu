@@ -8,38 +8,93 @@
 //   max:    M[r] = running max of the rows since the start up to r - 1,
 //           identity -inf at a start.
 //
-// What bounds it on an H100: bytes.  Affine reads flags, a and b and writes
-// A and B (TP: 400,000 rows x 32 lanes, 205 MB, about 61 us at 3.35 TB/s);
-// max reads flags and m and writes M (102 MB, about 31 us).  Three flops per
-// element are far below the f32 rate.
+// What bounds it on an H100: bytes.  Affine reads flags, a and b once and
+// writes A and B once (TP: 400,000 rows x 32 lanes, 205 MB, about 61 us at
+// 3.35 TB/s); max reads flags and m and writes M (102 MB, about 31 us).
+// Three flops per element are far below the f32 rate.
 //
-// Design.  The TPU kernel walked tiles in its sequential grid and carried the
-// running segment in scratch.  Blocks here run in no order, so the carry
-// becomes three launches:
-//   1. tiles:  one thread per (tile of kTile rows, lane) scans its tile in
-//      order, writes the tile-local exclusive result (identity before the
-//      tile's first start) and the tile's aggregate; lane 0 records whether
-//      the tile holds a segment start;
-//   2. carry:  one block per lane scans the tile aggregates (a segmented
-//      Hillis-Steele sweep in shared memory, kCarry tiles at a time, with a
-//      running carry between rounds) into each tile's incoming carry;
-//   3. fixup:  one thread per (tile, lane) composes that carry into the rows
-//      before the tile's first start (the fold of segscan/kernel.py:80-92).
-// Neighbouring threads take neighbouring lanes of a row, so row loads are
-// coalesced for W = 32.  The association differs from the reference's
-// Hillis-Steele sweep, as the TPU kernel's cross-block fold already did; the
-// bar is rtol = atol = 1e-5 against the plain twin.  Flags are one byte a row.
+// Design: one launch per scan, each element read once from and written once
+// to device memory.  The TPU kernel walked tiles in its sequential grid and
+// carried the running segment in scratch; here every block takes one tile:
+//   1. Tiles.  A tile is a block of rows x a group of at most 32 lanes (the
+//      lanes are independent scans that share the flags).  Its geometry is a
+//      function of W alone: W = 1 takes 4,096 rows as 256 chunks of 16; any
+//      wider W takes 128 rows x 32 lanes, 8 chunks of 16 rows per lane.  The
+//      block size only decides how many threads share this fixed work, so
+//      no association depends on it.
+//   2. Loads first.  The block copies its tile's flags and coefficients into
+//      shared memory with cp.async (16 bytes a copy where aligned: at W = 1
+//      four rows, at W = 32 a quarter of a row's 128-byte line), all issued
+//      before anything waits on them.
+//   3. In-tile scan.  Each (chunk, lane) item scans its 16 rows serially from
+//      registers and leaves the chunk-local exclusive result in place; a
+//      segmented Kogge-Stone sweep over the chunk index (a fixed tree, the
+//      same for every call) combines the chunk aggregates into each chunk's
+//      carry-in and the tile's aggregate: the composition from the tile's
+//      last start to its end, or of the whole tile if it holds no start.
+//   4. Carry across tiles, in a fixed order.  Tile t publishes its inclusive
+//      carry I_t = agg_t if it holds a start, else agg_t after I_{t-1}: the
+//      value words, a fence, then a status word with a release store.  A
+//      tile with a start publishes as soon as its reduction is done; only
+//      runs of start-less tiles wait on each other.  Warp 0 of the next tile
+//      spins on an acquire load and broadcasts the carry through shared
+//      memory.  Tiles take their index from an atomic counter, so a tile's
+//      predecessor is always resident (forward progress).  No tile reads an
+//      earlier tile's prefix because it happens to be ready (the decoupled
+//      look-back's shortcut), so the association never depends on timing
+//      and two calls give the same bits.
+//   5. Write-out.  Rows before their chunk's first start get the chunk's
+//      carry composed in (the tile carry too where no start precedes them
+//      in the tile), and the tile goes back to device memory with the same
+//      coalesced 16-byte stores.
+// Scratch: only the status words (with the tile counter, zeroed by the
+// wrapper) and the carry words.  Compositions round each product and sum on
+// its own (__fmul_rn / __fadd_rn).  The association differs from the twin's
+// Hillis-Steele sweep and depends on where a chain lies among the tiles, as
+// the TPU kernel's cross-block fold already did: the affine bar is
+// rtol = atol = 1e-5 against the plain twin.  The max scan is exact under any
+// association.  Flags are one byte a row.
 #include "common.cuh"
 
 #include <math.h>
 
 namespace {
 
-constexpr int kTile = 128;   // rows per pass-1 tile
-constexpr int kCarry = 512;  // tiles per pass-2 round (= its block size)
+constexpr int kChunkRows = 16;   // rows one item scans serially
+constexpr int kItems = 256;      // (chunk, lane) items of every tile
+constexpr int kMinTileRows = 128;
+
+// Tile geometry, a function of W alone.  at(row, lane) is the element's
+// float offset in the tile's shared copy of one array.
+template <bool kNarrow>
+struct Geo;
+
+template <>
+struct Geo<true> {   // W = 1
+  static constexpr int kLanes = 1, kChunks = 256, kRows = 4096;
+  // 16 rows and 4 floats of padding a chunk: the 16-byte reads of 8
+  // consecutive chunks (a quarter warp) land on distinct banks
+  static constexpr int kStride = 20;
+  static constexpr int kVals = kChunks * kStride;
+  __device__ static int at(int row, int) {
+    return (row >> 4) * kStride + (row & 15);
+  }
+};
+
+template <>
+struct Geo<false> {  // W >= 2, groups of 32 lanes
+  static constexpr int kLanes = 32, kChunks = 8, kRows = 128;
+  static constexpr int kVals = kRows * 32;
+  __device__ static int at(int row, int lane) { return row * 32 + lane; }
+};
+
+static_assert(Geo<true>::kChunks * Geo<true>::kLanes == kItems, "items");
+static_assert(Geo<false>::kChunks * Geo<false>::kLanes == kItems, "items");
+static_assert(Geo<false>::kRows >= kMinTileRows, "tile rows");
+static_assert(Geo<true>::kRows >= kMinTileRows, "tile rows");
 
 // An element is K floats: (a, b) for the affine scan, (m) for the max scan.
-// compose(x, prev) is x applied after prev.
+// compose(x, prev) is x applied after prev; o may alias x or prev.
 template <bool kMax>
 struct Op {
   static constexpr int K = kMax ? 1 : 2;
@@ -62,190 +117,447 @@ struct Op {
   }
 };
 
-struct Arrays {
-  const uint8_t* flags;  // [n]
-  const float* in[2];    // [n, w] each
-  float* out[2];         // [n, w] each
-  float* agg[2];         // [n_tiles, w] each
-  float* cin[2];         // [n_tiles, w] each
-  uint8_t* tile_flag;    // [n_tiles]
-  int64_t n, n_tiles;
-  int w;
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+               "l"(src));
+}
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
+               "l"(src));
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::
+                   : "memory");
+}
+
+__device__ __forceinline__ unsigned ld_acquire(const unsigned* p) {
+  unsigned v;
+  asm volatile("ld.acquire.gpu.global.u32 %0, [%1];\n"
+               : "=r"(v)
+               : "l"(p)
+               : "memory");
+  return v;
+}
+
+__device__ __forceinline__ void st_release(unsigned* p, unsigned v) {
+  asm volatile("st.release.gpu.global.u32 [%0], %1;\n" ::"l"(p), "r"(v)
+               : "memory");
+}
+
+struct Shape {
+  int64_t n;         // rows
+  int64_t n_tiles;   // row tiles
+  int w;             // lanes
+  int n_groups;      // lane groups of a row tile
+  int vec;           // every float pointer 16-byte aligned (and W % 4 == 0)
+  int fvec;          // the flags pointer 16-byte aligned
 };
 
-template <bool kMax>
-__global__ void scan_tiles(Arrays p) {
-  using O = Op<kMax>;
-  const int64_t g = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (g >= p.n_tiles * p.w) return;
-  const int64_t t = g / p.w;
-  const int lane = static_cast<int>(g - t * p.w);
-  const int64_t r0 = t * kTile, r1 = min(p.n, r0 + kTile);
-  float c[2], x[2];
-  O::identity(c);
-  bool any = false;
-  for (int64_t r = r0; r < r1; ++r) {
-    const int64_t e = r * p.w + lane;
-    if (p.flags[r]) {
-      O::identity(c);
-      any = true;
-    }
-#pragma unroll
-    for (int k = 0; k < O::K; ++k) {
-      p.out[k][e] = c[k];
-      x[k] = p.in[k][e];
-    }
-    O::compose(x, c, c);
-  }
-#pragma unroll
-  for (int k = 0; k < O::K; ++k) p.agg[k][g] = c[k];
-  if (lane == 0) p.tile_flag[t] = any;
+// Shared memory of one block: the tile's K arrays, two Kogge-Stone buffers
+// of K x kItems floats, the tile carry of each lane, the flags, the sweep's
+// start flags (two buffers of a byte per chunk) and each chunk's first start.
+template <bool kMax, bool kNarrow>
+constexpr size_t smem_bytes() {
+  using G = Geo<kNarrow>;
+  constexpr int K = Op<kMax>::K;
+  return sizeof(float) * (K * G::kVals + 2 * K * kItems + K * 32) + G::kRows +
+         3 * G::kChunks;
 }
 
-// One block per lane.  inclusive[t] = flag[t] ? agg[t] : agg[t] after
-// inclusive[t - 1]; cin[t] = inclusive[t - 1], identity for t = 0.
-template <bool kMax>
-__global__ void scan_carry(Arrays p) {
+// Tile t of group g is the block that draws t * n_groups + g from the
+// counter.  status[0] is the counter, status[1 + slot] the slot's flag;
+// carry[slot] holds K x 32 floats.
+template <bool kMax, bool kNarrow>
+__global__ void __launch_bounds__(1024)
+    segscan_kernel(const uint8_t* __restrict__ flags,
+                   const float* __restrict__ in0,
+                   const float* __restrict__ in1, float* __restrict__ out0,
+                   float* __restrict__ out1, unsigned* __restrict__ status,
+                   float* __restrict__ carry, Shape s) {
   using O = Op<kMax>;
-  __shared__ float sv[2][2][kCarry];
-  __shared__ uint8_t sf[2][kCarry];
-  const int lane = blockIdx.x;
-  const int tid = threadIdx.x;
-  float carry[2];
-  O::identity(carry);
-  for (int64_t base = 0; base < p.n_tiles; base += kCarry) {
-    const int64_t t = base + tid;
-    const bool live = t < p.n_tiles;
-    float v[2];
-    O::identity(v);
-    uint8_t f = 0;
-    if (live) {
+  using G = Geo<kNarrow>;
+  constexpr int K = O::K, C = G::kChunks, L = G::kLanes, T = G::kRows;
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* sv = reinterpret_cast<float*>(smem);   // [K][kVals]
+  float* sk = sv + K * G::kVals;                // [2][K][kItems]
+  float* sprev = sk + 2 * K * kItems;           // [K][32]
+  uint8_t* sf = reinterpret_cast<uint8_t*>(sprev + K * 32);   // [T]
+  uint8_t* sinc = sf + T;                       // [2][C]
+  uint8_t* sfs = sinc + 2 * C;                  // [C]
+  __shared__ unsigned s_tile;
+
+  const int tid = threadIdx.x, nt = blockDim.x;
+  if (tid == 0) s_tile = atomicAdd(status, 1u);
+  __syncthreads();
+  const int64_t slot = s_tile;
+  const int64_t t = slot / s.n_groups;
+  const int g = static_cast<int>(slot - t * s.n_groups);
+  const int64_t r0 = t * T;
+  const int64_t left = s.n - r0;
+  const int rows = left < T ? static_cast<int>(left) : T;
+  const int lanes = kNarrow ? 1 : min(32, s.w - g * 32);
+  const float* in[2] = {in0, in1};
+  float* out[2] = {out0, out1};
+  float id[2];
+  O::identity(id);
+
+  // 2. loads first: every copy is issued before the block waits on any
+  if constexpr (kNarrow) {
+    const int nv = s.vec ? rows & ~3 : 0;
 #pragma unroll
-      for (int k = 0; k < O::K; ++k) v[k] = p.agg[k][t * p.w + lane];
-      f = p.tile_flag[t];
+    for (int k = 0; k < K; ++k) {
+      for (int i = tid * 4; i < nv; i += nt * 4)
+        cp_async16(sv + k * G::kVals + G::at(i, 0), in[k] + r0 + i);
+      for (int i = nv + tid; i < rows; i += nt)
+        cp_async4(sv + k * G::kVals + G::at(i, 0), in[k] + r0 + i);
     }
-    int cur = 0;
+    for (int i = rows + tid; i < T; i += nt)
 #pragma unroll
-    for (int k = 0; k < O::K; ++k) sv[cur][k][tid] = v[k];
-    sf[cur][tid] = f;
-    __syncthreads();
-    for (int d = 1; d < kCarry; d <<= 1) {
-      float nv[2];
-      uint8_t nf = sf[cur][tid];
+      for (int k = 0; k < K; ++k) sv[k * G::kVals + G::at(i, 0)] = id[k];
+  } else {
+    const int64_t base = r0 * s.w + g * 32;
 #pragma unroll
-      for (int k = 0; k < O::K; ++k) nv[k] = sv[cur][k][tid];
-      if (!nf && tid >= d) {
-        float prev[2], mine[2];
-#pragma unroll
-        for (int k = 0; k < O::K; ++k) {
-          prev[k] = sv[cur][k][tid - d];
-          mine[k] = nv[k];
+    for (int k = 0; k < K; ++k) {
+      const float* src = in[k] + base;
+      float* dst = sv + k * G::kVals;
+      if (s.vec && lanes == 32) {
+        for (int i = tid; i < rows * 8; i += nt) {
+          const int r = i >> 3, c4 = (i & 7) * 4;
+          cp_async16(dst + r * 32 + c4, src + r * s.w + c4);
         }
-        O::compose(mine, prev, nv);
-        nf = sf[cur][tid - d];
+      } else if (s.vec) {
+        const int q = lanes >> 2;
+        for (int i = tid; i < rows * q; i += nt) {
+          const int r = i / q, c4 = (i - r * q) * 4;
+          cp_async16(dst + r * 32 + c4, src + r * s.w + c4);
+        }
+      } else {
+        for (int i = tid; i < rows * lanes; i += nt) {
+          const int r = i / lanes, l = i - r * lanes;
+          cp_async4(dst + r * 32 + l, src + r * s.w + l);
+        }
+      }
+    }
+    if (rows < T || lanes < 32)
+      for (int i = tid; i < T * 32; i += nt) {
+        const int r = i >> 5, l = i & 31;
+        if (r >= rows || l >= lanes)
+#pragma unroll
+          for (int k = 0; k < K; ++k) sv[k * G::kVals + i] = id[k];
+      }
+  }
+  {
+    const int nf = s.fvec ? rows & ~15 : 0;
+    for (int i = tid * 16; i < nf; i += nt * 16)
+      cp_async16(sf + i, flags + r0 + i);
+    for (int i = nf + tid; i < T; i += nt) sf[i] = i < rows ? flags[r0 + i] : 0;
+  }
+  cp_async_wait_all();
+  __syncthreads();
+
+  // 3. each (chunk, lane) item scans its 16 rows; the local exclusive result
+  // replaces the inputs, the chunk aggregate goes to sweep buffer 0
+  for (int it = tid; it < kItems; it += nt) {
+    const int c = kNarrow ? it : it >> 5, l = kNarrow ? 0 : it & 31;
+    const uint4 fw = *reinterpret_cast<const uint4*>(sf + c * kChunkRows);
+    const unsigned fwords[4] = {fw.x, fw.y, fw.z, fw.w};
+    float x[K][kChunkRows];
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      const float* src = sv + k * G::kVals;
+      if constexpr (kNarrow) {
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          const float4 v = *reinterpret_cast<const float4*>(
+              src + c * G::kStride + q * 4);
+          x[k][q * 4] = v.x;
+          x[k][q * 4 + 1] = v.y;
+          x[k][q * 4 + 2] = v.z;
+          x[k][q * 4 + 3] = v.w;
+        }
+      } else {
+#pragma unroll
+        for (int j = 0; j < kChunkRows; ++j)
+          x[k][j] = src[G::at(c * kChunkRows + j, l)];
+      }
+    }
+    float cur[K];
+    O::identity(cur);
+    int first = kChunkRows;
+#pragma unroll
+    for (int j = 0; j < kChunkRows; ++j) {
+      if ((fwords[j >> 2] >> ((j & 3) * 8)) & 0xff) {
+        O::identity(cur);
+        first = min(first, j);
+      }
+      float xj[K];
+#pragma unroll
+      for (int k = 0; k < K; ++k) {
+        xj[k] = x[k][j];
+        x[k][j] = cur[k];
+      }
+      O::compose(xj, cur, cur);
+    }
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      float* dst = sv + k * G::kVals;
+      if constexpr (kNarrow) {
+#pragma unroll
+        for (int q = 0; q < 4; ++q)
+          *reinterpret_cast<float4*>(dst + c * G::kStride + q * 4) =
+              make_float4(x[k][q * 4], x[k][q * 4 + 1], x[k][q * 4 + 2],
+                          x[k][q * 4 + 3]);
+      } else {
+#pragma unroll
+        for (int j = 0; j < kChunkRows; ++j)
+          dst[G::at(c * kChunkRows + j, l)] = x[k][j];
+      }
+      sk[k * kItems + it] = cur[k];
+    }
+    if (l == 0) {
+      sinc[c] = first < kChunkRows;
+      sfs[c] = static_cast<uint8_t>(first);
+    }
+  }
+  __syncthreads();
+
+  // the chunk aggregates' segmented Kogge-Stone sweep over the chunk index,
+  // inclusive: a fixed tree, whatever the block size
+  int cb = 0;
+  for (int d = 1; d < C; d <<= 1) {
+    const float* src = sk + cb * K * kItems;
+    float* dst = sk + (cb ^ 1) * K * kItems;
+    const uint8_t* fsrc = sinc + cb * C;
+    uint8_t* fdst = sinc + (cb ^ 1) * C;
+    for (int it = tid; it < kItems; it += nt) {
+      const int c = kNarrow ? it : it >> 5, l = kNarrow ? 0 : it & 31;
+      float v[K];
+#pragma unroll
+      for (int k = 0; k < K; ++k) v[k] = src[k * kItems + it];
+      uint8_t f = fsrc[c];
+      if (!f && c >= d) {
+        float pv[K];
+#pragma unroll
+        for (int k = 0; k < K; ++k) pv[k] = src[k * kItems + it - d * L];
+        O::compose(v, pv, v);
+        f = fsrc[c - d];
       }
 #pragma unroll
-      for (int k = 0; k < O::K; ++k) sv[cur ^ 1][k][tid] = nv[k];
-      sf[cur ^ 1][tid] = nf;
-      cur ^= 1;
-      __syncthreads();
+      for (int k = 0; k < K; ++k) dst[k * kItems + it] = v[k];
+      if (l == 0) fdst[c] = f;
     }
-    // fold in the carry of the earlier rounds where no start was seen
-    float inc[2];
-#pragma unroll
-    for (int k = 0; k < O::K; ++k) inc[k] = sv[cur][k][tid];
-    if (!sf[cur][tid]) O::compose(inc, carry, inc);
+    cb ^= 1;
     __syncthreads();
+  }
+  const float* inc = sk + cb * K * kItems;
+  const uint8_t* incf = sinc + cb * C;
+
+  // 4. the carry across tiles: warp 0 publishes I_t and fetches I_{t-1}
+  if (tid < 32) {
+    const int l = tid;
+    float agg[K], prev[K];
 #pragma unroll
-    for (int k = 0; k < O::K; ++k) sv[cur][k][tid] = inc[k];
-    __syncthreads();
-    if (live) {
+    for (int k = 0; k < K; ++k)
+      agg[k] = l < L ? inc[k * kItems + (C - 1) * L + l] : id[k];
+    O::identity(prev);
+    const int64_t pslot = t > 0 ? slot - s.n_groups : slot;
+    const unsigned* pstat = status + 1 + pslot;
+    const float* pcarry = carry + pslot * K * 32;
+    bool have = false;
+    if (!incf[C - 1] && t > 0) {
+      while (ld_acquire(pstat) == 0) {
+      }
 #pragma unroll
-      for (int k = 0; k < O::K; ++k)
-        p.cin[k][t * p.w + lane] = tid == 0 ? carry[k] : sv[cur][k][tid - 1];
+      for (int k = 0; k < K; ++k) prev[k] = __ldcg(pcarry + k * 32 + l);
+      have = true;
+      O::compose(agg, prev, agg);
+    }
+    if (t + 1 < s.n_tiles) {
+      float* mine = carry + slot * K * 32;
+#pragma unroll
+      for (int k = 0; k < K; ++k) __stcg(mine + k * 32 + l, agg[k]);
+      __threadfence();
+      __syncwarp();
+      if (l == 0) st_release(status + 1 + slot, 1u);
+    }
+    if (!have && t > 0 && !sf[0]) {
+      while (ld_acquire(pstat) == 0) {
+      }
+#pragma unroll
+      for (int k = 0; k < K; ++k) prev[k] = __ldcg(pcarry + k * 32 + l);
     }
 #pragma unroll
-    for (int k = 0; k < O::K; ++k) carry[k] = sv[cur][k][kCarry - 1];
-    __syncthreads();
+    for (int k = 0; k < K; ++k) sprev[k * 32 + l] = prev[k];
+  }
+  __syncthreads();
+
+  // 5. write-out.  fix(c, l, v): row of chunk c before the chunk's first
+  // start gets the chunk's carry composed in: the inclusive sweep value of
+  // chunk c - 1, after the tile carry where no start precedes it in the tile
+  auto fix = [&](int c, int l, float* v) {
+    float fc[K];
+#pragma unroll
+    for (int k = 0; k < K; ++k) fc[k] = sprev[k * 32 + l];
+    if (c > 0) {
+      float cin[K];
+#pragma unroll
+      for (int k = 0; k < K; ++k) cin[k] = inc[k * kItems + (c - 1) * L + l];
+      if (incf[c - 1]) {
+#pragma unroll
+        for (int k = 0; k < K; ++k) fc[k] = cin[k];
+      } else {
+        O::compose(cin, fc, fc);
+      }
+    }
+    O::compose(v, fc, v);
+  };
+  if constexpr (kNarrow) {
+    const int nv = s.vec ? rows & ~3 : 0;
+    for (int i = tid * 4; i < nv; i += nt * 4) {
+      const int c = i >> 4, first = sfs[c];
+      float4 v[K];
+#pragma unroll
+      for (int k = 0; k < K; ++k)
+        v[k] = *reinterpret_cast<const float4*>(sv + k * G::kVals +
+                                                G::at(i, 0));
+      if ((i & 15) < first) {
+        float e[4][K];
+#pragma unroll
+        for (int k = 0; k < K; ++k) {
+          e[0][k] = v[k].x;
+          e[1][k] = v[k].y;
+          e[2][k] = v[k].z;
+          e[3][k] = v[k].w;
+        }
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          if ((i & 15) + j < first) fix(c, 0, e[j]);
+#pragma unroll
+        for (int k = 0; k < K; ++k)
+          v[k] = make_float4(e[0][k], e[1][k], e[2][k], e[3][k]);
+      }
+#pragma unroll
+      for (int k = 0; k < K; ++k)
+        *reinterpret_cast<float4*>(out[k] + r0 + i) = v[k];
+    }
+    for (int i = nv + tid; i < rows; i += nt) {
+      float e[K];
+#pragma unroll
+      for (int k = 0; k < K; ++k) e[k] = sv[k * G::kVals + G::at(i, 0)];
+      if ((i & 15) < sfs[i >> 4]) fix(i >> 4, 0, e);
+#pragma unroll
+      for (int k = 0; k < K; ++k) out[k][r0 + i] = e[k];
+    }
+  } else {
+    const int64_t base = r0 * s.w + g * 32;
+    if (s.vec) {
+      const int q = lanes >> 2;
+      for (int i = tid; i < rows * q; i += nt) {
+        const int r = lanes == 32 ? i >> 3 : i / q;
+        const int c4 = (i - r * q) * 4, c = r >> 4;
+        float4 v[K];
+#pragma unroll
+        for (int k = 0; k < K; ++k)
+          v[k] = *reinterpret_cast<const float4*>(sv + k * G::kVals + r * 32 +
+                                                  c4);
+        if ((r & 15) < sfs[c]) {
+          float e[4][K];
+#pragma unroll
+          for (int k = 0; k < K; ++k) {
+            e[0][k] = v[k].x;
+            e[1][k] = v[k].y;
+            e[2][k] = v[k].z;
+            e[3][k] = v[k].w;
+          }
+#pragma unroll
+          for (int j = 0; j < 4; ++j) fix(c, c4 + j, e[j]);
+#pragma unroll
+          for (int k = 0; k < K; ++k)
+            v[k] = make_float4(e[0][k], e[1][k], e[2][k], e[3][k]);
+        }
+#pragma unroll
+        for (int k = 0; k < K; ++k)
+          *reinterpret_cast<float4*>(out[k] + base + r * s.w + c4) = v[k];
+      }
+    } else {
+      for (int i = tid; i < rows * lanes; i += nt) {
+        const int r = i / lanes, l = i - r * lanes, c = r >> 4;
+        float e[K];
+#pragma unroll
+        for (int k = 0; k < K; ++k) e[k] = sv[k * G::kVals + r * 32 + l];
+        if ((r & 15) < sfs[c]) fix(c, l, e);
+#pragma unroll
+        for (int k = 0; k < K; ++k) out[k][base + r * s.w + l] = e[k];
+      }
+    }
   }
 }
 
-template <bool kMax>
-__global__ void scan_fixup(Arrays p) {
-  using O = Op<kMax>;
-  const int64_t g = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (g >= p.n_tiles * p.w) return;
-  const int64_t t = g / p.w;
-  const int lane = static_cast<int>(g - t * p.w);
-  float c[2], x[2];
-#pragma unroll
-  for (int k = 0; k < O::K; ++k) c[k] = p.cin[k][g];
-  const int64_t r0 = t * kTile, r1 = min(p.n, r0 + kTile);
-  for (int64_t r = r0; r < r1 && !p.flags[r]; ++r) {
-    const int64_t e = r * p.w + lane;
-#pragma unroll
-    for (int k = 0; k < O::K; ++k) x[k] = p.out[k][e];
-    O::compose(x, c, x);
-#pragma unroll
-    for (int k = 0; k < O::K; ++k) p.out[k][e] = x[k];
-  }
+bool aligned16(const void* p) {
+  return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
 }
 
-template <bool kMax>
-int launch(const Arrays& p, int threads, cudaStream_t s) {
-  const int64_t work = p.n_tiles * p.w;
-  const unsigned blocks = static_cast<unsigned>((work + threads - 1) / threads);
-  scan_tiles<kMax><<<blocks, threads, 0, s>>>(p);
-  cudaError_t err = cudaGetLastError();
+template <bool kMax, bool kNarrow>
+int launch(const uint8_t* flags, const float* in0, const float* in1,
+           float* out0, float* out1, unsigned* status, float* carry,
+           int64_t slots, int64_t n, int w, int threads, cudaStream_t st) {
+  constexpr int T = Geo<kNarrow>::kRows;
+  Shape s{};
+  s.n = n;
+  s.w = w;
+  s.n_tiles = (n + T - 1) / T;
+  s.n_groups = (w + 31) / 32;
+  s.vec = aligned16(in0) && aligned16(out0) &&
+          (kMax || (aligned16(in1) && aligned16(out1))) &&
+          (kNarrow || w % 4 == 0);
+  s.fvec = aligned16(flags);
+  const int64_t blocks = s.n_tiles * s.n_groups;
+  if (blocks > slots || blocks >= (int64_t{1} << 31))
+    return static_cast<int>(cudaErrorInvalidValue);
+  auto kernel = segscan_kernel<kMax, kNarrow>;
+  constexpr size_t smem = smem_bytes<kMax, kNarrow>();
+  cudaError_t err = set_smem(kernel, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  scan_carry<kMax><<<p.w, kCarry, 0, s>>>(p);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  scan_fixup<kMax><<<blocks, threads, 0, s>>>(p);
+  kernel<<<static_cast<unsigned>(blocks), threads, smem, st>>>(
+      flags, in0, in1, out0, out1, status, carry, s);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <bool kMax>
+int dispatch(const void* flags, const void* in0, const void* in1, void* out0,
+             void* out1, void* status, void* carry, int64_t slots, int64_t n,
+             int w, int threads, void* stream) {
+  auto f = w == 1 ? launch<kMax, true> : launch<kMax, false>;
+  return f(static_cast<const uint8_t*>(flags), static_cast<const float*>(in0),
+           static_cast<const float*>(in1), static_cast<float*>(out0),
+           static_cast<float*>(out1), static_cast<unsigned*>(status),
+           static_cast<float*>(carry), slots, n, w, threads,
+           static_cast<cudaStream_t>(stream));
 }
 
 }  // namespace
 
-REPRO_EXPORT int segscan_tile_rows() { return kTile; }
+// Scratch of both entries, for `slots` >= ceil(n / 128) * ceil(w / 32) tile
+// slots (128 rows is the smallest tile): status, u32[1 + slots], zeroed;
+// carry, f32[slots, K, 32] (K = 2 for affine, 1 for max), uninitialised.
 
-// flags: u8[n]; a, b, A, B: f32[n, w]; agg_a, agg_b, cin_a, cin_b:
-// f32[n_tiles, w]; tile_flag: u8[n_tiles], n_tiles = ceil(n / kTile).
+// flags: u8[n]; a, b, A, B: f32[n, w].
 REPRO_EXPORT int segscan_affine(const void* flags, const void* a, const void* b,
-                                void* A, void* B, void* agg_a, void* agg_b,
-                                void* cin_a, void* cin_b, void* tile_flag,
-                                int64_t n, int w, int threads, void* stream) {
-  Arrays p{};
-  p.flags = static_cast<const uint8_t*>(flags);
-  p.in[0] = static_cast<const float*>(a);
-  p.in[1] = static_cast<const float*>(b);
-  p.out[0] = static_cast<float*>(A);
-  p.out[1] = static_cast<float*>(B);
-  p.agg[0] = static_cast<float*>(agg_a);
-  p.agg[1] = static_cast<float*>(agg_b);
-  p.cin[0] = static_cast<float*>(cin_a);
-  p.cin[1] = static_cast<float*>(cin_b);
-  p.tile_flag = static_cast<uint8_t*>(tile_flag);
-  p.n = n;
-  p.n_tiles = (n + kTile - 1) / kTile;
-  p.w = w;
-  return launch<false>(p, threads, static_cast<cudaStream_t>(stream));
+                                void* A, void* B, void* status, void* carry,
+                                int64_t slots, int64_t n, int w, int threads,
+                                void* stream) {
+  return dispatch<false>(flags, a, b, A, B, status, carry, slots, n, w,
+                         threads, stream);
 }
 
-// flags: u8[n]; m, M: f32[n, w]; agg, cin: f32[n_tiles, w]; tile_flag:
-// u8[n_tiles].
+// flags: u8[n]; m, M: f32[n, w].
 REPRO_EXPORT int segscan_max(const void* flags, const void* m, void* M,
-                             void* agg, void* cin, void* tile_flag, int64_t n,
-                             int w, int threads, void* stream) {
-  Arrays p{};
-  p.flags = static_cast<const uint8_t*>(flags);
-  p.in[0] = static_cast<const float*>(m);
-  p.out[0] = static_cast<float*>(M);
-  p.agg[0] = static_cast<float*>(agg);
-  p.cin[0] = static_cast<float*>(cin);
-  p.tile_flag = static_cast<uint8_t*>(tile_flag);
-  p.n = n;
-  p.n_tiles = (n + kTile - 1) / kTile;
-  p.w = w;
-  return launch<true>(p, threads, static_cast<cudaStream_t>(stream));
+                             void* status, void* carry, int64_t slots,
+                             int64_t n, int w, int threads, void* stream) {
+  return dispatch<true>(flags, m, nullptr, M, nullptr, status, carry, slots,
+                        n, w, threads, stream);
 }

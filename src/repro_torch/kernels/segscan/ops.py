@@ -2,8 +2,10 @@
 
 The kernels take the real lane width W (1 for GS, 32 for TP): no lane
 padding.  Flags go in as one byte per row (a bool tensor).  A CUDA tensor
-launches the kernel, which allocates nothing itself: the wrapper allocates
-the outputs and the per-tile scratch.  A CPU tensor takes the plain twin.
+launches the kernel: one launch per scan, whose tiles hand their carries on
+in a fixed order through status and carry words.  The wrapper allocates the
+outputs and that scratch (the status words zeroed, one memset), sized for
+the kernel's smallest tile.  A CPU tensor takes the plain twin.
 """
 from __future__ import annotations
 
@@ -19,10 +21,12 @@ LIB = "segscan"
 THREADS = 256
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
 SIGNATURES = {
-    "segscan_affine": [_P] * 10 + [_L, _I, _I, _P],
-    "segscan_max": [_P] * 6 + [_L, _I, _I, _P],
-    "segscan_tile_rows": [],
+    "segscan_affine": [_P] * 7 + [_L, _L, _I, _I, _P],
+    "segscan_max": [_P] * 5 + [_L, _L, _I, _I, _P],
 }
+# The smallest tile of the kernel's geometries (csrc/segscan.cu: 128 rows x
+# 32 lanes at W > 1, 4,096 rows at W = 1): the scratch has a slot for each.
+MIN_TILE_ROWS = 128
 
 
 def _check(name, seg_start, xs, threads):
@@ -42,11 +46,13 @@ def _check(name, seg_start, xs, threads):
     return n, w, threads
 
 
-def _scratch(lib, n, w, k, dev):
-    n_tiles = -(-n // lib.segscan_tile_rows())
-    f32 = dict(dtype=torch.float32, device=dev)
-    return ([torch.empty((n_tiles, w), **f32) for _ in range(2 * k)],
-            torch.empty((n_tiles,), dtype=torch.uint8, device=dev))
+def _scratch(n, w, k, dev):
+    """(status, carry, slots): the kernel's tile counter and one status word
+    per tile slot, zeroed; K x 32 carry floats per slot."""
+    slots = -(-n // MIN_TILE_ROWS) * -(-w // 32)
+    status = torch.zeros((1 + slots,), dtype=torch.int32, device=dev)
+    carry = torch.empty((slots, k, 32), dtype=torch.float32, device=dev)
+    return status, carry, slots
 
 
 def segscan_affine(a: torch.Tensor, b: torch.Tensor, seg_start: torch.Tensor,
@@ -60,13 +66,11 @@ def segscan_affine(a: torch.Tensor, b: torch.Tensor, seg_start: torch.Tensor,
     A, B = torch.empty_like(a), torch.empty_like(b)
     if n and w:
         lib = _build.library(LIB, SIGNATURES)
-        (agg_a, agg_b, cin_a, cin_b), tile_flag = _scratch(lib, n, w, 2,
-                                                           a.device)
+        status, carry, slots = _scratch(n, w, 2, a.device)
         err = lib.segscan_affine(
             seg_start.data_ptr(), a.data_ptr(), b.data_ptr(), A.data_ptr(),
-            B.data_ptr(), agg_a.data_ptr(), agg_b.data_ptr(), cin_a.data_ptr(),
-            cin_b.data_ptr(), tile_flag.data_ptr(), n, w, threads,
-            torch.cuda.current_stream(a.device).cuda_stream)
+            B.data_ptr(), status.data_ptr(), carry.data_ptr(), slots, n, w,
+            threads, torch.cuda.current_stream(a.device).cuda_stream)
         _build.check_launch(lib, err, name)
         LAUNCHES[name] += 1
     return A, B
@@ -82,10 +86,10 @@ def segscan_max(m: torch.Tensor, seg_start: torch.Tensor, *,
     M = torch.empty_like(m)
     if n and w:
         lib = _build.library(LIB, SIGNATURES)
-        (agg, cin), tile_flag = _scratch(lib, n, w, 1, m.device)
+        status, carry, slots = _scratch(n, w, 1, m.device)
         err = lib.segscan_max(
-            seg_start.data_ptr(), m.data_ptr(), M.data_ptr(), agg.data_ptr(),
-            cin.data_ptr(), tile_flag.data_ptr(), n, w, threads,
+            seg_start.data_ptr(), m.data_ptr(), M.data_ptr(),
+            status.data_ptr(), carry.data_ptr(), slots, n, w, threads,
             torch.cuda.current_stream(m.device).cuda_stream)
         _build.check_launch(lib, err, name)
         LAUNCHES[name] += 1

@@ -8,9 +8,11 @@ machine that has only PyTorch:
 
 Bars: radix_partition, the megakernel (a stack of intervals, of one problem
 or a batch, against its stream twin and against a loop of the per-interval
-twin) and hash_probe bitwise; the segscans to rtol = atol = 1e-5 (the kernel
-associates a segment's sums differently from the twin's Hillis-Steele
-sweep).  Shapes the kernels cannot take raise.  The sharded driver on the
+twin) and hash_probe bitwise; segscan_affine to rtol = atol = 1e-5 (the
+kernel associates a segment's sums differently from the twin's Hillis-Steele
+sweep), segscan_max bitwise where a case says so (a max is exact under any
+association), and each scan bitwise from call to call.  Shapes the kernels
+cannot take raise.  The sharded driver on the
 card is held to the single-device driver on the card: bitwise on the
 megakernel rung, to rtol = atol = 1e-5 where the staged rung's segscans run
 (their association depends on where a chain lies among the kernel's tiles).
@@ -90,6 +92,101 @@ def test_segscan_matches_twin(n, w, avg):
     torch.testing.assert_close(A, A0, rtol=1e-5, atol=1e-5)
     torch.testing.assert_close(B, B0, rtol=1e-5, atol=1e-5)
     torch.testing.assert_close(M, M0, rtol=1e-5, atol=1e-5)
+
+
+# The kernel's tiles (csrc/segscan.cu): 4,096 rows at W = 1, else 128 rows of
+# a group of 32 lanes, scanned in chunks of 16 rows.
+TILE_ROWS = {1: 4096, 32: 128}
+
+
+def _segscan_inputs(n, w, seed):
+    g = torch.Generator().manual_seed(seed)
+    a = torch.rand(n, w, generator=g) * 1.5
+    b = (torch.rand(n, w, generator=g) - 0.5) * 4
+    return a, b
+
+
+def _check_segscan(a, b, f):
+    """Both scans against their twins: affine to 1e-5, max bitwise; one
+    launch each."""
+    reset_launches()
+    A, B = segscan_affine(a, b, f)
+    M = segscan_max(b, f)
+    assert LAUNCHES["segscan_affine"] == 1 and LAUNCHES["segscan_max"] == 1
+    A0, B0 = segscan_affine_ref(f, a, b)
+    torch.testing.assert_close(A, A0, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(B, B0, rtol=1e-5, atol=1e-5)
+    assert torch.equal(M, segscan_max_ref(f, b))
+
+
+@pytest.mark.parametrize("w", [1, 2, 3, 31, 32, 33, 64])
+def test_segscan_at_every_width(w):
+    """Widths below, at and across one lane group of 32; 5,000 rows is a
+    multiple of no tile."""
+    dev = need_card()
+    a, b = _segscan_inputs(5000, w, w)
+    g = torch.Generator().manual_seed(100 + w)
+    f = torch.rand(5000, generator=g) < 0.05
+    _check_segscan(a.to(dev), b.to(dev), f.to(dev))
+
+
+@pytest.mark.parametrize("w", [1, 32])
+@pytest.mark.parametrize("where", ["tiles", "chunks"])
+def test_segscan_starts_on_tile_boundaries(w, where):
+    """Segment starts exactly on every tile's first row (or on every chunk's
+    first row) and nowhere else, over a ragged last tile."""
+    dev = need_card()
+    rows = TILE_ROWS[w]
+    n = 5 * rows + 77
+    a, b = _segscan_inputs(n, w, n)
+    step = rows if where == "tiles" else 16
+    f = torch.arange(n) % step == 0
+    _check_segscan(a.to(dev), b.to(dev), f.to(dev))
+
+
+@pytest.mark.parametrize("w", [1, 32])
+def test_segscan_startless_run_across_many_tiles(w):
+    """Starts at rows 0 and 50, then none for 250 tiles: each of those tiles
+    waits on its predecessor's carry; then a start mid-tile and a ragged
+    end."""
+    dev = need_card()
+    rows = TILE_ROWS[w]
+    n = rows * 300 + 5
+    a, b = _segscan_inputs(n, w, 7 + w)
+    f = torch.zeros(n, dtype=torch.bool)
+    f[[0, 50, rows * 250 + 3]] = True
+    _check_segscan(a.to(dev), b.to(dev), f.to(dev))
+
+
+@pytest.mark.parametrize("w", [1, 32])
+def test_segscan_empty_stream(w):
+    """N = 0: empty results of the input's shape, and no launch."""
+    dev = need_card()
+    a = torch.zeros((0, w), device=dev)
+    f = torch.zeros((0,), dtype=torch.bool, device=dev)
+    reset_launches()
+    A, B = segscan_affine(a, a, f)
+    M = segscan_max(a, f)
+    assert A.shape == B.shape == M.shape == (0, w)
+    assert LAUNCHES["segscan_affine"] == 0 and LAUNCHES["segscan_max"] == 0
+
+
+@pytest.mark.parametrize("n,w,avg", [(400_000, 32, 5), (60_000, 32, 1e9),
+                                     (1_000_000, 1, 5000)])
+def test_segscan_is_deterministic(n, w, avg):
+    """Five calls of each scan on the same input give the same bits: the
+    carry across tiles is chained in a fixed order, never read early."""
+    dev = need_card()
+    a, b = _segscan_inputs(n, w, n + w)
+    g = torch.Generator().manual_seed(n)
+    f = torch.rand(n, generator=g) < 1.0 / avg
+    a, b, f = a.to(dev), b.to(dev), f.to(dev)
+    A, B = segscan_affine(a, b, f)
+    M = segscan_max(b, f)
+    for _ in range(4):
+        A1, B1 = segscan_affine(a, b, f)
+        assert torch.equal(A1, A) and torch.equal(B1, B)
+        assert torch.equal(segscan_max(b, f), M)
 
 
 def _mega_case(name, dev):

@@ -110,6 +110,23 @@ def test_segscan_twins_bitwise_vs_reference_scans(n, w, avg_seg):
         np.testing.assert_array_equal(np_(got), np.asarray(want))
 
 
+@pytest.mark.parametrize("w", [1, 32])
+def test_segscan_twins_take_an_empty_stream(w):
+    """N = 0 rows: empty results of the input's shape, as the reference's
+    sweeps give (the twins' row shift once asked for a negative length)."""
+    a = np.zeros((0, w), np.float32)
+    f = np.zeros((0,), bool)
+    A, B = segscan_affine(torch.from_numpy(a), torch.from_numpy(a),
+                          torch.from_numpy(f))
+    M = segscan_max(torch.from_numpy(a), torch.from_numpy(f))
+    A0, B0 = jax.jit(j_scan_affine)(jnp.asarray(a), jnp.asarray(a),
+                                    jnp.asarray(f))
+    M0 = jax.jit(j_scan_max)(jnp.asarray(a), jnp.asarray(f))
+    for got, want in ((A, A0), (B, B0), (M, M0)):
+        assert tuple(got.shape) == tuple(want.shape) == (0, w)
+        assert got.dtype == torch.float32
+
+
 def test_segscan_flattened_stream_equals_per_interval():
     """One scan over a flattened stack of intervals gives each interval's
     own scan bit for bit (the sweep is segment-relative)."""
