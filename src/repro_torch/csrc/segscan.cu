@@ -19,7 +19,7 @@
 //   1. Tiles.  A tile is a block of rows x a group of at most 32 lanes (the
 //      lanes are independent scans that share the flags).  Its geometry is a
 //      function of W alone: W = 1 takes 4,096 rows as 256 chunks of 16; any
-//      wider W takes 128 rows x 32 lanes, 8 chunks of 16 rows per lane.  The
+//      wider W takes 256 rows x 32 lanes, 16 chunks of 16 rows per lane.  The
 //      block size only decides how many threads share this fixed work, so
 //      no association depends on it.
 //   2. Loads first.  The block copies its tile's flags and coefficients into
@@ -61,17 +61,18 @@
 namespace {
 
 constexpr int kChunkRows = 16;   // rows one item scans serially
-constexpr int kItems = 256;      // (chunk, lane) items of every tile
-constexpr int kMinTileRows = 128;
+constexpr int kMinTileRows = 256;
 
-// Tile geometry, a function of W alone.  at(row, lane) is the element's
-// float offset in the tile's shared copy of one array.
+// Tile geometry, a function of W alone: kChunks chunks of 16 rows x kLanes
+// lanes, kItems (chunk, lane) items.  at(row, lane) is the element's float
+// offset in the tile's shared copy of one array.
 template <bool kNarrow>
 struct Geo;
 
 template <>
 struct Geo<true> {   // W = 1
-  static constexpr int kLanes = 1, kChunks = 256, kRows = 4096;
+  static constexpr int kLanes = 1, kChunks = 256;
+  static constexpr int kRows = kChunks * kChunkRows, kItems = kChunks * kLanes;
   // 16 rows and 4 floats of padding a chunk: the 16-byte reads of 8
   // consecutive chunks (a quarter warp) land on distinct banks
   static constexpr int kStride = 20;
@@ -83,13 +84,12 @@ struct Geo<true> {   // W = 1
 
 template <>
 struct Geo<false> {  // W >= 2, groups of 32 lanes
-  static constexpr int kLanes = 32, kChunks = 8, kRows = 128;
+  static constexpr int kLanes = 32, kChunks = 16;
+  static constexpr int kRows = kChunks * kChunkRows, kItems = kChunks * kLanes;
   static constexpr int kVals = kRows * 32;
   __device__ static int at(int row, int lane) { return row * 32 + lane; }
 };
 
-static_assert(Geo<true>::kChunks * Geo<true>::kLanes == kItems, "items");
-static_assert(Geo<false>::kChunks * Geo<false>::kLanes == kItems, "items");
 static_assert(Geo<false>::kRows >= kMinTileRows, "tile rows");
 static_assert(Geo<true>::kRows >= kMinTileRows, "tile rows");
 
@@ -164,8 +164,8 @@ template <bool kMax, bool kNarrow>
 constexpr size_t smem_bytes() {
   using G = Geo<kNarrow>;
   constexpr int K = Op<kMax>::K;
-  return sizeof(float) * (K * G::kVals + 2 * K * kItems + K * 32) + G::kRows +
-         3 * G::kChunks;
+  return sizeof(float) * (K * G::kVals + 2 * K * G::kItems + K * 32) +
+         G::kRows + 3 * G::kChunks;
 }
 
 // Tile t of group g is the block that draws t * n_groups + g from the
@@ -181,6 +181,7 @@ __global__ void __launch_bounds__(1024)
   using O = Op<kMax>;
   using G = Geo<kNarrow>;
   constexpr int K = O::K, C = G::kChunks, L = G::kLanes, T = G::kRows;
+  constexpr int kItems = G::kItems;
   extern __shared__ __align__(16) unsigned char smem[];
   float* sv = reinterpret_cast<float*>(smem);   // [K][kVals]
   float* sk = sv + K * G::kVals;                // [2][K][kItems]
@@ -541,8 +542,8 @@ int dispatch(const void* flags, const void* in0, const void* in1, void* out0,
 
 }  // namespace
 
-// Scratch of both entries, for `slots` >= ceil(n / 128) * ceil(w / 32) tile
-// slots (128 rows is the smallest tile): status, u32[1 + slots], zeroed;
+// Scratch of both entries, for `slots` >= ceil(n / 256) * ceil(w / 32) tile
+// slots (256 rows is the smallest tile): status, u32[1 + slots], zeroed;
 // carry, f32[slots, K, 32] (K = 2 for affine, 1 for max), uninitialised.
 
 // flags: u8[n]; a, b, A, B: f32[n, w].

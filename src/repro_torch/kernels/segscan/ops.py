@@ -24,9 +24,9 @@ SIGNATURES = {
     "segscan_affine": [_P] * 7 + [_L, _L, _I, _I, _P],
     "segscan_max": [_P] * 5 + [_L, _L, _I, _I, _P],
 }
-# The smallest tile of the kernel's geometries (csrc/segscan.cu: 128 rows x
+# The smallest tile of the kernel's geometries (csrc/segscan.cu: 256 rows x
 # 32 lanes at W > 1, 4,096 rows at W = 1): the scratch has a slot for each.
-MIN_TILE_ROWS = 128
+MIN_TILE_ROWS = 256
 
 
 def _check(name, seg_start, xs, threads):

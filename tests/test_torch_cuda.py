@@ -94,9 +94,9 @@ def test_segscan_matches_twin(n, w, avg):
     torch.testing.assert_close(M, M0, rtol=1e-5, atol=1e-5)
 
 
-# The kernel's tiles (csrc/segscan.cu): 4,096 rows at W = 1, else 128 rows of
+# The kernel's tiles (csrc/segscan.cu): 4,096 rows at W = 1, else 256 rows of
 # a group of 32 lanes, scanned in chunks of 16 rows.
-TILE_ROWS = {1: 4096, 32: 128}
+TILE_ROWS = {1: 4096, 32: 256}
 
 
 def _segscan_inputs(n, w, seed):
