@@ -169,9 +169,12 @@ def tstream_scan_coefs(plan: ScanPlan, *, use_kernels: bool = True,
 
     Takes one interval or a stack ``[n_intervals, N]``: the stack is scanned
     as one flattened stream (one kernel launch per scan under
-    ``use_kernels``), which each interval's leading segment start isolates
-    — the same bits as per-interval scans, since the sweep is
-    segment-relative.  ``threads`` overrides the kernel's block size.
+    ``use_kernels``), which each interval's leading segment start isolates.
+    The twins' sweep is segment-relative, so on the CPU that gives the same
+    bits as per-interval scans; the CUDA affine scan associates by tile and
+    agrees to 1e-5 (exact where every product has a factor in {0, 1}, as for
+    GS; the max scan is exact).  ``threads`` overrides the kernel's block
+    size, which changes no bit.
     """
     shape = plan.af.shape
     w = shape[-1]

@@ -39,11 +39,12 @@ take, so no Python loop over shards runs; the loop over intervals carries
 ``[n_shards, lpad+1, W]`` state blocks (on the megakernel rung of
 ``shared_nothing``, which merges nothing, one megakernel call carries them
 through the whole stream).  On the card the staged rung's
-segscans run over the flat concatenation of every shard's rows, and the CUDA
-segscan's association depends on where a chain lies among its tiles
-(``csrc/segscan.cu``), so there a sharded run with max tables (TP) agrees
-with the single-device run to a tolerance, not bit for bit; the megakernel
-rung (GS) stays bitwise.
+segscans run over the flat concatenation of every shard's rows, one launch
+per scan, and the CUDA affine scan's association depends on where a chain
+lies among its fixed tiles (``csrc/segscan.cu``; the same from call to
+call), so there a sharded run with max tables (TP) agrees with the
+single-device run to a tolerance, not bit for bit; the megakernel rung
+(GS) stays bitwise.
 
 Not ported here: the lockstep branch for non-associative apps and schemes
 (ROADMAP A7), the chunk entry ``run_chunk`` and live resharding

@@ -225,15 +225,11 @@ __global__ void __launch_bounds__(1024)
     for (int k = 0; k < K; ++k) {
       const float* src = in[k] + base;
       float* dst = sv + k * G::kVals;
-      if (s.vec && lanes == 32) {
-        for (int i = tid; i < rows * 8; i += nt) {
-          const int r = i >> 3, c4 = (i & 7) * 4;
-          cp_async16(dst + r * 32 + c4, src + r * s.w + c4);
-        }
-      } else if (s.vec) {
+      if (s.vec) {
         const int q = lanes >> 2;
         for (int i = tid; i < rows * q; i += nt) {
-          const int r = i / q, c4 = (i - r * q) * 4;
+          const int r = lanes == 32 ? i >> 3 : i / q;
+          const int c4 = (i - r * q) * 4;
           cp_async16(dst + r * 32 + c4, src + r * s.w + c4);
         }
       } else {
@@ -396,7 +392,7 @@ __global__ void __launch_bounds__(1024)
   }
   __syncthreads();
 
-  // 5. write-out.  fix(c, l, v): row of chunk c before the chunk's first
+  // 5. write-out.  fix(c, l, v): a row of chunk c before the chunk's first
   // start gets the chunk's carry composed in: the inclusive sweep value of
   // chunk c - 1, after the tile carry where no start precedes it in the tile
   auto fix = [&](int c, int l, float* v) {
@@ -416,31 +412,34 @@ __global__ void __launch_bounds__(1024)
     }
     O::compose(v, fc, v);
   };
+  // fix4: the same for the 4 elements of a 16-byte store, element j at row
+  // (within chunk c) row0 + j * drow and lane l0 + j * dl
+  auto fix4 = [&](float4* v, int c, int row0, int drow, int l0, int dl) {
+    if (row0 >= sfs[c]) return;
+    float e[4][K];
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      e[0][k] = v[k].x;
+      e[1][k] = v[k].y;
+      e[2][k] = v[k].z;
+      e[3][k] = v[k].w;
+    }
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      if (row0 + j * drow < sfs[c]) fix(c, l0 + j * dl, e[j]);
+#pragma unroll
+    for (int k = 0; k < K; ++k)
+      v[k] = make_float4(e[0][k], e[1][k], e[2][k], e[3][k]);
+  };
   if constexpr (kNarrow) {
     const int nv = s.vec ? rows & ~3 : 0;
     for (int i = tid * 4; i < nv; i += nt * 4) {
-      const int c = i >> 4, first = sfs[c];
       float4 v[K];
 #pragma unroll
       for (int k = 0; k < K; ++k)
         v[k] = *reinterpret_cast<const float4*>(sv + k * G::kVals +
                                                 G::at(i, 0));
-      if ((i & 15) < first) {
-        float e[4][K];
-#pragma unroll
-        for (int k = 0; k < K; ++k) {
-          e[0][k] = v[k].x;
-          e[1][k] = v[k].y;
-          e[2][k] = v[k].z;
-          e[3][k] = v[k].w;
-        }
-#pragma unroll
-        for (int j = 0; j < 4; ++j)
-          if ((i & 15) + j < first) fix(c, 0, e[j]);
-#pragma unroll
-        for (int k = 0; k < K; ++k)
-          v[k] = make_float4(e[0][k], e[1][k], e[2][k], e[3][k]);
-      }
+      fix4(v, i >> 4, i & 15, 1, 0, 0);
 #pragma unroll
       for (int k = 0; k < K; ++k)
         *reinterpret_cast<float4*>(out[k] + r0 + i) = v[k];
@@ -459,27 +458,13 @@ __global__ void __launch_bounds__(1024)
       const int q = lanes >> 2;
       for (int i = tid; i < rows * q; i += nt) {
         const int r = lanes == 32 ? i >> 3 : i / q;
-        const int c4 = (i - r * q) * 4, c = r >> 4;
+        const int c4 = (i - r * q) * 4;
         float4 v[K];
 #pragma unroll
         for (int k = 0; k < K; ++k)
           v[k] = *reinterpret_cast<const float4*>(sv + k * G::kVals + r * 32 +
                                                   c4);
-        if ((r & 15) < sfs[c]) {
-          float e[4][K];
-#pragma unroll
-          for (int k = 0; k < K; ++k) {
-            e[0][k] = v[k].x;
-            e[1][k] = v[k].y;
-            e[2][k] = v[k].z;
-            e[3][k] = v[k].w;
-          }
-#pragma unroll
-          for (int j = 0; j < 4; ++j) fix(c, c4 + j, e[j]);
-#pragma unroll
-          for (int k = 0; k < K; ++k)
-            v[k] = make_float4(e[0][k], e[1][k], e[2][k], e[3][k]);
-        }
+        fix4(v, r >> 4, r & 15, 0, c4, 1);
 #pragma unroll
         for (int k = 0; k < K; ++k)
           *reinterpret_cast<float4*>(out[k] + base + r * s.w + c4) = v[k];

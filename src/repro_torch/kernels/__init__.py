@@ -3,10 +3,10 @@
 radix_partition — stable within-bucket rank + histogram: the restructure
                   backbone (one launch ranks every interval of a stream)
 segscan         — exclusive segmented affine and max scans of the chain
-                  coefficients (the staged rung)
+                  coefficients (the staged rung), one launch per scan
 megakernel      — fused coefficient / scan / gather / commit evaluation of
-                  one interval, or of one interval of every shard (the
-                  megakernel rung)
+                  a stack of intervals, of one problem or of every shard
+                  (the megakernel rung)
 hash_probe      — key -> slot in a bucketed hash table: the sharded
                   driver's owner lookup under ``use_hash_probe_route``
 
