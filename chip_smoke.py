@@ -35,12 +35,27 @@ Run from the repository root:  python3 chip_smoke.py [--seed N]
    held to the single-device card run of the same rung to rtol = atol =
    1e-5 (the CUDA segscan's association depends on where a chain lies
    among its tiles).  No run may drop an op.
-6. Every driven run of phases 4 and 5 follows one uncounted warm-up run of
+6. Capacity phase, the runs that one block's shared memory once failed on
+   the card: GS at 4,000 events (40,000 rows) an interval, 10 intervals,
+   under "auto" (the "packed" rung: the megakernel's block cannot hold
+   such an interval) and a forced megakernel (the staged "partition"
+   rung), each with no megakernel launch and its state bitwise equal to
+   its CPU run; sharded GS, 4 x ``shared_nothing``, forced megakernel, 5
+   intervals of 8,000 events (40,000 received rows a shard), no op
+   dropped, held to the single-device card run to 1e-5; and a GS-shaped
+   store of 100,000 records (100,001 partition buckets), 20 intervals of
+   500 events, forced "partition" and forced megakernel, each bitwise
+   with its CPU run.
+7. Every driven run of phases 4 to 6 follows one uncounted warm-up run of
    the same engine and stream, sets the launch counters to 0 just before it
-   and reads them just after; every kernel must have launched.  Each run
-   prints an ``e2e`` line (wall s, events/s, launches, exchange stats) and
-   a ``profile`` line: the device's busy share of one more, profiled run.
-7. Prints one JSON line of kernel numbers, the card line again, and last
+   and reads them just after; every kernel must have launched, and each
+   run must take the rung its plan names (``DualModeEngine.last_rung``).
+   Each run prints an ``e2e`` line (wall s, events/s, launches, exchange
+   stats); those of phases 4 and 5 also a ``profile`` line: the device's
+   busy share of one more, profiled run.  The warm-up runs record the
+   launch shapes of radix_partition and the segscans, each timed alone in
+   a ``shape`` line with its bound and share of the bound.
+8. Prints one JSON line of kernel numbers, the card line again, and last
    ``{"ok": true, "device": {...}}``.
 
 Any failure raises and exits non-zero.  Without a CUDA card it exits 1 and
@@ -144,9 +159,9 @@ def plans(stream, dev):
     from repro_torch.apps import ALL_APPS
     from repro_torch.convert import events_to_torch
     from repro_torch.core.blotter import build_opbatch
-    from repro_torch.core.engines import simple_affine_luts, tstream_scan_plan
-    from repro_torch.core.restructure import (megakernel_engaged, restructure,
-                                              restructure_path)
+    from repro_torch.core.engines import tstream_scan_plan
+    from repro_torch.core.restructure import restructure
+    from repro_torch.core.scheduler import EngineConfig, fused_rung
 
     out = {}
     for name, method in (("gs", "megakernel"), ("tp", "partition")):
@@ -163,13 +178,11 @@ def plans(stream, dev):
                            geometry=name == "tp")
         out[name] = dict(app=app, store=store, keys=keys, pres=pres)
         n, k = keys.shape[-1], store.pad_uid + 1
-        auto = ("megakernel" if megakernel_engaged(
-            n, k, method="auto", has_max=any(store.table_is_max),
-            funs_simple=simple_affine_luts(app.funs, dev) is not None)
-            else restructure_path(n, store.pad_uid, rowmajor_ts=True))
+        auto = fused_rung(store, n, app=app, cfg=EngineConfig())
         print(f"auto rung {name}: {n} rows per interval over {k} buckets "
               f"resolve to {auto!r}; the main path forces {method!r} "
-              "(\"auto\" reads the cpu rows of LADDER_BOUNDS/MEGA_BOUNDS)")
+              "(\"auto\" reads the cpu rows of LADDER_BOUNDS/MEGA_BOUNDS and "
+              "the card's shared memory)")
         if name == "tp":
             out[name]["plan"] = tstream_scan_plan(store, ops, app.funs,
                                                   prestructured=pres,
@@ -482,12 +495,14 @@ def hash_probe_row(sh) -> dict:
     n_ops = float((3 + 2 * probes + compares).sum())
     assert int(probes.max()) <= MAX_PROBES
     nbytes = 8.0 * n + 4.0 * table.numel()
+    bnd = bound(nbytes, n_ops)
     print(f"kernel hash_probe queries={n} table={list(table.shape)}: "
           f"max_abs_err=0 ms={ms} plain_ms={plain} host_ms={host} "
-          f"bytes={nbytes} ops={n_ops} probes_mean={float(probes.double().mean())}")
+          f"bytes={nbytes} ops={n_ops} bound_ms={bnd[0]} share_of_bound="
+          f"{bnd[0] / ms} probes_mean={float(probes.double().mean())}")
     return dict(replaces="src/repro/kernels/hash_probe/kernel.py:62",
                 source="src/repro_torch/csrc/hash_probe.cu", ms=ms,
-                plain_ms=plain, err=0.0, bound=bound(nbytes, n_ops))
+                plain_ms=plain, err=0.0, bound=bnd)
 
 
 def block_size_check(p, plan, mega) -> None:
@@ -556,23 +571,27 @@ SHARDED = (
 
 
 def engine(app_name, method, dev, *, mesh=None, layout="shared_nothing",
-           probe=False):
+           probe=False, n_keys=None):
+    """An engine on ``dev``; ``n_keys`` sizes a GS store other than the
+    app's 10,000 records."""
     from repro_torch.apps import ALL_APPS
     from repro_torch.core.scheduler import DualModeEngine, EngineConfig
     app = ALL_APPS[app_name]
     cfg = EngineConfig(restructure_method=method, use_hash_probe_route=probe)
-    return DualModeEngine(app, app.make_store(device=dev), cfg, device=dev,
-                          mesh=mesh, layout=layout)
+    store = (app.make_store(device=dev) if n_keys is None else
+             app.make_store(n_keys, device=dev))
+    return DualModeEngine(app, store, cfg, device=dev, mesh=mesh,
+                          layout=layout)
 
 
-def timed(eng, stream):
+def timed(eng, stream, interval=INTERVAL):
     """One ``run_stream`` on the engine's device: host clock around it, with
     a synchronize before and after on the card."""
     cuda = eng.device.type == "cuda"
     if cuda:
         torch.cuda.synchronize()
     t0 = time.perf_counter()
-    outs, values = eng.run_stream(eng.init_store.values, stream, INTERVAL,
+    outs, values = eng.run_stream(eng.init_store.values, stream, interval,
                                   fused=True)
     if cuda:
         torch.cuda.synchronize()
@@ -619,10 +638,9 @@ def recording(fn):
 
 def shape_times(label, calls, card) -> None:
     """Time each recorded kernel call alone (CUDA events, stream held) at
-    the shape the run launched it with, beside its bound.  A segscan line
-    also gives its share of the bound and whether its bytes fit the L2
-    cache: such a shape, timed back to back, reads its inputs from L2 and
-    may beat the HBM bound."""
+    the shape the run launched it with, beside its bound, its share of the
+    bound and whether its bytes fit the L2 cache: such a shape, timed back
+    to back, reads its inputs from L2 and may beat the HBM bound."""
     for kernel, fn, args, kw in calls:
         x = args[0]
         if kernel == "radix_partition":
@@ -633,15 +651,12 @@ def shape_times(label, calls, card) -> None:
             nbytes, n_ops = work(kernel, x)
         bnd = bound(nbytes, n_ops)
         ms, _ = cuda_ms(lambda: fn(*args, **kw), 20)
-        extra = ""
-        if kernel != "radix_partition":
-            extra = (f" share_of_bound={bnd[0] / ms} bytes={nbytes}"
-                     + (" fits_l2" if nbytes <= L2_BYTES else ""))
         print(f"shape {kernel}[{label}] {what}: ms={ms} bound_ms={bnd[0]} "
-              f"({bnd[1]}){extra} | {card}")
+              f"({bnd[1]}) share_of_bound={bnd[0] / ms} bytes={nbytes}"
+              + (" fits_l2" if nbytes <= L2_BYTES else "") + f" | {card}")
 
 
-def counted(eng, stream, launches, label=None, card=""):
+def counted(eng, stream, launches, label=None, card="", interval=INTERVAL):
     """A driven run: launch counters to 0 just before, read just after.
 
     An uncounted run of the same engine and stream goes first, so the timed
@@ -653,7 +668,7 @@ def counted(eng, stream, launches, label=None, card=""):
     launch counts say, so a call site missing from CALL_SITES fails."""
     from repro_torch import LAUNCHES, reset_launches
     reset_launches()
-    calls = recording(lambda: timed(eng, stream))
+    calls = recording(lambda: timed(eng, stream, interval))
     for kernel in {k for _, _, k in CALL_SITES}:
         seen = sum(1 for k, _, args, _ in calls
                    if k == kernel and args[0].numel())
@@ -664,7 +679,7 @@ def counted(eng, stream, launches, label=None, card=""):
     if label is not None:
         shape_times(label, calls, card)
     reset_launches()
-    outs, values, wall = timed(eng, stream)
+    outs, values, wall = timed(eng, stream, interval)
     got = dict(LAUNCHES)
     for k, v in got.items():
         launches[k] += v
@@ -696,12 +711,13 @@ def profiled(eng, stream, label) -> None:
               f"x{e.count}" for e in top))
 
 
-def check_outputs(outs, ref, what, n_intervals, bitwise=False) -> None:
+def check_outputs(outs, ref, what, n_intervals, bitwise=False,
+                  interval=INTERVAL) -> None:
     if len(outs) != n_intervals or len(ref) != n_intervals:
         raise AssertionError(f"{what}: {len(outs)} intervals out")
     for i, (o, oc) in enumerate(zip(outs, ref)):
         for k in oc:
-            if o[k].shape != (INTERVAL,):
+            if o[k].shape != (interval,):
                 raise AssertionError(f"{what} {k}: shape {o[k].shape}")
             if bitwise and not np.array_equal(o[k], oc[k]):
                 raise AssertionError(f"{what} interval {i} {k}: not bitwise "
@@ -721,6 +737,12 @@ def check_scans(label, app_name, method, got) -> None:
                              f"{want}")
 
 
+def check_rung(eng, rung, label) -> None:
+    if eng.last_rung != rung:
+        raise AssertionError(f"{label}: the run took the {eng.last_rung!r} "
+                             f"rung, expected {rung!r}")
+
+
 def end_to_end(stream, card, cuda, launches) -> dict:
     """The single-device driver on the card, forced rungs and "auto"."""
     cpu = torch.device("cpu")
@@ -733,6 +755,7 @@ def end_to_end(stream, card, cuda, launches) -> dict:
               f"{INTERVAL}: wall_s={wall} events_per_s="
               f"{N_INTERVALS * INTERVAL / wall} launches={got} card={card}")
         check_scans(f"{app_name} rung={method}", app_name, method, got)
+        check_rung(eng, method, f"{app_name} rung={method}")
         if method == "megakernel" and got["megakernel"] != 3:
             raise AssertionError(f"{app_name}: {got['megakernel']} megakernel "
                                  "launches, expected one call (3 launches)")
@@ -757,6 +780,7 @@ def end_to_end(stream, card, cuda, launches) -> dict:
               f"wall_s={wall} events_per_s={N_INTERVALS * INTERVAL / wall} "
               f"launches={got} card={card}")
         check_scans(f"{app_name} rung=auto", app_name, "auto", got)
+        check_rung(eng, "packed", f"{app_name} rung=auto")
         ref_outs, ref_values = single[app_name, forced]
         assert_close(values, ref_values, f"{app_name} auto vs {forced}: state")
         check_outputs(outs, ref_outs, f"{app_name} auto", N_INTERVALS)
@@ -790,6 +814,7 @@ def sharded_phase(stream, card, cuda, single, launches) -> None:
               f"shard_load={ex['shard_load'].tolist()} card={card}")
         if int(np.sum(ex["dropped"])) != 0:
             raise AssertionError(f"sharded {label}: the exchange dropped ops")
+        check_rung(eng, method, f"sharded {label}")
         want = dict(radix_partition=2, hash_probe=int(probe),
                     megakernel=3 if method == "megakernel" else 0,
                     segscan_affine=0 if method == "megakernel" else 1,
@@ -829,6 +854,115 @@ def sharded_phase(stream, card, cuda, single, launches) -> None:
             raise AssertionError(f"gs probe route vs gather: stats {k}")
     print("e2e sharded gs: the hash-probe route gives the same bits as the "
           "direct gather (state, outputs, exchange stats)")
+
+
+# The megakernel's capacity (C1): GS at 4,000 events (40,000 rows) an
+# interval, where the "auto" band engages the megakernel but its block holds
+# no interval; sharded GS at 8,000 events, over 32,768 received rows a shard.
+BAND_INTERVAL, BAND_INTERVALS = 4000, 10
+SHARD_BAND_INTERVAL, SHARD_BAND_INTERVALS = 8000, 5
+# A key space beyond the old partition's shared-memory cap (C2): a GS-shaped
+# store of 100,000 records (100,001 slots with the pad).
+WIDE_KEYS, WIDE_INTERVALS = 100_000, 20
+
+
+def wide_gs_events(seed: int, n_events: int, n_keys: int) -> dict:
+    """GS events over ``n_keys`` records, drawn in bulk: Zipf(0.6) keys as
+    ``apps/gs.gen_events`` draws them, with a row that repeats a key drawn
+    again (ten distinct keys a transaction), half reads."""
+    from repro_torch.apps import gs
+    from repro_torch.apps.common import zipf_probs
+    rng = np.random.default_rng(seed)
+    p = zipf_probs(n_keys, 0.6)
+    keys = rng.choice(n_keys, size=(n_events, gs.TXN_LEN), p=p)
+    while True:
+        srt = np.sort(keys, axis=1)
+        dup = (srt[:, 1:] == srt[:, :-1]).any(axis=1)
+        if not dup.any():
+            break
+        keys[dup] = rng.choice(n_keys, size=(int(dup.sum()), gs.TXN_LEN),
+                               p=p)
+    return dict(keys=keys.astype(np.int32),
+                is_read=rng.random(n_events) < 0.5,
+                values=rng.uniform(1.0, 100.0, (n_events, gs.TXN_LEN)
+                                   ).astype(np.float32))
+
+
+def capacity_phase(stream, card, cuda, launches, seed) -> None:
+    """The runs that the shared memory of one block once failed on the
+    card: each completes, takes the rung the plan picks and holds its CPU
+    run (GS's READ and PUT compose exactly on every rung: state bitwise)."""
+    from repro_torch.core.mesh import ShardMesh
+    cpu = torch.device("cpu")
+    gs_band = {k: np.asarray(v)[: BAND_INTERVALS * BAND_INTERVAL]
+               for k, v in stream["gs"].items()}
+    wide = wide_gs_events(seed + 2, WIDE_INTERVALS * INTERVAL, WIDE_KEYS)
+    # label, method, stream, interval, n_keys, rung, launches
+    runs = (
+        ("gs band rung=auto", "auto", gs_band, BAND_INTERVAL, None, "packed",
+         dict(radix_partition=0, megakernel=0, segscan_affine=1)),
+        ("gs band rung=megakernel", "megakernel", gs_band, BAND_INTERVAL,
+         None, "partition",
+         dict(radix_partition=1, megakernel=0, segscan_affine=1)),
+        ("gs wide rung=partition", "partition", wide, INTERVAL, WIDE_KEYS,
+         "partition", dict(radix_partition=1, megakernel=0,
+                           segscan_affine=1)),
+        ("gs wide rung=megakernel", "megakernel", wide, INTERVAL, WIDE_KEYS,
+         "megakernel", dict(radix_partition=1, megakernel=3,
+                            segscan_affine=0)))
+    for label, method, st, interval, n_keys, rung, want in runs:
+        n_i = len(st["keys"]) // interval
+        eng = engine("gs", method, cuda, n_keys=n_keys)
+        outs, values, wall, got = counted(eng, st, launches, label, card,
+                                          interval)
+        print(f"e2e {label} intervals={n_i}x{interval} slots="
+              f"{eng.init_store.values.shape[0]}: wall_s={wall} events_per_s="
+              f"{n_i * interval / wall} launches={got} rung={eng.last_rung} "
+              f"card={card}")
+        check_rung(eng, rung, label)
+        if {k: got[k] for k in want} != want:
+            raise AssertionError(f"{label}: launches {got}, expected {want}")
+        outs_c, values_c, _ = timed(engine("gs", method, cpu, n_keys=n_keys),
+                                    st, interval)
+        assert_equal(values, values_c, f"{label}: final state vs CPU run")
+        check_outputs(outs, outs_c, label, n_i, interval=interval)
+        print(f"e2e {label}: state bitwise and outputs within 1e-5 of the "
+              "CPU run")
+
+    # sharded GS, 4 x shared_nothing, forced megakernel, beyond the capacity
+    label = "sharded gs band/shared_nothing"
+    st = {k: np.asarray(v)[: SHARD_BAND_INTERVALS * SHARD_BAND_INTERVAL]
+          for k, v in stream["gs"].items()}
+    eng = engine("gs", "megakernel", cuda,
+                 mesh=ShardMesh((4,), ("dev",), device=cuda))
+    outs, values, wall, got = counted(eng, st, launches, label, card,
+                                      SHARD_BAND_INTERVAL)
+    ex = eng.last_exchange_stats
+    rows = int(ex["exchanged_rows_per_device"])
+    print(f"e2e {label} mesh=(4,) rung={eng.last_rung} intervals="
+          f"{SHARD_BAND_INTERVALS}x{SHARD_BAND_INTERVAL}: wall_s={wall} "
+          f"events_per_s={SHARD_BAND_INTERVALS * SHARD_BAND_INTERVAL / wall} "
+          f"launches={got} dropped={int(np.sum(ex['dropped']))} "
+          f"received_rows_per_shard={rows} capacity={int(ex['capacity'])} "
+          f"card={card}")
+    if int(np.sum(ex["dropped"])) != 0:
+        raise AssertionError(f"{label}: the exchange dropped ops")
+    if rows <= 1 << 15:
+        raise AssertionError(f"{label}: {rows} received rows per shard, not "
+                             "beyond the megakernel band's 32,768")
+    check_rung(eng, "partition", label)
+    want = dict(radix_partition=2, hash_probe=0, megakernel=0,
+                segscan_affine=1, segscan_max=0)
+    if got != want:
+        raise AssertionError(f"{label}: launches {got}, expected {want}")
+    ref_outs, ref_values, _ = timed(engine("gs", "megakernel", cuda), st,
+                                    SHARD_BAND_INTERVAL)
+    assert_close(values, ref_values, f"{label} state vs single device")
+    check_outputs(outs, ref_outs, label, SHARD_BAND_INTERVALS,
+                  interval=SHARD_BAND_INTERVAL)
+    print(f"e2e {label}: state and outputs agree with the single-device card "
+          f"run (rtol = atol = 1e-5; state max abs err "
+          f"{max_err(values, ref_values)})")
 
 
 def oracle_check(cuda) -> None:
@@ -884,6 +1018,7 @@ def main() -> int:
     launches = {k: 0 for k in LAUNCHES}
     single = end_to_end(stream, card, cuda, launches)
     sharded_phase(stream, card, cuda, single, launches)
+    capacity_phase(stream, card, cuda, launches, args.seed)
     missing = sorted(k for k in LAUNCHES if launches[k] <= 0)
     if missing:
         raise AssertionError(f"kernels never launched on the driven paths: "

@@ -21,6 +21,7 @@ from typing import Optional, Tuple
 import torch
 
 from ..kernels import autotune
+from ..kernels.megakernel.ops import megakernel_smem_bytes
 from ..kernels.radix_partition.ops import radix_partition_rank
 from ..kernels.radix_partition.ref import radix_partition_rank_ref
 from .types import OpBatch
@@ -87,43 +88,72 @@ def partition_fits(n_rows: int, n_buckets: int) -> bool:
     return n_buckets <= max_buckets and int(n_rows) >= min_rows
 
 
+def megakernel_fits(n_rows: int, lanes: int,
+                    smem_limit: Optional[int]) -> bool:
+    """Whether the megakernel's scan block holds an interval of ``n_rows``
+    rows of ``lanes`` lanes within ``smem_limit`` bytes of shared memory.
+
+    ``smem_limit`` is the opt-in limit of the device that launches the
+    kernel (``kernels/runtime.smem_optin``); None (the CPU, whose twin has
+    no capacity) always fits.
+    """
+    if smem_limit is None:
+        return True
+    return megakernel_smem_bytes(int(n_rows), int(lanes)) <= smem_limit
+
+
 def megakernel_engaged(n_rows: int, n_slots_incl_pad: int, *,
-                       method: str, has_max: bool,
-                       funs_simple: bool) -> bool:
+                       method: str, has_max: bool, funs_simple: bool,
+                       lanes: int = 1,
+                       smem_limit: Optional[int] = None) -> bool:
     """Whether the fused driver evaluates chains through the megakernel.
 
     Structural eligibility first (simple-affine funs, no max-typed table),
     then either an explicit ``method="megakernel"`` or, under "auto", the
-    band of ``kernels/autotune.MEGA_BOUNDS``.  An ineligible force falls back
-    to the staged path (the same results), logged once.
+    band of ``kernels/autotune.MEGA_BOUNDS``; in both cases the interval must
+    fit the kernel's block (``megakernel_fits``).  An ineligible or
+    oversized force takes the staged partition path (the same results),
+    logged once: a plan decision from shapes, made before any launch.
     """
     eligible = (not has_max) and funs_simple
+    fits = megakernel_fits(n_rows, lanes, smem_limit)
     if method == "megakernel":
         if not eligible:
-            _warn_mega_fallback(has_max, funs_simple)
-        return eligible
+            _warn_mega_fallback(("has_max", has_max, funs_simple),
+                                _ineligible_why(has_max, funs_simple))
+        elif not fits:
+            _warn_mega_fallback(
+                ("capacity", int(n_rows), int(lanes), smem_limit),
+                f"an interval of {int(n_rows)} rows x {int(lanes)} lanes "
+                f"needs {megakernel_smem_bytes(int(n_rows), int(lanes))} B "
+                f"of one block's shared memory, over the device's "
+                f"{smem_limit} B")
+        return eligible and fits
     if method != "auto" or not eligible:
         return False
     band = autotune.MEGA_BOUNDS
     return (int(n_rows) >= band["min_rows"]
-            and n_slots_incl_pad <= band["max_buckets"])
+            and n_slots_incl_pad <= band["max_buckets"] and fits)
 
 
 _MEGA_FALLBACK_WARNED = set()
 
 
-def _warn_mega_fallback(has_max: bool, funs_simple: bool) -> None:
-    key = (has_max, funs_simple)
-    if key in _MEGA_FALLBACK_WARNED:
-        return
-    _MEGA_FALLBACK_WARNED.add(key)
+def _ineligible_why(has_max: bool, funs_simple: bool) -> str:
     why = []
     if has_max:
         why.append("store has max-type tables")
     if not funs_simple:
         why.append("app registers non-simple affine functions")
+    return "; ".join(why)
+
+
+def _warn_mega_fallback(key, why: str) -> None:
+    if key in _MEGA_FALLBACK_WARNED:
+        return
+    _MEGA_FALLBACK_WARNED.add(key)
     log.warning("restructure: method='megakernel' forced but %s — using the "
-                "staged partition path (same results)", "; ".join(why))
+                "staged partition path (same results)", why)
 
 
 def packed_sort_fits(n_rows: int, max_major: int, bits: int = 32) -> bool:

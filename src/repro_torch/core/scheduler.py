@@ -35,12 +35,12 @@ import torch
 from .. import convert
 from ..kernels.megakernel.ops import fused_chain_eval
 from ..kernels.megakernel.ref import fused_chain_stream_ref
-from ..kernels.runtime import resolve_device
+from ..kernels.runtime import resolve_device, smem_optin
 from .blotter import AppSpec, build_opbatch
 from .engines import (CHAIN_SCHEMES, EngineStats, NOT_PORTED, evaluate,
                       simple_affine_luts, tstream_scan_coefs,
                       tstream_scan_execute, tstream_scan_plan)
-from .restructure import megakernel_engaged, restructure
+from .restructure import megakernel_engaged, restructure, restructure_path
 from .types import OpResults, StateStore, tree_index
 
 
@@ -83,6 +83,9 @@ class DualModeEngine:
         self.init_store = store.to(self.device)
         self._sharded = None
         self.last_exchange_stats = None
+        # the rung the last fused run took on the associative path
+        # ("megakernel", "partition", "packed" or "lexsort"), else None
+        self.last_rung = None
         if mesh is not None:
             if mesh.device != self.device:
                 raise ValueError(f"mesh on {mesh.device}, engine on "
@@ -116,10 +119,12 @@ class DualModeEngine:
 
         An engine built with a ``mesh`` runs the sharded fused driver
         (fused only); its exchange stats land in ``last_exchange_stats``
-        and overflow drops are logged.
+        and overflow drops are logged.  A fused run on the associative
+        path records its rung in ``last_rung``.
         """
         values = torch.as_tensor(values, dtype=torch.float32).to(
             self.device, copy=True)
+        self.last_rung = None
         if self._sharded is not None:
             if not fused:
                 raise ValueError("the sharded run_stream has no unfused "
@@ -127,6 +132,7 @@ class DualModeEngine:
             outs, values = self._sharded.run_stream(values, event_stream,
                                                     punct_interval)
             self.last_exchange_stats = self._sharded.last_stats
+            self.last_rung = self._sharded.last_rung
             return outs, values
         n = len(next(iter(event_stream.values())))
         n_intervals = n // punct_interval
@@ -151,6 +157,11 @@ class DualModeEngine:
         for k, v in event_stream.items():
             v = np.asarray(v)[: n_intervals * punct_interval]
             batched[k] = v.reshape((n_intervals, punct_interval) + v.shape[1:])
+        if self.app.associative_only and self.cfg.scheme in ("tstream",
+                                                             "tstream_scan"):
+            self.last_rung = fused_rung(
+                self.init_store, punct_interval * self.app.max_ops,
+                app=self.app, cfg=self.cfg)
         res_all, ebs_all, values, _ = _fused_impl(
             values, convert.events_to_torch(batched, self.device), 0,
             app=self.app, cfg=self.cfg, store=self.init_store)
@@ -277,6 +288,28 @@ def _fused_impl(values, events_b, ts0: int, *, app: AppSpec,
     return _stack(res_l), ebs_all, values, stats
 
 
+def fused_rung(store: StateStore, n_rows: int, *, app: AppSpec,
+               cfg: EngineConfig) -> str:
+    """The rung the fused associative driver takes for intervals of
+    ``n_rows`` ops: "megakernel", or the staged path's restructure backbone
+    ("partition", "packed" or "lexsort").
+
+    The megakernel is engaged only where its block holds the interval on
+    the device that launches it (``restructure.megakernel_fits``); without
+    kernels, or on the CPU, its twin has no such limit.
+    """
+    dev = store.values.device
+    if megakernel_engaged(
+            n_rows, store.values.shape[0], method=cfg.restructure_method,
+            has_max=any(store.table_is_max),
+            funs_simple=simple_affine_luts(app.funs, dev) is not None,
+            lanes=store.values.shape[-1],
+            smem_limit=smem_optin(dev) if cfg.use_kernels else None):
+        return "megakernel"
+    return restructure_path(n_rows, store.pad_uid, rowmajor_ts=True,
+                            method=cfg.restructure_method)
+
+
 def _fused_assoc(store: StateStore, ops_all, *, app: AppSpec,
                  cfg: EngineConfig):
     """Associative fast path: the per-interval body is O(N) gathers and
@@ -288,10 +321,8 @@ def _fused_assoc(store: StateStore, ops_all, *, app: AppSpec,
     the body and stack per interval.
     """
     luts = simple_affine_luts(app.funs, store.device)
-    if megakernel_engaged(ops_all.uid.shape[-1], store.values.shape[0],
-                          method=cfg.restructure_method,
-                          has_max=any(store.table_is_max),
-                          funs_simple=luts is not None):
+    if fused_rung(store, ops_all.uid.shape[-1], app=app,
+                  cfg=cfg) == "megakernel":
         return _fused_assoc_mega(store, ops_all, luts=luts, cfg=cfg)
 
     pres_all = restructure(ops_all, store.pad_uid, rowmajor_ts=True,

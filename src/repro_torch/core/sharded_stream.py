@@ -63,6 +63,7 @@ import torch
 from .. import convert
 from ..kernels.megakernel.ops import fused_chain_eval
 from ..kernels.megakernel.ref import fused_chain_stream_ref
+from ..kernels.runtime import smem_optin
 from .blotter import AppSpec, build_opbatch
 from .engines import (simple_affine_luts, tstream_scan_coefs,
                       tstream_scan_execute, tstream_scan_plan)
@@ -71,7 +72,8 @@ from .ownership import (LAYOUTS, bucket_by_owner, build_ownership,
                         build_probe_route, exchange_capacity,
                         make_local_store, permute_values, route_gather,
                         unpermute_values, unroute_gather)
-from .restructure import megakernel_engaged, restructure_stream
+from .restructure import (megakernel_engaged, restructure_path,
+                          restructure_stream)
 from .scheduler import _post_stream, _stack
 from .types import OpBatch, StateStore, tree_index
 
@@ -127,6 +129,7 @@ class ShardedStream:
         self._n_owners = n_owners
         self._bind_ownership(())
         self.last_stats: Optional[Dict] = None
+        self.last_rung: Optional[str] = None
 
     def _bind_ownership(self, overrides) -> None:
         """(Re)build the ownership permutation and routing tables against
@@ -196,7 +199,9 @@ class ShardedStream:
     def run_stream(self, values: torch.Tensor, event_stream,
                    punct_interval: int):
         """Run the stream; returns ``(outputs, values')`` like the
-        single-device driver and sets ``last_stats`` (exchange stats)."""
+        single-device driver and sets ``last_stats`` (exchange stats) and
+        ``last_rung`` (the rung of the state-access mode)."""
+        self.last_rung = None
         n = len(next(iter(event_stream.values())))
         interval = int(punct_interval)
         if interval % self.n_dev:
@@ -439,9 +444,12 @@ class ShardedStream:
 
         luts = simple_affine_luts(app.funs, dev)
         vals, res_l = vals0, []
-        if megakernel_engaged(rows, lpad + 1, method=cfg.restructure_method,
-                              has_max=sim_d is not None,
-                              funs_simple=luts is not None):
+        if megakernel_engaged(
+                rows, lpad + 1, method=cfg.restructure_method,
+                has_max=sim_d is not None, funs_simple=luts is not None,
+                lanes=vals0.shape[-1],
+                smem_limit=smem_optin(dev) if cfg.use_kernels else None):
+            self.last_rung = "megakernel"
             # megakernel rung: a geometry-free partition plan, then ONE call
             # for the whole stream evaluates every shard's chains; a layout
             # that merges after every interval calls it once per interval
@@ -467,6 +475,8 @@ class ShardedStream:
                 vals = merge(vals)
                 res_l.append({k: v[0] for k, v in res.items()})
         else:
+            self.last_rung = restructure_path(rows, lpad, rowmajor_ts=True,
+                                              method=cfg.restructure_method)
             pres_all = restructure_stream(
                 rops, lpad, rowmajor_ts=True, light=True,
                 method=cfg.restructure_method, use_kernels=cfg.use_kernels,

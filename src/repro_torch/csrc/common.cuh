@@ -1,6 +1,6 @@
 // Shared by every kernel library: the plain C helpers that the Python
 // wrappers bind with ctypes (kernels/_build.py).  Each .cu is built into its
-// own shared library, so each carries one copy of these two entries.
+// own shared library, so each carries one copy of these helpers.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -10,17 +10,6 @@
 
 REPRO_EXPORT const char* repro_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
-}
-
-// Largest dynamic shared memory a block on the current device may opt in to
-// (232,448 bytes on an H100), or -1 if the query fails.
-REPRO_EXPORT int repro_smem_optin() {
-  int dev = 0, bytes = 0;
-  if (cudaGetDevice(&dev) != cudaSuccess) return -1;
-  if (cudaDeviceGetAttribute(&bytes, cudaDevAttrMaxSharedMemoryPerBlockOptin,
-                             dev) != cudaSuccess)
-    return -1;
-  return bytes;
 }
 
 // Opt a kernel in to `bytes` of dynamic shared memory where it needs more

@@ -16,13 +16,20 @@
 //
 // Design.  The TPU kernel split keys into two exact f32 16-bit halves and
 // gathered candidate buckets with a one-hot matmul, because the TPU has no
-// fast gather inside a kernel.  Here one thread serves one query: it hashes
-// in uint32, and reads each probed bucket (32 B, one sector) as two 128-bit
-// loads through the read-only path, so L2 serves the table; staging it in
-// shared memory per block would copy 80 KB to serve about 1 KB of queries.
-// The first hit ends the probe, which gives the reference's answer: its
-// mask keeps the first probe that hits and the first matching way in it.
-// No padding of the query count: the last block masks its tail.
+// fast gather inside a kernel.  Here the gather is a plain load, and what
+// costs is where it lands: every query reads one random 32-byte bucket,
+// which through L1 costs a sector request per query and load.  So where the
+// table fits, each block copies it into shared memory once and then walks a
+// grid-stride loop over the queries (two blocks of 1,024 threads a SM, a
+// few queries per thread), with the next query's key loaded before this
+// one's probe and the first key in flight while the table is copied.  A
+// table larger than a block's shared memory is probed through the read-only
+// path, one query per thread.  In both, the hash is reduced modulo n_buckets
+// once, by a multiply with a precomputed reciprocal (exact for every 32-bit
+// value), and each further probe steps to the next bucket and wraps with a
+// compare, which holds for any n_buckets >= 1.  The first hit ends a probe,
+// which gives the reference's answer: its mask keeps the first probe that
+// hits and the first matching way in it.
 #include "common.cuh"
 
 namespace {
@@ -30,6 +37,8 @@ namespace {
 constexpr int kAssoc = 8;
 constexpr int kMaxProbes = 4;
 constexpr uint32_t kMult = 2654435761u;
+constexpr int kStagedThreads = 1024;
+constexpr int kStagedBlocksPerSm = 2;
 
 __device__ inline int first_way(const int4 lo, const int4 hi, int32_t key) {
   if (lo.x == key) return 0;
@@ -43,38 +52,92 @@ __device__ inline int first_way(const int4 lo, const int4 hi, int32_t key) {
   return -1;
 }
 
-__global__ void hash_probe_kernel(const int32_t* __restrict__ keys,
+// a mod d for 32-bit a and d >= 1, with M = 2^64 / d rounded up (mod 2^64).
+__device__ __forceinline__ uint32_t mod_by(uint32_t a, uint64_t M, uint32_t d) {
+  return static_cast<uint32_t>(__umul64hi(M * a, d));
+}
+
+__device__ __forceinline__ uint32_t home_bucket(int32_t key, uint64_t M,
+                                                int n_buckets) {
+  return mod_by((static_cast<uint32_t>(key) * kMult) >> 16, M,
+                static_cast<uint32_t>(n_buckets));
+}
+
+// The slot of `key` in `table` (buckets of two int4, in shared memory or
+// read-only global memory), -1 if absent.
+__device__ __forceinline__ int32_t probe(const int4* __restrict__ table,
+                                         int32_t key, uint64_t M,
+                                         int n_buckets) {
+  uint32_t b = home_bucket(key, M, n_buckets);
+  int way = first_way(table[2 * b], table[2 * b + 1], key);
+  for (int p = 1; p < kMaxProbes && way < 0; ++p) {
+    if (++b == static_cast<uint32_t>(n_buckets)) b = 0;
+    way = first_way(table[2 * b], table[2 * b + 1], key);
+  }
+  return way >= 0 ? static_cast<int32_t>(b) * kAssoc + way : -1;
+}
+
+__global__ void __launch_bounds__(kStagedThreads, kStagedBlocksPerSm)
+    hash_probe_staged(const int32_t* __restrict__ keys,
+                      const int4* __restrict__ table,
+                      int32_t* __restrict__ out, int n, int n_buckets,
+                      uint64_t M) {
+  extern __shared__ int4 st[];
+  const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
+  int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  int32_t key = i < n ? __ldg(keys + i) : 0;
+  for (int j = threadIdx.x; j < 2 * n_buckets; j += blockDim.x)
+    st[j] = __ldg(table + j);
+  __syncthreads();
+  for (; i < n; i += stride) {
+    const int32_t next = i + stride < n ? __ldg(keys + i + stride) : 0;
+    out[i] = probe(st, key, M, n_buckets);
+    key = next;
+  }
+}
+
+__global__ void hash_probe_global(const int32_t* __restrict__ keys,
                                   const int4* __restrict__ table,
                                   int32_t* __restrict__ out, int n,
-                                  int n_buckets) {
+                                  int n_buckets, uint64_t M) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  const int32_t key = __ldg(keys + i);
-  const uint32_t h = (static_cast<uint32_t>(key) * kMult) >> 16;
-  const uint32_t base = h % static_cast<uint32_t>(n_buckets);
-  int32_t found = -1;
-  for (int p = 0; p < kMaxProbes; ++p) {
-    const uint32_t bkt = (base + p) % static_cast<uint32_t>(n_buckets);
-    const int4 lo = __ldg(table + 2 * static_cast<int64_t>(bkt));
-    const int4 hi = __ldg(table + 2 * static_cast<int64_t>(bkt) + 1);
-    const int way = first_way(lo, hi, key);
-    if (way >= 0) {
-      found = static_cast<int32_t>(bkt) * kAssoc + way;
-      break;
-    }
-  }
-  out[i] = found;
+  if (i < n) out[i] = probe(table, __ldg(keys + i), M, n_buckets);
 }
 
 }  // namespace
 
-// keys, out: i32[n]; table: i32[n_buckets, 8], 16-byte aligned.  Launches on
-// `stream` and returns cudaGetLastError().
+// keys, out: i32[n]; table: i32[n_buckets, 8], 16-byte aligned; n >= 1.
+// `threads` sizes the blocks of the unstaged kernel (the staged one takes
+// 1,024).  Launches on `stream` and returns cudaGetLastError().
 REPRO_EXPORT int hash_probe(const void* keys, const void* table, void* out,
                             int n, int n_buckets, int threads, void* stream) {
-  const int blocks = (n + threads - 1) / threads;
-  hash_probe_kernel<<<blocks, threads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int32_t*>(keys), static_cast<const int4*>(table),
-      static_cast<int32_t*>(out), n, n_buckets);
+  const uint64_t M =
+      ~UINT64_C(0) / static_cast<uint32_t>(n_buckets) + 1;  // 0 for d = 1
+  const auto* k = static_cast<const int32_t*>(keys);
+  const auto* t = static_cast<const int4*>(table);
+  auto* o = static_cast<int32_t*>(out);
+  auto st = static_cast<cudaStream_t>(stream);
+  int dev = 0, sms = 0, optin = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                                 dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const size_t bytes = static_cast<size_t>(n_buckets) * kAssoc * sizeof(int32_t);
+  if (bytes * kStagedBlocksPerSm <= static_cast<size_t>(optin)) {
+    if ((err = set_smem(hash_probe_staged, bytes)) != cudaSuccess)
+      return static_cast<int>(err);
+    const int64_t want = (static_cast<int64_t>(n) + kStagedThreads - 1) /
+                         kStagedThreads;
+    const int blocks = static_cast<int>(
+        want < kStagedBlocksPerSm * sms ? want : kStagedBlocksPerSm * sms);
+    hash_probe_staged<<<blocks, kStagedThreads, bytes, st>>>(k, t, o, n,
+                                                             n_buckets, M);
+  } else {
+    hash_probe_global<<<(n + threads - 1) / threads, threads, 0, st>>>(
+        k, t, o, n, n_buckets, M);
+  }
   return static_cast<int>(cudaGetLastError());
 }

@@ -103,8 +103,6 @@ def library(name: str, signatures: Dict[str, Sequence]) -> ctypes.CDLL:
         lib = ctypes.CDLL(str(paths[name]))
         lib.repro_error_string.argtypes = [ctypes.c_int]
         lib.repro_error_string.restype = ctypes.c_char_p
-        lib.repro_smem_optin.argtypes = []
-        lib.repro_smem_optin.restype = ctypes.c_int
         for fn, argtypes in signatures.items():
             getattr(lib, fn).argtypes = list(argtypes)
             getattr(lib, fn).restype = ctypes.c_int
@@ -117,8 +115,3 @@ def check_launch(lib: ctypes.CDLL, err: int, name: str) -> None:
         msg = lib.repro_error_string(err).decode()
         raise RuntimeError(f"{name}: kernel launch failed: CUDA error {err} "
                            f"({msg})")
-
-
-def smem_optin(lib: ctypes.CDLL) -> int:
-    """Largest dynamic shared memory one block may opt in to (bytes)."""
-    return int(lib.repro_smem_optin())

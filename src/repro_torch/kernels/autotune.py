@@ -3,7 +3,10 @@
 Only what the slice reads: the counting-partition bounds of the "auto" rung
 (``LADDER_BOUNDS``) and the megakernel's auto band (``MEGA_BOUNDS``), both
 the reference's "cpu" row.  Every device reads them, the H100 included, so
-the rung choice is the reference's on the CPU.  At the main path's shapes
+the rung choice is the reference's on the CPU; on the card the megakernel
+rung also needs each interval to fit its block's shared memory
+(``core/restructure.megakernel_fits``), which the band's intervals never
+do.  At the main path's shapes
 (GS 5,000 rows over 10,001 buckets, TP 2,000 over 201) "auto" therefore
 takes the packed-sort rung on the card and launches neither the radix
 kernel nor the megakernel; only ``restructure_method="partition"`` or

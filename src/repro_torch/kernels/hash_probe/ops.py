@@ -1,7 +1,10 @@
 """Wrapper of the hash_probe kernel (``csrc/hash_probe.cu``).
 
-A CUDA tensor launches the kernel, one thread per query and no padding of
-the query count; a CPU tensor takes the plain twin in ``ref.py``.
+A CUDA tensor launches the kernel: where the table fits a block's shared
+memory, blocks stage it there and loop over the queries; a larger table is
+probed from L2, one query a thread.  No padding of the query count, and a
+key view at any 4-byte offset.  A CPU tensor takes the plain twin in
+``ref.py``.
 """
 from __future__ import annotations
 
@@ -22,7 +25,7 @@ SIGNATURES = {"hash_probe": [_P, _P, _P, _I, _I, _I, _P]}
 def hash_probe(keys: torch.Tensor, table: torch.Tensor, *,
                threads: int | None = None) -> torch.Tensor:
     """keys i32[N], table i32[n_buckets, ASSOC] -> slot i32[N], -1 if absent.
-    ``threads`` overrides the block size."""
+    ``threads`` overrides the block size of the unstaged kernel."""
     if not on_card(keys, NAME):
         return hash_probe_ref(keys, table)
     dev = keys.device

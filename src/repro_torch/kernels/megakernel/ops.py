@@ -21,7 +21,7 @@ import ctypes
 import torch
 
 from .. import _build
-from ..runtime import LAUNCHES, check, check_tensor, on_card
+from ..runtime import LAUNCHES, check, check_tensor, on_card, smem_optin
 from .ref import fused_chain_stream_ref
 
 NAME = "megakernel"
@@ -32,6 +32,14 @@ SIGNATURES = {
     "megakernel_stream": [_P] * 14 + [_I] * 7 + [_P],
     "megakernel_smem_bytes": [_I, _I],
 }
+
+
+def megakernel_smem_bytes(n: int, w: int) -> int:
+    """Shared memory one scan block needs for an interval of ``n`` rows of
+    ``w`` lanes: the library's ``megakernel_smem_bytes`` (``csrc/
+    megakernel.cu``; a card test holds the two equal), in Python so that
+    the rung choice reads it without building the kernels."""
+    return min(16 * n * w + 3 * n, 2 ** 31 - 1)
 
 
 def fused_chain_eval(values: torch.Tensor, sops, ch, pad_uid: int, *,
@@ -91,11 +99,10 @@ def fused_chain_eval(values: torch.Tensor, sops, ch, pad_uid: int, *,
     check(k > 0 and batch > 0 and n > 0 and w > 0, NAME,
           f"nothing to evaluate: {k} intervals of {batch} problems x {n} "
           f"rows x {w} lanes")
-    lib = _build.library(NAME, SIGNATURES)
-    smem = lib.megakernel_smem_bytes(n, w)
-    limit = _build.smem_optin(lib)
+    smem, limit = megakernel_smem_bytes(n, w), smem_optin(dev)
     check(smem <= limit, NAME, f"an interval of {n} rows x {w} lanes needs "
           f"{smem} B of shared memory; a block holds at most {limit} B")
+    lib = _build.library(NAME, SIGNATURES)
     pre = torch.empty_like(sops.operand)
     post = torch.empty_like(sops.operand)
     success = torch.empty_like(sops.valid)

@@ -42,6 +42,17 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None
     return dev
 
 
+def smem_optin(device: Union[str, torch.device]) -> Optional[int]:
+    """Largest shared memory one block may opt in to on ``device`` (bytes),
+    read from the device; None on the CPU, where the twins have no such
+    limit."""
+    dev = torch.device(device)
+    if dev.type != "cuda":
+        return None
+    return int(torch.cuda.get_device_properties(dev)
+               .shared_memory_per_block_optin)
+
+
 def on_card(x: torch.Tensor, name: str) -> bool:
     """Whether a wrapper launches its kernel (CUDA tensor) or its twin (CPU)."""
     if x.device.type == "cuda":

@@ -48,26 +48,40 @@ FUNS = (T.F_NOP, T.F_READ, T.F_PUT, T.F_ADD)
 
 @pytest.mark.parametrize("bn,n,k", [(1, 1, 1), (200, 5000, 10_001),
                                     (3, 9000, 201), (200, 2000, 201),
-                                    (2, 300, 50_000)])
+                                    (2, 300, 50_000), (3, 5000, 100_001),
+                                    (2, 3000, 1 << 20), (3, 12_000, 10_001),
+                                    (2, 40_000, 5), (4, 12_000, 1),
+                                    (800, 500, 3), (800, 2000, 101),
+                                    (3, 5000, 127), (3, 5000, 128),
+                                    (600, 1000, 4096), (600, 700, 4097),
+                                    (140, 3000, 16_384), (140, 3000, 16_385),
+                                    (140, 8192, 50), (140, 8193, 50)])
 def test_radix_partition_matches_twin(bn, n, k):
+    """Random keys, then rows of one key (every rank in one run); rows of
+    12,000 and 40,000 keys span more than one staged chunk."""
     dev = need_card()
     g = torch.Generator().manual_seed(bn * n + k)
-    keys = torch.randint(0, k, (bn, n), generator=g,
-                         dtype=torch.int32).to(dev)
-    reset_launches()
-    r, c = radix_partition_rank(keys, k)
-    r0, c0 = radix_partition_rank_ref(keys, k)
-    assert LAUNCHES["radix_partition"] == 1
-    assert torch.equal(r, r0) and torch.equal(c, c0)
-    r1, c1 = radix_partition_rank(keys[0], k)      # one interval
-    assert torch.equal(r1, r0[0]) and torch.equal(c1, c0[0])
+    random_keys = torch.randint(0, k, (bn, n), generator=g, dtype=torch.int32)
+    one_key = torch.full((bn, n), k - 1, dtype=torch.int32)
+    for keys in (random_keys.to(dev), one_key.to(dev)):
+        reset_launches()
+        r, c = radix_partition_rank(keys, k)
+        r0, c0 = radix_partition_rank_ref(keys, k)
+        assert LAUNCHES["radix_partition"] == 1
+        assert torch.equal(r, r0) and torch.equal(c, c0)
+        r1, c1 = radix_partition_rank(keys[0], k)      # one interval
+        assert torch.equal(r1, r0[0]) and torch.equal(c1, c0[0])
 
 
 def test_radix_partition_raises_on_what_it_cannot_take():
+    """The key space has no cap (K = 2^20 ranks like the twin); a wrong
+    dtype or layout raises."""
     dev = need_card()
+    keys = torch.randint(0, 1 << 20, (2, 1000), dtype=torch.int32).to(dev)
+    r, c = radix_partition_rank(keys, 1 << 20)
+    r0, c0 = radix_partition_rank_ref(keys, 1 << 20)
+    assert torch.equal(r, r0) and torch.equal(c, c0)
     keys = torch.zeros((2, 10), dtype=torch.int32, device=dev)
-    with pytest.raises(ValueError, match="shared memory"):
-        radix_partition_rank(keys, 1 << 20)
     with pytest.raises(ValueError, match="int32"):
         radix_partition_rank(keys.long(), 4)
     with pytest.raises(ValueError, match="contiguous"):
@@ -385,6 +399,12 @@ def test_kernels_at_other_block_sizes(threads):
     r, c = radix_partition_rank(keys, 10_001, threads=threads)
     r0, c0 = radix_partition_rank(keys, 10_001)
     assert torch.equal(r, r0) and torch.equal(c, c0)
+    many = torch.randint(0, 101, (600, 300), generator=g,
+                         dtype=torch.int32).to(dev)   # a warp per row
+    for k in (keys % 101, many):
+        r, c = radix_partition_rank(k, 101, threads=threads)
+        r0, c0 = radix_partition_rank_ref(k, 101)
+        assert torch.equal(r, r0) and torch.equal(c, c0)
     a = torch.rand(40_000, 32, generator=g).to(dev)
     b = torch.randn(40_000, 32, generator=g).to(dev)
     f = (torch.rand(40_000, generator=g) < 0.2).to(dev)
@@ -407,41 +427,66 @@ def test_kernels_at_other_block_sizes(threads):
         segscan_max(b, f, threads=48)
 
 
-@pytest.mark.parametrize("app_name,method", [("gs", "megakernel"),
-                                             ("tp", "partition"),
-                                             ("gs", "partition")])
-def test_engine_on_card_matches_cpu(app_name, method):
+@pytest.mark.parametrize("app_name,method,interval,rung", [
+    ("gs", "megakernel", 128, "megakernel"), ("tp", "partition", 128,
+                                              "partition"),
+    ("gs", "partition", 128, "partition"), ("gs", "auto", 4000, "packed"),
+    ("gs", "megakernel", 4000, "partition")])
+def test_engine_on_card_matches_cpu(app_name, method, interval, rung):
     """The port on the card (kernels) against the port on the CPU (twins):
-    the final state bitwise where the path holds no segscan, else to
-    rtol = atol = 1e-5; outputs to 1e-5."""
+    the final state bitwise for GS (its READ and PUT compose exactly on
+    every rung) and where the path holds no segscan, else to rtol = atol =
+    1e-5; outputs to 1e-5.  At 4,000 GS events (40,000 rows) an interval
+    the megakernel's block cannot hold an interval, so "auto" and a forced
+    megakernel take a staged rung on the card and launch no megakernel."""
     dev = need_card()
     app = ALL_APPS[app_name]
-    stream = app.gen_events(np.random.default_rng(11), 4 * 128)
+    stream = app.gen_events(np.random.default_rng(11),
+                            max(4 * 128, 2 * interval))
     cfg = EngineConfig(restructure_method=method)
     runs = {}
     for d in (dev, torch.device("cpu")):
         store = app.make_store(device=d)
         reset_launches()
-        runs[d.type] = DualModeEngine(app, store, cfg, device=d).run_stream(
-            store.values, stream, 128)
+        eng = DualModeEngine(app, store, cfg, device=d)
+        runs[d.type] = eng.run_stream(store.values, stream, interval)
         if d.type == "cuda":
-            assert LAUNCHES["radix_partition"] == 1
-            staged = method != "megakernel"
+            assert eng.last_rung == rung
+            assert LAUNCHES["radix_partition"] == int(rung != "packed")
+            staged = rung != "megakernel"
             # one stream call of three launches, not one per interval
             assert LAUNCHES["megakernel"] == (0 if staged else 3)
             assert LAUNCHES["segscan_affine"] == (1 if staged else 0)
     (o1, v1), (o0, v0) = runs["cuda"], runs["cpu"]
-    if method == "megakernel":
+    if app_name == "gs" or rung == "megakernel":
         assert torch.equal(v1.cpu(), v0)
     else:
         torch.testing.assert_close(v1.cpu(), v0, rtol=1e-5, atol=1e-5)
     assert_outputs_close(o1, o0, f"{app_name} card vs cpu")
 
 
+def test_megakernel_smem_formula_matches_library():
+    """The rung choice's Python formula of the scan block's shared memory
+    is the library's, over a grid of (rows, lanes)."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.megakernel import ops as mops
+    need_card()
+    lib = _build.library(mops.NAME, mops.SIGNATURES)
+    for n in (1, 7, 500, 5000, 12_234, 12_235, 40_000, 1 << 20):
+        for w in (1, 2, 3, 32, 33, 128):
+            assert mops.megakernel_smem_bytes(n, w) == \
+                lib.megakernel_smem_bytes(n, w), (n, w)
+
+
 @pytest.mark.parametrize("n_keys,n_buckets,n_queries", [
     (10_000, 2500, 1_000_000), (200, 64, 400_000), (50, 64, 1),
-    (4000, 2048, 1000)])
+    (4000, 2048, 1000), (10_000, 2500, 999_999), (7, 1, 30), (20, 3, 1003),
+    (40_000, 10_000, 100_003)])
 def test_hash_probe_matches_twin(n_keys, n_buckets, n_queries):
+    """Present, absent and sign-bit keys; ragged query counts; fewer than 4
+    buckets (probes wrap); a table too large to stage in shared memory
+    (10,000 buckets, 320 KB); and every query view one element into its
+    storage."""
     dev = need_card()
     rng = np.random.default_rng(n_keys + n_queries)
     keys = (np.arange(n_keys, dtype=np.int32) if n_keys != 4000 else
@@ -458,6 +503,11 @@ def test_hash_probe_matches_twin(n_keys, n_buckets, n_queries):
     assert torch.equal(got, want)
     for threads in (32, 96, 1024):
         assert torch.equal(hash_probe(q, table, threads=threads), want)
+    storage = torch.empty(n_queries + 1, dtype=torch.int32, device=dev)
+    storage[1:] = q
+    view = storage[1:]
+    assert view.data_ptr() % 16 != 0
+    assert torch.equal(hash_probe(view, table), want)
 
 
 def test_hash_probe_raises_on_what_it_cannot_take():

@@ -5,6 +5,9 @@
 state bit for bit for GS and TP, and the staged stages must agree stage by
 stage.  Schemes of later slices raise, naming ROADMAP A7.
 """
+import importlib
+import logging
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -22,9 +25,13 @@ from repro.core.restructure import restructure as j_restructure
 from repro_torch.apps import ALL_APPS as T_APPS
 from repro_torch.core.engines import (evaluate, tstream_scan_coefs,
                                       tstream_scan_plan)
-from repro_torch.core.restructure import megakernel_engaged, restructure
+from repro_torch.core.restructure import (megakernel_engaged,
+                                          megakernel_fits, restructure)
+from repro_torch.kernels.megakernel.ops import megakernel_smem_bytes
 
 from torch_parity import (assert_dict_equal, np_, port_ops, port_store)
+
+restructure_mod = importlib.import_module("repro_torch.core.restructure")
 
 
 def _interval(app_name, n_events=48, seed=0):
@@ -99,6 +106,59 @@ def test_megakernel_engaged_matches_reference():
                         assert megakernel_engaged(n_rows, slots, **kw) == \
                             j_mega_engaged(n_rows, slots, **kw), (n_rows,
                                                                   slots, kw)
+
+
+H100_SMEM = 232_448     # an H100's opt-in shared memory per block (bytes)
+
+
+@pytest.mark.parametrize("lanes", [1, 32])
+def test_megakernel_fits_at_its_capacity(lanes):
+    """The scan block holds 16 n W + 3 n bytes; the largest interval that
+    fits is the last n within the limit, and the CPU (no limit) always
+    fits."""
+    cap = H100_SMEM // (16 * lanes + 3)
+    assert megakernel_smem_bytes(cap, lanes) <= H100_SMEM
+    assert megakernel_smem_bytes(cap + 1, lanes) > H100_SMEM
+    assert megakernel_fits(cap, lanes, H100_SMEM)
+    assert not megakernel_fits(cap + 1, lanes, H100_SMEM)
+    assert megakernel_fits(cap + 1, lanes, None)
+    assert megakernel_fits(1 << 24, lanes, None)
+
+
+@pytest.mark.parametrize("lanes", [1, 32])
+def test_megakernel_engaged_honours_the_capacity(lanes, caplog):
+    """Under "auto" the band AND the capacity; a forced megakernel that does
+    not fit takes the staged rung and logs why, once."""
+    band = restructure_mod.autotune.MEGA_BOUNDS
+    cap = H100_SMEM // (16 * lanes + 3)
+    kw = dict(has_max=False, funs_simple=True, lanes=lanes)
+    lo, slots = band["min_rows"], band["max_buckets"]
+    # the band's edges with no limit (the CPU), as the reference has them
+    assert megakernel_engaged(lo, slots, method="auto", **kw)
+    assert not megakernel_engaged(lo - 1, slots, method="auto", **kw)
+    assert not megakernel_engaged(lo, slots + 1, method="auto", **kw)
+    # on the card the band lies beyond the capacity: "auto" never engages
+    assert cap < lo
+    for n in (lo, lo + 1, 40_000):
+        assert not megakernel_engaged(n, slots, method="auto",
+                                      smem_limit=H100_SMEM, **kw)
+    # a force engages up to the capacity, not beyond it
+    assert megakernel_engaged(cap, 10_001, method="megakernel",
+                              smem_limit=H100_SMEM, **kw)
+    restructure_mod._MEGA_FALLBACK_WARNED.clear()
+    with caplog.at_level(logging.WARNING,
+                         logger="repro_torch.core.restructure"):
+        for _ in range(3):
+            assert not megakernel_engaged(cap + 1, 10_001,
+                                          method="megakernel",
+                                          smem_limit=H100_SMEM, **kw)
+    logged = [r for r in caplog.records if "shared memory" in r.message]
+    assert len(logged) == 1, [r.message for r in caplog.records]
+    assert f"{cap + 1} rows x {lanes} lanes" in logged[0].message
+    # an ineligible store stays off whatever the limit
+    assert not megakernel_engaged(cap, 10_001, method="megakernel",
+                                  has_max=True, funs_simple=True,
+                                  lanes=lanes, smem_limit=H100_SMEM)
 
 
 def test_lock_oracle_gated_take():

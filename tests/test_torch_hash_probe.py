@@ -99,3 +99,28 @@ def test_overflow_raises_like_reference():
         build(keys[:8], 1)
         with pytest.raises(RuntimeError, match="overflow"):
             build(keys, 1)
+
+
+@pytest.mark.parametrize("n_keys,n_buckets", [(7, 1), (20, 3), (500, 256)])
+def test_twin_takes_a_ragged_count_and_an_offset_view(n_keys, n_buckets):
+    """A query count that is not a multiple of 4, a key view one element
+    into its storage, and tables of fewer than 4 buckets (probes wrap more
+    than once): the twin equals the reference and the Pallas kernel."""
+    rng = np.random.default_rng(n_keys + n_buckets)
+    keys = rng.choice(2**31 - 1, size=n_keys, replace=False).astype(np.int32)
+    lo, hi = jref.build_table(keys, n_buckets)
+    q = np.concatenate([rng.choice(keys, 298), [-1, 2**31 - 1, 12345]]
+                       ).astype(np.int32)
+    assert len(q) % 4 == 1
+    want = np.asarray(jref.hash_probe_ref(jnp.asarray(q), jnp.asarray(lo),
+                                          jnp.asarray(hi)))
+    np.testing.assert_array_equal(
+        want, np.asarray(jops.hash_probe(jnp.asarray(q), jnp.asarray(lo),
+                                         jnp.asarray(hi), interpret=True)))
+    table = torch.from_numpy(tref.build_table(keys, n_buckets))
+    storage = torch.from_numpy(np.concatenate([[7], q]).astype(np.int32))
+    view = storage[1:]
+    assert view.storage_offset() == 1 and view.is_contiguous()
+    np.testing.assert_array_equal(hash_probe(view, table).numpy(), want)
+    np.testing.assert_array_equal(
+        hash_probe(torch.from_numpy(q[:-2]), table).numpy(), want[:-2])

@@ -34,7 +34,7 @@ from torch_parity import np_
 # ---------------------------------------------------------------------------
 @pytest.mark.parametrize("n,n_buckets", [
     (1, 1), (7, 3), (255, 128), (300, 129), (2500, 1000), (700, 2047),
-    (2500, 10_001), (40_000, 201)])
+    (2500, 10_001), (40_000, 201), (3000, 100_001), (1000, 1 << 20)])
 def test_radix_twin_matches_reference(n, n_buckets):
     rng = np.random.default_rng(n * 7 + n_buckets)
     keys = rng.integers(0, n_buckets, n).astype(np.int32)
