@@ -105,14 +105,17 @@ __device__ __forceinline__ void count_digits(const uint32_t* key,
   constexpr int kLanes = (1 << DB) / 2;
   const int nt = blockDim.x, nw = nt >> 5;
   const int tid = threadIdx.x, lane = tid & 31, w = tid >> 5;
+  // pad(l * nt + tid) = l * (nt + nw) + tid + w, as nt is a multiple of 32
+  uint32_t* col = ctr + tid + w;
+  const int stride = nt + nw;
 #pragma unroll
-  for (int l = 0; l < kLanes; ++l) ctr[pad(l * nt + tid)] = 0;
+  for (int l = 0; l < kLanes; ++l) col[l * stride] = 0;
 #pragma unroll
   for (int i = 0; i < kItems; ++i) {
     if (i < n_rows) {
       const unsigned d = (key[i] >> shift) & ((1u << DB) - 1);
       const unsigned half = 16 * (d / kLanes);
-      uint32_t* c = ctr + pad((d % kLanes) * nt + tid);
+      uint32_t* c = col + (d % kLanes) * stride;
       const uint32_t old = *c;
       tag[i] |= static_cast<int32_t>(((old >> half) & 0xffffu) << 16);
       *c = old + (1u << half);
@@ -121,9 +124,10 @@ __device__ __forceinline__ void count_digits(const uint32_t* key,
   __syncthreads();
   // each thread rakes kLanes consecutive words; the high halves (the upper
   // digits) then follow all the low halves
+  uint32_t* rk = ctr + pad(tid * kLanes);  // no pad falls inside the run
   uint32_t sum = 0;
 #pragma unroll
-  for (int l = 0; l < kLanes; ++l) sum += ctr[pad(tid * kLanes + l)];
+  for (int l = 0; l < kLanes; ++l) sum += rk[l];
   uint32_t incl = sum;
 #pragma unroll
   for (int o = 1; o < 32; o <<= 1) {
@@ -142,8 +146,8 @@ __device__ __forceinline__ void count_digits(const uint32_t* key,
   uint32_t run = before + incl - sum + ((all & 0xffffu) << 16);
 #pragma unroll
   for (int l = 0; l < kLanes; ++l) {
-    const uint32_t c = ctr[pad(tid * kLanes + l)];
-    ctr[pad(tid * kLanes + l)] = run;
+    const uint32_t c = rk[l];
+    rk[l] = run;
     run += c;
   }
   __syncthreads();
@@ -154,8 +158,10 @@ template <int DB>
 __device__ __forceinline__ int digit_count(const uint32_t* ctr, unsigned d,
                                            int t) {
   constexpr int kLanes = (1 << DB) / 2;
+  const int nt = blockDim.x;  // pad(l * nt + t), as in count_digits
   return static_cast<int>(
-      (ctr[pad((d % kLanes) * blockDim.x + t)] >> (16 * (d / kLanes))) &
+      (ctr[(d % kLanes) * (nt + (nt >> 5)) + t + (t >> 5)] >>
+       (16 * (d / kLanes))) &
       0xffffu);
 }
 
