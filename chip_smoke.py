@@ -54,7 +54,10 @@ Run from the repository root:  python3 chip_smoke.py [--seed N]
    stats); those of phases 4 and 5 also a ``profile`` line: the device's
    busy share of one more, profiled run.  The warm-up runs record the
    launch shapes of radix_partition and the segscans, each timed alone in
-   a ``shape`` line with its bound and share of the bound.
+   a ``shape`` line with its bound and share of the bound; each of their
+   radix_partition calls (every path the kernel picks by shape) is held
+   bitwise against its twin and at 64, 512 and 1024 threads per block
+   (``hold`` lines).
 8. Prints one JSON line of kernel numbers, the card line again, and last
    ``{"ok": true, "device": {...}}``.
 
@@ -507,7 +510,9 @@ def hash_probe_row(sh) -> dict:
 
 def block_size_check(p, plan, mega) -> None:
     """Each kernel at block sizes other than its default, as
-    ``EngineConfig.kernel_block_params`` sets them: no bit may change."""
+    ``EngineConfig.kernel_block_params`` sets them: no bit may change.
+    radix_partition here at GS's shape (the block sort); every driven
+    run's radix calls, at every path, go through ``hold_radix`` too."""
     from repro_torch.kernels.hash_probe.ops import hash_probe
     from repro_torch.kernels.megakernel.ops import fused_chain_eval
     from repro_torch.kernels.radix_partition.ops import radix_partition_rank
@@ -616,7 +621,8 @@ CALL_SITES = (("repro_torch.core.restructure", "radix_partition_rank",
 
 def recording(fn):
     """Run ``fn()`` with the CALL_SITES wrapped to record each call's
-    arguments; returns ``[(kernel, wrapper, args, kwargs), ...]``."""
+    arguments and result; returns ``[(kernel, wrapper, args, kwargs,
+    result), ...]``, each result cloned as the call returned it."""
     import importlib
     calls, saved = [], []
     for mod_name, attr, kernel in CALL_SITES:
@@ -625,8 +631,11 @@ def recording(fn):
         saved.append((mod, attr, real))
 
         def rec(*args, _real=real, _kernel=kernel, **kw):
-            calls.append((_kernel, _real, args, kw))
-            return _real(*args, **kw)
+            out = _real(*args, **kw)
+            calls.append((_kernel, _real, args, kw,
+                          tuple(t.clone() for t in out)
+                          if isinstance(out, tuple) else out.clone()))
+            return out
         setattr(mod, attr, rec)
     try:
         fn()
@@ -641,7 +650,7 @@ def shape_times(label, calls, card) -> None:
     the shape the run launched it with, beside its bound, its share of the
     bound and whether its bytes fit the L2 cache: such a shape, timed back
     to back, reads its inputs from L2 and may beat the HBM bound."""
-    for kernel, fn, args, kw in calls:
+    for kernel, fn, args, kw, _ in calls:
         x = args[0]
         if kernel == "radix_partition":
             what = f"keys={list(x.shape)} K={args[1]}"
@@ -656,6 +665,33 @@ def shape_times(label, calls, card) -> None:
               + (" fits_l2" if nbytes <= L2_BYTES else "") + f" | {card}")
 
 
+def hold_radix(label, calls) -> None:
+    """Every radix_partition call of a run, at the shape the run launched
+    it with: its result bitwise against the twin on the same keys, and the
+    kernel at 64, 512 and 1024 threads per block equal to it.  The shape
+    picks the kernel's path (a warp per row, one counter pass, or the block
+    sort), so the driven runs hold each path they take."""
+    from repro_torch.kernels.radix_partition.ref import radix_partition_rank_ref
+    shapes = []
+    for kernel, fn, args, kw, out in calls:
+        if kernel != "radix_partition" or not args[0].numel():
+            continue
+        rank, counts = out
+        keys, k = args[0], args[1]
+        r0, c0 = radix_partition_rank_ref(keys, k)
+        what = f"radix_partition[{label}] keys={list(keys.shape)} K={k}"
+        assert_equal(rank, r0, f"{what}: rank vs twin")
+        assert_equal(counts, c0, f"{what}: counts vs twin")
+        for threads in (64, 512, 1024):
+            r1, c1 = fn(keys, k, **{**kw, "threads": threads})
+            assert_equal(r1, rank, f"{what}: rank at {threads} threads")
+            assert_equal(c1, counts, f"{what}: counts at {threads} threads")
+        shapes.append(f"{list(keys.shape)} K={k}")
+    if shapes:
+        print(f"hold radix_partition[{label}]: {'; '.join(shapes)} bitwise "
+              "with the twin, and at 64, 512 and 1024 threads per block")
+
+
 def counted(eng, stream, launches, label=None, card="", interval=INTERVAL):
     """A driven run: launch counters to 0 just before, read just after.
 
@@ -665,17 +701,19 @@ def counted(eng, stream, launches, label=None, card="", interval=INTERVAL):
     engine would.  With a ``label``, that run records the launch shapes of
     radix_partition and the segscans, which are then timed alone.  Its
     recorded calls that launch (non-empty inputs) must number what its
-    launch counts say, so a call site missing from CALL_SITES fails."""
+    launch counts say, so a call site missing from CALL_SITES fails.  Its
+    radix_partition calls are held against the twin (``hold_radix``)."""
     from repro_torch import LAUNCHES, reset_launches
     reset_launches()
     calls = recording(lambda: timed(eng, stream, interval))
     for kernel in {k for _, _, k in CALL_SITES}:
-        seen = sum(1 for k, _, args, _ in calls
+        seen = sum(1 for k, _, args, _, _ in calls
                    if k == kernel and args[0].numel())
         if seen != LAUNCHES[kernel]:
             raise AssertionError(
                 f"{kernel}: {LAUNCHES[kernel]} launches but {seen} recorded "
                 "calls; a call site is missing from CALL_SITES")
+    hold_radix(label or "run", calls)
     if label is not None:
         shape_times(label, calls, card)
     reset_launches()

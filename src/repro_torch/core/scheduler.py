@@ -157,12 +157,7 @@ class DualModeEngine:
         for k, v in event_stream.items():
             v = np.asarray(v)[: n_intervals * punct_interval]
             batched[k] = v.reshape((n_intervals, punct_interval) + v.shape[1:])
-        if self.app.associative_only and self.cfg.scheme in ("tstream",
-                                                             "tstream_scan"):
-            self.last_rung = fused_rung(
-                self.init_store, punct_interval * self.app.max_ops,
-                app=self.app, cfg=self.cfg)
-        res_all, ebs_all, values, _ = _fused_impl(
+        res_all, ebs_all, values, _, self.last_rung = _fused_impl(
             values, convert.events_to_torch(batched, self.device), 0,
             app=self.app, cfg=self.cfg, store=self.init_store)
         return self._outs(res_all, ebs_all, n_intervals), values
@@ -257,7 +252,9 @@ def _fused_impl(values, events_b, ts0: int, *, app: AppSpec,
     ``values`` is the engine's private state copy, carried across intervals.
     Everything values-independent (op registration, the restructure plan,
     and on the associative path the coefficient scans and commit maps) runs
-    once for all intervals before the loop.
+    once for all intervals before the loop.  Returns ``(res_all, ebs_all,
+    values, stats, rung)``: ``rung`` is the associative path's rung
+    (``fused_rung``), None on the generic path.
     """
     some = next(iter(events_b.values()))
     n_intervals, interval = some.shape[0], some.shape[1]
@@ -269,9 +266,9 @@ def _fused_impl(values, events_b, ts0: int, *, app: AppSpec,
     ops_all, ebs_all = build_opbatch(app, store, events_b, ts_bases)
 
     if cfg.scheme in ("tstream", "tstream_scan") and app.associative_only:
-        res_all, values, stats = _fused_assoc(store, ops_all, app=app,
-                                              cfg=cfg)
-        return res_all, ebs_all, values, stats
+        res_all, values, stats, rung = _fused_assoc(store, ops_all, app=app,
+                                                    cfg=cfg)
+        return res_all, ebs_all, values, stats, rung
 
     # generic path, as far as the lock schedule needs it
     if cfg.scheme in CHAIN_SCHEMES:
@@ -285,7 +282,7 @@ def _fused_impl(values, events_b, ts0: int, *, app: AppSpec,
                                         cfg=cfg)
         res_l.append(res)
         stats.append(s)
-    return _stack(res_l), ebs_all, values, stats
+    return _stack(res_l), ebs_all, values, stats, None
 
 
 def fused_rung(store: StateStore, n_rows: int, *, app: AppSpec,
@@ -318,12 +315,12 @@ def _fused_assoc(store: StateStore, ops_all, *, app: AppSpec,
     The one-pass restructure plan (one radix launch for all intervals), the
     coefficient scans (one launch per scan over the flattened stream) and
     the commit maps run before the loop; results return to flat layout in
-    the body and stack per interval.
+    the body and stack per interval.  Returns ``(res_all, values, stats,
+    rung)``, ``rung`` the one it took (``fused_rung``).
     """
-    luts = simple_affine_luts(app.funs, store.device)
-    if fused_rung(store, ops_all.uid.shape[-1], app=app,
-                  cfg=cfg) == "megakernel":
-        return _fused_assoc_mega(store, ops_all, luts=luts, cfg=cfg)
+    rung = fused_rung(store, ops_all.uid.shape[-1], app=app, cfg=cfg)
+    if rung == "megakernel":
+        return (*_fused_assoc_mega(store, ops_all, cfg=cfg, app=app), rung)
 
     pres_all = restructure(ops_all, store.pad_uid, rowmajor_ts=True,
                            light=True, method=cfg.restructure_method,
@@ -342,10 +339,10 @@ def _fused_assoc(store: StateStore, ops_all, *, app: AppSpec,
                                               store.pad_uid)
         res_l.append(res)
         stats.append(s)
-    return _stack(res_l), values, stats
+    return _stack(res_l), values, stats, rung
 
 
-def _fused_assoc_mega(store: StateStore, ops_all, *, luts,
+def _fused_assoc_mega(store: StateStore, ops_all, *, app: AppSpec,
                       cfg: EngineConfig):
     """Megakernel rung of the associative fast path.
 
@@ -355,7 +352,7 @@ def _fused_assoc_mega(store: StateStore, ops_all, *, luts,
     next and committing it in place, bit-identical to the staged rungs.  Its
     results come back in flat layout.
     """
-    a_lut, b_lut = luts
+    a_lut, b_lut = simple_affine_luts(app.funs, store.device)
     sops_all, ch_all = restructure(
         ops_all, store.pad_uid, rowmajor_ts=True, light=True,
         method="partition", use_kernels=cfg.use_kernels, geometry=False,

@@ -20,16 +20,16 @@
 // costs is where it lands: every query reads one random 32-byte bucket,
 // which through L1 costs a sector request per query and load.  So where the
 // table fits, each block copies it into shared memory once and then walks a
-// grid-stride loop over the queries (two blocks of 1,024 threads a SM, a
-// few queries per thread), with the next query's key loaded before this
-// one's probe and the first key in flight while the table is copied.  A
-// table larger than a block's shared memory is probed through the read-only
-// path, one query per thread.  In both, the hash is reduced modulo n_buckets
-// once, by a multiply with a precomputed reciprocal (exact for every 32-bit
-// value), and each further probe steps to the next bucket and wraps with a
-// compare, which holds for any n_buckets >= 1.  The first hit ends a probe,
-// which gives the reference's answer: its mask keeps the first probe that
-// hits and the first matching way in it.
+// grid-stride loop over the queries (by default two blocks of 1,024 threads
+// a SM, a few queries per thread), with the next query's key loaded before
+// this one's probe and the first key in flight while the table is copied.
+// A table larger than a block's shared memory is probed through the
+// read-only path, one query per thread.  In both, the hash is reduced
+// modulo n_buckets once, by a multiply with a precomputed reciprocal (exact
+// for every 32-bit value), and each further probe steps to the next bucket
+// and wraps with a compare, which holds for any n_buckets >= 1.  The first
+// hit ends a probe, which gives the reference's answer: its mask keeps the
+// first probe that hits and the first matching way in it.
 #include "common.cuh"
 
 namespace {
@@ -37,8 +37,9 @@ namespace {
 constexpr int kAssoc = 8;
 constexpr int kMaxProbes = 4;
 constexpr uint32_t kMult = 2654435761u;
-constexpr int kStagedThreads = 1024;
+constexpr int kStagedThreads = 1024;  // the staged kernel's default block
 constexpr int kStagedBlocksPerSm = 2;
+constexpr int kGlobalThreads = 256;   // the unstaged kernel's default block
 
 __device__ inline int first_way(const int4 lo, const int4 hi, int32_t key) {
   if (lo.x == key) return 0;
@@ -107,8 +108,10 @@ __global__ void hash_probe_global(const int32_t* __restrict__ keys,
 }  // namespace
 
 // keys, out: i32[n]; table: i32[n_buckets, 8], 16-byte aligned; n >= 1.
-// `threads` sizes the blocks of the unstaged kernel (the staged one takes
-// 1,024).  Launches on `stream` and returns cudaGetLastError().
+// `threads` is the block size, 0 for the kernel's default; the staged grid
+// has at most kStagedBlocksPerSm x kStagedThreads threads per SM, whatever
+// the block size.
+// Launches on `stream` and returns cudaGetLastError().
 REPRO_EXPORT int hash_probe(const void* keys, const void* table, void* out,
                             int n, int n_buckets, int threads, void* stream) {
   const uint64_t M =
@@ -129,15 +132,16 @@ REPRO_EXPORT int hash_probe(const void* keys, const void* table, void* out,
   if (bytes * kStagedBlocksPerSm <= static_cast<size_t>(optin)) {
     if ((err = set_smem(hash_probe_staged, bytes)) != cudaSuccess)
       return static_cast<int>(err);
-    const int64_t want = (static_cast<int64_t>(n) + kStagedThreads - 1) /
-                         kStagedThreads;
-    const int blocks = static_cast<int>(
-        want < kStagedBlocksPerSm * sms ? want : kStagedBlocksPerSm * sms);
-    hash_probe_staged<<<blocks, kStagedThreads, bytes, st>>>(k, t, o, n,
-                                                             n_buckets, M);
+    const int nt = threads ? threads : kStagedThreads;
+    const int64_t want = (static_cast<int64_t>(n) + nt - 1) / nt;
+    const int64_t most =
+        static_cast<int64_t>(kStagedBlocksPerSm) * sms * kStagedThreads / nt;
+    const int blocks = static_cast<int>(want < most ? want : most);
+    hash_probe_staged<<<blocks, nt, bytes, st>>>(k, t, o, n, n_buckets, M);
   } else {
-    hash_probe_global<<<(n + threads - 1) / threads, threads, 0, st>>>(
-        k, t, o, n, n_buckets, M);
+    const int nt = threads ? threads : kGlobalThreads;
+    hash_probe_global<<<(n + nt - 1) / nt, nt, 0, st>>>(k, t, o, n,
+                                                        n_buckets, M);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -17,7 +17,6 @@ from ..runtime import LAUNCHES, check, check_tensor, on_card
 from .ref import ASSOC, hash_probe_ref
 
 NAME = "hash_probe"
-THREADS = 256
 _P, _I = ctypes.c_void_p, ctypes.c_int
 SIGNATURES = {"hash_probe": [_P, _P, _P, _I, _I, _I, _P]}
 
@@ -25,7 +24,8 @@ SIGNATURES = {"hash_probe": [_P, _P, _P, _I, _I, _I, _P]}
 def hash_probe(keys: torch.Tensor, table: torch.Tensor, *,
                threads: int | None = None) -> torch.Tensor:
     """keys i32[N], table i32[n_buckets, ASSOC] -> slot i32[N], -1 if absent.
-    ``threads`` overrides the block size of the unstaged kernel."""
+    ``threads`` overrides the block size (1,024 threads where the table is
+    staged, else 256); it changes no bit."""
     if not on_card(keys, NAME):
         return hash_probe_ref(keys, table)
     dev = keys.device
@@ -38,14 +38,14 @@ def hash_probe(keys: torch.Tensor, table: torch.Tensor, *,
     check(n_buckets >= 1 and n_buckets * ASSOC < 2 ** 31, NAME,
           f"n_buckets={n_buckets} outside the kernel's int32 slots")
     check(n < 2 ** 31, NAME, f"{n} keys exceed the kernel's int32 sizes")
-    threads = threads or THREADS
-    check(threads % 32 == 0 and 32 <= threads <= 1024, NAME,
-          f"threads={threads} must be a multiple of 32 in [32, 1024]")
+    if threads is not None:
+        check(threads % 32 == 0 and 32 <= threads <= 1024, NAME,
+              f"threads={threads} must be a multiple of 32 in [32, 1024]")
     out = torch.empty_like(keys)
     if n:
         lib = _build.library(NAME, SIGNATURES)
         err = lib.hash_probe(keys.data_ptr(), table.data_ptr(),
-                             out.data_ptr(), n, n_buckets, threads,
+                             out.data_ptr(), n, n_buckets, threads or 0,
                              torch.cuda.current_stream(dev).cuda_stream)
         _build.check_launch(lib, err, NAME)
         LAUNCHES[NAME] += 1

@@ -235,9 +235,9 @@ def test_run_stream_megakernel_rung_matches_jax_fused(name):
     np.testing.assert_array_equal(np_(vals), np.asarray(jvals),
                                   err_msg="final state")
     assert_outputs_close(outs, jouts, f"gs/{name} outputs")
-    res, _, _, _ = _fused_impl(tstore.values.clone(),
-                               events_to_torch(batched, "cpu"), 0, app=tapp,
-                               cfg=cfg, store=tstore)
+    res, _, _, _, _ = _fused_impl(tstore.values.clone(),
+                                  events_to_torch(batched, "cpu"), 0,
+                                  app=tapp, cfg=cfg, store=tstore)
     assert_dict_equal(res, {k: np.asarray(v) for k, v in jres.items()},
                       f"gs/{name} per-op results")
 

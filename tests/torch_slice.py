@@ -65,9 +65,9 @@ def _port_res(tapp, tstore, stream, cfg, fused):
         batched = {k: np.asarray(v)[:n].reshape(
             (N_INTERVALS, INTERVAL) + np.asarray(v).shape[1:])
             for k, v in stream.items()}
-        res, _, _, _ = _fused_impl(tstore.values.clone(),
-                                   events_to_torch(batched, "cpu"), 0,
-                                   app=tapp, cfg=cfg, store=tstore)
+        res, _, _, _, _ = _fused_impl(tstore.values.clone(),
+                                      events_to_torch(batched, "cpu"), 0,
+                                      app=tapp, cfg=cfg, store=tstore)
         return res
     res_l, values = [], tstore.values.clone()
     for i in range(N_INTERVALS):
