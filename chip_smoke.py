@@ -45,20 +45,32 @@ Run from the repository root:  python3 chip_smoke.py [--seed N]
    dropped, held to the single-device card run to 1e-5; and a GS-shaped
    store of 100,000 records (100,001 partition buckets), 20 intervals of
    500 events, forced "partition" and forced megakernel, each bitwise
-   with its CPU run.
-7. Every driven run of phases 4 to 6 follows one uncounted warm-up run of
+   with its CPU run; that store's megakernel call is also timed alone.
+7. Lockstep phase: SL (10,000 accounts + 10,000 assets, theta 0.6, half
+   transfers) and OB (10,000 items, the 6:1:1 bid / alter / top mix), 200
+   intervals of 500 events, through the lockstep path: forced "partition"
+   (one radix_partition launch a run, nothing else) and "auto" (the
+   packed rung, no launch), and SL's abort repass on a stream with every
+   amount x 100.  Each run's state, outputs and per-op pre/post/success
+   are bitwise with the port's CPU run of the same stream ("auto" also
+   with the forced run); its ``e2e`` line gives the lockstep rounds swept
+   against the sum of the intervals' longest chains.  Before the driven
+   phases, SL and OB on 4 x 64 events under tstream, tstream_lockstep,
+   mvlk and pat match the sequential lock schedule, and nolock on the card
+   equals its CPU run bit for bit.
+8. Every driven run of phases 4 to 7 follows one uncounted warm-up run of
    the same engine and stream, sets the launch counters to 0 just before it
    and reads them just after; every kernel must have launched, and each
    run must take the rung its plan names (``DualModeEngine.last_rung``).
    Each run prints an ``e2e`` line (wall s, events/s, launches, exchange
-   stats); those of phases 4 and 5 also a ``profile`` line: the device's
+   stats); those of phases 4, 5 and 7 also a ``profile`` line: the device's
    busy share of one more, profiled run.  The warm-up runs record the
    launch shapes of radix_partition and the segscans, each timed alone in
    a ``shape`` line with its bound and share of the bound; each of their
    radix_partition calls (every path the kernel picks by shape) is held
    bitwise against its twin and at 64, 512 and 1024 threads per block
    (``hold`` lines).
-8. Prints one JSON line of kernel numbers, the card line again, and last
+9. Prints one JSON line of kernel numbers, the card line again, and last
    ``{"ok": true, "device": {...}}``.
 
 Any failure raises and exits non-zero.  Without a CUDA card it exits 1 and
@@ -576,13 +588,14 @@ SHARDED = (
 
 
 def engine(app_name, method, dev, *, mesh=None, layout="shared_nothing",
-           probe=False, n_keys=None):
+           probe=False, n_keys=None, **cfg_kw):
     """An engine on ``dev``; ``n_keys`` sizes a GS store other than the
-    app's 10,000 records."""
+    app's 10,000 records; ``cfg_kw`` sets more of its EngineConfig."""
     from repro_torch.apps import ALL_APPS
     from repro_torch.core.scheduler import DualModeEngine, EngineConfig
     app = ALL_APPS[app_name]
-    cfg = EngineConfig(restructure_method=method, use_hash_probe_route=probe)
+    cfg = EngineConfig(restructure_method=method, use_hash_probe_route=probe,
+                       **cfg_kw)
     store = (app.make_store(device=dev) if n_keys is None else
              app.make_store(n_keys, device=dev))
     return DualModeEngine(app, store, cfg, device=dev, mesh=mesh,
@@ -926,6 +939,32 @@ def wide_gs_events(seed: int, n_events: int, n_keys: int) -> dict:
                                    ).astype(np.float32))
 
 
+def wide_megakernel(st, dev, card) -> None:
+    """The wide store's megakernel call (20 x 5,000 rows over 100,001
+    slots) alone: bitwise against its twins, timed beside its bound."""
+    from repro_torch.apps import ALL_APPS
+    from repro_torch.convert import events_to_torch
+    from repro_torch.core.blotter import build_opbatch
+    from repro_torch.core.engines import simple_affine_luts
+    from repro_torch.core.restructure import restructure
+    app = ALL_APPS["gs"]
+    store = app.make_store(WIDE_KEYS, device=dev)
+    n_i = len(st["keys"]) // INTERVAL
+    ev = {k: np.asarray(v)[: n_i * INTERVAL].reshape(
+        (n_i, INTERVAL) + np.asarray(v).shape[1:]) for k, v in st.items()}
+    ts = torch.arange(n_i, dtype=torch.int32, device=dev) * INTERVAL
+    ops, _ = build_opbatch(app, store, events_to_torch(ev, dev), ts)
+    sops, ch = restructure(ops, store.pad_uid, rowmajor_ts=True, light=True,
+                           method="partition", use_kernels=False,
+                           geometry=False)
+    a_lut, b_lut = simple_affine_luts(app.funs, dev)
+    r = stream_megakernel("gs wide", store.values, sops, ch, store.pad_uid,
+                          a_lut, b_lut)
+    print(f"kernel megakernel[gs wide]: ms={r['ms']} plain_ms="
+          f"{r['plain_ms']} bound_ms={r['bound'][0]} ({r['bound'][1]}) "
+          f"launches_per_call={r['launches_per_call']} | {card}")
+
+
 def capacity_phase(stream, card, cuda, launches, seed) -> None:
     """The runs that the shared memory of one block once failed on the
     card: each completes, takes the rung the plan picks and holds its CPU
@@ -966,6 +1005,8 @@ def capacity_phase(stream, card, cuda, launches, seed) -> None:
         check_outputs(outs, outs_c, label, n_i, interval=interval)
         print(f"e2e {label}: state bitwise and outputs within 1e-5 of the "
               "CPU run")
+        if label == "gs wide rung=megakernel":
+            wide_megakernel(st, cuda, card)
 
     # sharded GS, 4 x shared_nothing, forced megakernel, beyond the capacity
     label = "sharded gs band/shared_nothing"
@@ -1004,25 +1045,150 @@ def capacity_phase(stream, card, cuda, launches, seed) -> None:
 
 
 def oracle_check(cuda) -> None:
-    """A small stream on the card against the sequential lock schedule."""
+    """A small stream on the card against the sequential lock schedule on
+    the CPU: GS and TP on their forced rungs; SL and OB under tstream,
+    tstream_lockstep, mvlk and pat (state and outputs to 1e-5, as the
+    reference holds its schemes); nolock on the card bitwise with its own
+    CPU run."""
     from repro_torch.apps import ALL_APPS
     from repro_torch.core.scheduler import DualModeEngine, EngineConfig
-    for app_name, method in (("gs", "megakernel"), ("tp", "partition")):
+    runs = [(a, EngineConfig(restructure_method=m))
+            for a, m in (("gs", "megakernel"), ("tp", "partition"))]
+    runs += [(a, EngineConfig(scheme=sch)) for a in ("sl", "ob")
+             for sch in ("tstream", "tstream_lockstep", "mvlk", "pat")]
+    for app_name, cfg in runs:
         app = ALL_APPS[app_name]
         stream = app.gen_events(np.random.default_rng(7), 256)
-        got = DualModeEngine(app, app.make_store(device=cuda),
-                             EngineConfig(restructure_method=method),
+        got = DualModeEngine(app, app.make_store(device=cuda), cfg,
                              device=cuda)
         ref = DualModeEngine(app, app.make_store(device="cpu"),
                              EngineConfig(scheme="lock"), device="cpu")
         o1, v1 = got.run_stream(got.init_store.values, stream, 64)
         o0, v0 = ref.run_stream(ref.init_store.values, stream, 64)
-        assert_close(v1.cpu(), v0, f"{app_name} vs lock oracle: state")
-        for a, b in zip(o1, o0):
-            for k in b:
-                assert_close(a[k], b[k], f"{app_name} vs lock oracle: {k}")
-        print(f"oracle {app_name}: 4 x 64 events on the card match the "
-              "sequential lock schedule")
+        what = f"{app_name} {cfg.scheme} vs lock oracle"
+        assert_close(v1.cpu(), v0, f"{what}: state")
+        check_outputs(o1, o0, what, 4, interval=64)
+        print(f"oracle {app_name} {cfg.scheme} rung="
+              f"{cfg.restructure_method}: 4 x 64 events on the card match "
+              "the sequential lock schedule")
+    for app_name in ("sl", "ob"):
+        app = ALL_APPS[app_name]
+        stream = app.gen_events(np.random.default_rng(7), 256)
+        outs = []
+        for d in (cuda, torch.device("cpu")):
+            eng = DualModeEngine(app, app.make_store(device=d),
+                                 EngineConfig(scheme="nolock"), device=d)
+            outs.append(eng.run_stream(eng.init_store.values, stream, 64))
+        (o1, v1), (o0, v0) = outs
+        assert_equal(v1, v0, f"{app_name} nolock: state vs CPU run")
+        check_outputs(o1, o0, f"{app_name} nolock", 4, bitwise=True,
+                      interval=64)
+        print(f"oracle {app_name} nolock: the card's run equals the CPU run "
+              "bit for bit (no oracle: nolock is incorrect by design)")
+
+
+# The lockstep apps at their published sizes (paper §VI-A): SL over 10,000
+# accounts and 10,000 assets (theta 0.6, half transfers), OB over 10,000
+# items (the 6:1:1 bid / alter / top mix), 200 intervals of 500 events.
+LOCKSTEP_APPS = ("sl", "ob")
+PROFILE_INTERVALS = 20
+
+
+def per_op_results(eng, stream) -> dict:
+    """Per-op pre/post/success of the engine's fused driver on ``stream``
+    (what ``run_stream`` post-processes), on the host."""
+    from repro_torch.convert import events_to_torch
+    from repro_torch.core.scheduler import _fused_impl
+    n_i = len(next(iter(stream.values()))) // INTERVAL
+    ev = {k: np.asarray(v)[: n_i * INTERVAL].reshape(
+        (n_i, INTERVAL) + np.asarray(v).shape[1:]) for k, v in stream.items()}
+    res, _, _, _, _ = _fused_impl(
+        eng.init_store.values.clone(), events_to_torch(ev, eng.device), 0,
+        app=eng.app, cfg=eng.cfg, store=eng.init_store)
+    return {k: v.cpu() for k, v in res.items()}
+
+
+def lockstep_run(app_name, method, st, card, cuda, launches, rung, **cfg_kw):
+    """One counted run of the lockstep path on the card: the rung, the
+    launches (one radix_partition on the partition rung, nothing else), and
+    an ``e2e`` line with the rounds swept against the chains' lengths."""
+    label = f"{app_name} rung={method}" + "".join(
+        f" {k}={v}" for k, v in cfg_kw.items())
+    eng = engine(app_name, method, cuda, **cfg_kw)
+    outs, values, wall, got = counted(eng, st, launches, label, card)
+    check_rung(eng, rung, label)
+    want = {k: 0 for k in got}
+    want["radix_partition"] = int(rung == "partition")
+    if got != want:
+        raise AssertionError(f"{label}: launches {got}, expected {want}")
+    stats = eng.last_stats
+    if any(s.path != "lockstep" for s in stats):
+        raise AssertionError(f"{label}: not the lockstep path")
+    swept = sum(s.swept for s in stats)
+    rounds = sum(int(s.rounds) for s in stats)
+    max_len = sum(int(s.max_chain) for s in stats)
+    residue = sum(s.residue for s in stats)
+    aborted = sum(int(np.sum(o["rejected"])) for o in outs)
+    print(f"e2e {label} intervals={len(stats)}x{INTERVAL}: wall_s={wall} "
+          f"events_per_s={len(stats) * INTERVAL / wall} launches={got} "
+          f"rounds_swept={swept} max_len_sum={max_len} "
+          f"rounds_reported={rounds} residue_ops={residue} "
+          f"rejected={aborted} card={card}")
+    return eng, outs, values, aborted
+
+
+def lockstep_phase(card, cuda, launches, seed) -> None:
+    """SL and OB through the lockstep path on the card, forced "partition"
+    and "auto", and SL's abort repass on an overdrawn stream: each bitwise
+    with the port's CPU run of the same stream (state, outputs, per-op
+    pre/post/success)."""
+    from repro_torch.apps import ALL_APPS
+    cpu = torch.device("cpu")
+    n = N_INTERVALS * INTERVAL
+    t0 = time.perf_counter()
+    data = {a: ALL_APPS[a].gen_events(np.random.default_rng(seed + 3 + i), n)
+            for i, a in enumerate(LOCKSTEP_APPS)}
+    over = dict(data["sl"])
+    over["amount"] = (over["amount"] * 100).astype(np.float32)
+    print(f"data lockstep: seed {seed}, {n} events each of SL and OB, in "
+          f"{time.perf_counter() - t0:.1f} s")
+    runs = [(a, data[a], {}) for a in LOCKSTEP_APPS]
+    runs.append(("sl", over, dict(abort_repass=True)))
+    for app_name, st, cfg_kw in runs:
+        eng, outs, values, aborted = lockstep_run(
+            app_name, "partition", st, card, cuda, launches, "partition",
+            **cfg_kw)
+        label = app_name + (" abort_repass" if cfg_kw else "")
+        if not cfg_kw:
+            # the walk launches ~100 small kernels an interval: profile a
+            # window of the stream, which the profiler digests in seconds
+            head = {k: np.asarray(v)[: PROFILE_INTERVALS * INTERVAL]
+                    for k, v in st.items()}
+            profiled(eng, head, f"{label} rung=partition (first "
+                     f"{PROFILE_INTERVALS} intervals)")
+        cpu_eng = engine(app_name, "partition", cpu, **cfg_kw)
+        outs_c, values_c, wall_c = timed(cpu_eng, st)
+        assert_equal(values, values_c, f"{label}: final state vs CPU run")
+        check_outputs(outs, outs_c, label, N_INTERVALS, bitwise=True)
+        res1, res0 = per_op_results(eng, st), per_op_results(cpu_eng, st)
+        for k in res0:
+            assert_equal(res1[k], res0[k], f"{label}: per-op {k} vs CPU run")
+        print(f"e2e {label}: state, outputs and per-op pre/post/success "
+              f"bitwise with the CPU run (cpu wall_s={wall_c})")
+        if cfg_kw:
+            if aborted <= 0:
+                raise AssertionError(f"{label}: no transaction aborted")
+            print(f"e2e {label}: {aborted} transfers aborted and masked on "
+                  "the repass")
+            continue
+        # the default rung, which a user who sets nothing gets
+        _, outs_a, values_a, _ = lockstep_run(app_name, "auto", st, card,
+                                              cuda, launches, "packed")
+        assert_equal(values_a, values, f"{app_name} auto vs partition: state")
+        check_outputs(outs_a, outs, f"{app_name} auto vs partition",
+                      N_INTERVALS, bitwise=True)
+        print(f"e2e {app_name} rung=auto: bitwise with the partition run")
+    print(f"lockstep phase: {time.perf_counter() - t0:.1f} s")
 
 
 def main() -> int:
@@ -1057,6 +1223,7 @@ def main() -> int:
     single = end_to_end(stream, card, cuda, launches)
     sharded_phase(stream, card, cuda, single, launches)
     capacity_phase(stream, card, cuda, launches, args.seed)
+    lockstep_phase(card, cuda, launches, args.seed)
     missing = sorted(k for k in LAUNCHES if launches[k] <= 0)
     if missing:
         raise AssertionError(f"kernels never launched on the driven paths: "

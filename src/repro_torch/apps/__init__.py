@@ -1,6 +1,7 @@
-"""Benchmark applications of this slice: GS and TP.  SL and OB take the
-lockstep path and come with it (ROADMAP A7)."""
+"""Benchmark applications (paper §VI-A): GS, SL, OB, TP."""
 from .gs import GS
+from .ob import OB
+from .sl import SL
 from .tp import TP
 
-ALL_APPS = {a.name: a for a in (GS, TP)}
+ALL_APPS = {a.name: a for a in (GS, SL, OB, TP)}

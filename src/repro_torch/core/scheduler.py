@@ -15,7 +15,9 @@ Two drivers share the per-interval logic:
   associative path) the coefficient scans run once for all intervals, and
   only the values-dependent evaluation loops over intervals, carrying the
   state.  The reference's ``lax.scan`` is that Python loop; on the
-  megakernel rung it is one megakernel call for the whole stream.
+  megakernel rung it is one megakernel call for the whole stream.  Other
+  apps and schemes (the lockstep path, the baselines) take the generic
+  branch: one restructure for the stream, then one evaluation per interval.
 
 The engine runs on the CUDA card unless built with ``device="cpu"``.  Built
 with a ``mesh`` (``core/mesh.ShardMesh``) it runs the sharded fused driver
@@ -37,7 +39,7 @@ from ..kernels.megakernel.ops import fused_chain_eval
 from ..kernels.megakernel.ref import fused_chain_stream_ref
 from ..kernels.runtime import resolve_device, smem_optin
 from .blotter import AppSpec, build_opbatch
-from .engines import (CHAIN_SCHEMES, EngineStats, NOT_PORTED, evaluate,
+from .engines import (CHAIN_SCHEMES, EngineStats, evaluate,
                       simple_affine_luts, tstream_scan_coefs,
                       tstream_scan_execute, tstream_scan_plan)
 from .restructure import megakernel_engaged, restructure, restructure_path
@@ -47,6 +49,10 @@ from .types import OpResults, StateStore, tree_index
 @dataclasses.dataclass(frozen=True)
 class EngineConfig:
     scheme: str = "tstream"
+    n_partitions: int = 16      # pat's partitions
+    max_dep_levels: int = 3     # lockstep levels before the sequential sweep
+    # re-run an interval with its aborted transactions masked (§IV-C2)
+    abort_repass: bool = False
     # launch the hand-written kernels (on a CUDA tensor; a CPU tensor takes
     # each kernel's plain twin); False runs the plain PyTorch path throughout
     use_kernels: bool = True
@@ -83,9 +89,12 @@ class DualModeEngine:
         self.init_store = store.to(self.device)
         self._sharded = None
         self.last_exchange_stats = None
-        # the rung the last fused run took on the associative path
-        # ("megakernel", "partition", "packed" or "lexsort"), else None
+        # the rung the last fused run took: "megakernel" or the
+        # restructure backbone ("partition", "packed" or "lexsort"); None
+        # for a scheme that restructures nothing
         self.last_rung = None
+        # the per-interval EngineStats of the last single-device fused run
+        self.last_stats = None
         if mesh is not None:
             if mesh.device != self.device:
                 raise ValueError(f"mesh on {mesh.device}, engine on "
@@ -119,8 +128,9 @@ class DualModeEngine:
 
         An engine built with a ``mesh`` runs the sharded fused driver
         (fused only); its exchange stats land in ``last_exchange_stats``
-        and overflow drops are logged.  A fused run on the associative
-        path records its rung in ``last_rung``.
+        and overflow drops are logged.  A fused run records its rung in
+        ``last_rung`` and, on one device, its per-interval stats in
+        ``last_stats``.
         """
         values = torch.as_tensor(values, dtype=torch.float32).to(
             self.device, copy=True)
@@ -157,9 +167,9 @@ class DualModeEngine:
         for k, v in event_stream.items():
             v = np.asarray(v)[: n_intervals * punct_interval]
             batched[k] = v.reshape((n_intervals, punct_interval) + v.shape[1:])
-        res_all, ebs_all, values, _, self.last_rung = _fused_impl(
-            values, convert.events_to_torch(batched, self.device), 0,
-            app=self.app, cfg=self.cfg, store=self.init_store)
+        res_all, ebs_all, values, self.last_stats, self.last_rung = \
+            _fused_impl(values, convert.events_to_torch(batched, self.device),
+                        0, app=self.app, cfg=self.cfg, store=self.init_store)
         return self._outs(res_all, ebs_all, n_intervals), values
 
     # -- carry and ownership (reference: scheduler.py, elastic carry API) --
@@ -199,23 +209,42 @@ def _stack(dicts: List[Dict[str, torch.Tensor]]) -> Dict[str, torch.Tensor]:
 
 
 def _eval_interval(store: StateStore, ops, *, app: AppSpec,
-                   cfg: EngineConfig):
-    """State-access mode for one interval: restructure once, evaluate.
-
-    The reference's abort repass is not ported: GS and TP never take it
-    (ROADMAP A7).
-    """
-    pres = None
-    if cfg.scheme in CHAIN_SCHEMES:
-        pres = restructure(ops, store.pad_uid, rowmajor_ts=True,
-                           light=app.associative_only,
+                   cfg: EngineConfig, prestructured=None):
+    """State-access mode for one interval: restructure once (unless the
+    fused driver hands in this interval's ``prestructured`` view), evaluate,
+    and under ``abort_repass`` evaluate again with the aborted transactions
+    masked, reusing the same sort."""
+    pres = prestructured
+    if pres is None and cfg.scheme in CHAIN_SCHEMES:
+        # the segmented-scan path reads only 4 sorted columns
+        light = (cfg.scheme in ("tstream", "tstream_scan")
+                 and app.associative_only)
+        pres = restructure(ops, store.pad_uid, rowmajor_ts=True, light=light,
                            method=cfg.restructure_method,
                            use_kernels=cfg.use_kernels,
                            threads=cfg.block_param("radix_partition"))
-    return evaluate(store, ops, app.funs, cfg.scheme,
-                    associative_only=app.associative_only,
-                    has_gates=app.has_gates, use_kernels=cfg.use_kernels,
-                    prestructured=pres)
+    kw = dict(associative_only=app.associative_only, has_gates=app.has_gates,
+              n_partitions=cfg.n_partitions,
+              max_dep_levels=cfg.max_dep_levels, use_kernels=cfg.use_kernels)
+    res, values, stats = evaluate(store, ops, app.funs, cfg.scheme,
+                                  prestructured=pres, **kw)
+    if cfg.abort_repass and app.may_abort:
+        # Abort without rollback: a transaction with a failed op is masked
+        # out and the interval re-evaluated from its initial state.  Chain
+        # geometry depends only on uids, so the repass tightens ``valid``
+        # in both layouts instead of sorting again.
+        succ = res["success"].reshape(-1, app.max_ops)
+        valid = ops.valid.reshape(-1, app.max_ops)
+        txn_ok = torch.all(succ | ~valid, dim=1)
+        keep = txn_ok.repeat_interleave(app.max_ops)
+        ops = dataclasses.replace(ops, valid=ops.valid & keep)
+        if pres is not None:
+            sops, ch = pres
+            pres = (dataclasses.replace(sops, valid=sops.valid & ch.take(keep)),
+                    ch)
+        res, values, stats = evaluate(store, ops, app.funs, cfg.scheme,
+                                      prestructured=pres, **kw)
+    return res, values, stats
 
 
 def _post_stream(res_all, ebs_all, *, app: AppSpec):
@@ -254,7 +283,8 @@ def _fused_impl(values, events_b, ts0: int, *, app: AppSpec,
     and on the associative path the coefficient scans and commit maps) runs
     once for all intervals before the loop.  Returns ``(res_all, ebs_all,
     values, stats, rung)``: ``rung`` is the associative path's rung
-    (``fused_rung``), None on the generic path.
+    (``fused_rung``), on the generic path the restructure backbone of a
+    chain scheme, else None.
     """
     some = next(iter(events_b.values()))
     n_intervals, interval = some.shape[0], some.shape[1]
@@ -265,24 +295,33 @@ def _fused_impl(values, events_b, ts0: int, *, app: AppSpec,
                                   device=values.device) * interval
     ops_all, ebs_all = build_opbatch(app, store, events_b, ts_bases)
 
-    if cfg.scheme in ("tstream", "tstream_scan") and app.associative_only:
+    if (cfg.scheme in ("tstream", "tstream_scan") and app.associative_only
+            and not (cfg.abort_repass and app.may_abort)):
         res_all, values, stats, rung = _fused_assoc(store, ops_all, app=app,
                                                     cfg=cfg)
         return res_all, ebs_all, values, stats, rung
 
-    # generic path, as far as the lock schedule needs it
+    # generic path: one restructure for the whole stream (on the partition
+    # rung one radix launch), then one evaluation per interval from its
+    # slice of the sorted view
+    pres_all, rung = None, None
     if cfg.scheme in CHAIN_SCHEMES:
-        raise NotImplementedError(
-            f"fused scheme {cfg.scheme!r} on a non-associative app "
-            + NOT_PORTED)
+        n_rows = ops_all.uid.shape[-1]
+        rung = restructure_path(n_rows, store.pad_uid, rowmajor_ts=True,
+                                method=cfg.restructure_method)
+        pres_all = restructure(ops_all, store.pad_uid, rowmajor_ts=True,
+                               method=cfg.restructure_method,
+                               use_kernels=cfg.use_kernels,
+                               threads=cfg.block_param("radix_partition"))
     res_l, stats = [], []
     for i in range(n_intervals):
         st = dataclasses.replace(store, values=values)
         res, values, s = _eval_interval(st, tree_index(ops_all, i), app=app,
-                                        cfg=cfg)
+                                        cfg=cfg,
+                                        prestructured=tree_index(pres_all, i))
         res_l.append(res)
         stats.append(s)
-    return _stack(res_l), ebs_all, values, stats, None
+    return _stack(res_l), ebs_all, values, stats, rung
 
 
 def fused_rung(store: StateStore, n_rows: int, *, app: AppSpec,

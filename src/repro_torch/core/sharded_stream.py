@@ -47,7 +47,7 @@ single-device run to a tolerance, not bit for bit; the megakernel rung
 (GS) stays bitwise.
 
 Not ported here: the lockstep branch for non-associative apps and schemes
-(ROADMAP A7), the chunk entry ``run_chunk`` and live resharding
+(ROADMAP A9), the chunk entry ``run_chunk`` and live resharding
 (``reshard``, ``_migrate_impl``), which move the chunked service's resident
 carry (ROADMAP A8, A9).
 """
@@ -84,7 +84,7 @@ I32 = torch.int32
 LOCKSTEP_NOT_PORTED = (
     "the sharded lockstep schedule (non-associative or gated apps, the "
     "tstream_lockstep and mvlk schemes) is not ported yet: it comes with "
-    "ROADMAP A7")
+    "ROADMAP A9")
 
 
 class ShardedStream:

@@ -105,6 +105,8 @@ def tree_index(obj, i):
         return obj
     if isinstance(obj, torch.Tensor):
         return obj[i]
+    if isinstance(obj, tuple):
+        return tuple(tree_index(x, i) for x in obj)
     return dataclasses.replace(obj, **{
         f.name: tree_index(getattr(obj, f.name), i)
         for f in dataclasses.fields(obj) if f.init})

@@ -465,6 +465,85 @@ def test_engine_on_card_matches_cpu(app_name, method, interval, rung):
     assert_outputs_close(o1, o0, f"{app_name} card vs cpu")
 
 
+def _overdraw(stream):
+    stream["amount"] = (stream["amount"] * 100).astype(np.float32)
+
+
+@pytest.mark.parametrize("app_name,abort_repass", [
+    ("sl", False), ("ob", False), ("sl", True)])
+def test_lockstep_app_on_card_matches_cpu(app_name, abort_repass):
+    """SL and OB take the lockstep path.  Forced "partition" on the card
+    launches radix_partition once for the stream and nothing else, and the
+    final state and every output are bitwise with the CPU run (the walk is
+    elementwise, no scan): on an overdrawn SL stream under the abort
+    repass too, where transfers abort."""
+    dev = need_card()
+    app = ALL_APPS[app_name]
+    stream = app.gen_events(np.random.default_rng(11), 4 * 128)
+    if abort_repass:
+        _overdraw(stream)
+    cfg = EngineConfig(restructure_method="partition",
+                       abort_repass=abort_repass)
+    runs = {}
+    for d in (dev, torch.device("cpu")):
+        eng = DualModeEngine(app, app.make_store(device=d), cfg, device=d)
+        reset_launches()
+        runs[d.type] = eng.run_stream(eng.init_store.values, stream, 128)
+        if d.type == "cuda":
+            assert eng.last_rung == "partition"
+            assert dict(LAUNCHES) == dict(radix_partition=1, segscan_affine=0,
+                                          segscan_max=0, megakernel=0,
+                                          hash_probe=0)
+            assert all(s.path == "lockstep" and s.swept > 0
+                       for s in eng.last_stats)
+    (o1, v1), (o0, v0) = runs["cuda"], runs["cpu"]
+    assert torch.equal(v1.cpu(), v0)
+    for a, b in zip(o1, o0):
+        for k in b:
+            np.testing.assert_array_equal(a[k], b[k], err_msg=k)
+    if abort_repass:
+        assert sum(int(o["rejected"].sum()) for o in o0) > 0
+
+
+@pytest.mark.parametrize("app_name", ["sl", "ob"])
+@pytest.mark.parametrize("scheme", ["tstream_lockstep", "mvlk", "pat"])
+def test_baselines_on_card_match_lock_oracle(app_name, scheme):
+    """The lockstep walk and the mvlk and pat schedules on the card against
+    the sequential lock schedule on the CPU (4 x 64 events): the state and
+    the outputs to rtol = atol = 1e-5, as the reference holds its schemes
+    to its oracle."""
+    dev = need_card()
+    app = ALL_APPS[app_name]
+    stream = app.gen_events(np.random.default_rng(7), 256)
+    got = DualModeEngine(app, app.make_store(device=dev),
+                         EngineConfig(scheme=scheme), device=dev)
+    ref = DualModeEngine(app, app.make_store(device="cpu"),
+                         EngineConfig(scheme="lock"), device="cpu")
+    o1, v1 = got.run_stream(got.init_store.values, stream, 64)
+    o0, v0 = ref.run_stream(ref.init_store.values, stream, 64)
+    torch.testing.assert_close(v1.cpu(), v0, rtol=1e-5, atol=1e-5)
+    assert_outputs_close(o1, o0, f"{app_name}/{scheme} vs lock")
+
+
+@pytest.mark.parametrize("app_name", ["sl", "ob"])
+def test_nolock_on_card_matches_cpu(app_name):
+    """nolock lets the last op to write a state win, on the card as on the
+    CPU: bitwise."""
+    dev = need_card()
+    app = ALL_APPS[app_name]
+    stream = app.gen_events(np.random.default_rng(7), 256)
+    runs = []
+    for d in (dev, torch.device("cpu")):
+        eng = DualModeEngine(app, app.make_store(device=d),
+                             EngineConfig(scheme="nolock"), device=d)
+        runs.append(eng.run_stream(eng.init_store.values, stream, 64))
+    (o1, v1), (o0, v0) = runs
+    assert torch.equal(v1.cpu(), v0)
+    for a, b in zip(o1, o0):
+        for k in b:
+            np.testing.assert_array_equal(a[k], b[k], err_msg=k)
+
+
 def test_megakernel_smem_formula_matches_library():
     """The rung choice's Python formula of the scan block's shared memory
     is the library's, over a grid of (rows, lanes)."""

@@ -1,9 +1,10 @@
 """The port's engines against the JAX reference, one interval at a time.
 
-``evaluate`` under ``tstream_scan`` (the segmented-scan path) and ``lock``
-(the sequential oracle) must give the reference's per-op results and new
-state bit for bit for GS and TP, and the staged stages must agree stage by
-stage.  Schemes of later slices raise, naming ROADMAP A7.
+``evaluate`` under every scheme (the segmented-scan path, the lockstep
+walk, the sequential oracle and the baselines) must give the reference's
+per-op results and new state bit for bit for GS and TP, and the staged
+stages must agree stage by stage.  The sharded lockstep branch raises, naming ROADMAP A9 (the
+lockstep schemes and SL and OB are held in ``test_torch_lockstep.py``).
 """
 import importlib
 import logging
@@ -45,7 +46,9 @@ def _interval(app_name, n_events=48, seed=0):
 
 
 @pytest.mark.parametrize("app_name", ["gs", "tp"])
-@pytest.mark.parametrize("scheme", ["tstream", "tstream_scan", "lock"])
+@pytest.mark.parametrize("scheme", ["tstream", "tstream_scan", "lock",
+                                    "tstream_lockstep", "mvlk", "pat",
+                                    "nolock"])
 def test_evaluate_bitwise(app_name, scheme):
     japp, jstore, jops, tapp, tstore = _interval(app_name)
     jres, jvals, jstats = jax.jit(lambda st, o: j_evaluate(
@@ -87,10 +90,16 @@ def test_scan_plan_and_coefs_bitwise(app_name):
 
 
 def test_later_schemes_raise_not_ported():
+    """What still raises: the sharded driver's lockstep branch, which SL and
+    OB need (ROADMAP A9), and ``evaluate`` on a scheme it does not know."""
+    from repro_torch.core.mesh import ShardMesh
+    from repro_torch.core.scheduler import DualModeEngine
+    for app_name in ("sl", "ob"):
+        app = T_APPS[app_name]
+        with pytest.raises(NotImplementedError, match="A9"):
+            DualModeEngine(app, app.make_store(device="cpu"), device="cpu",
+                           mesh=ShardMesh((4,), ("dev",), device="cpu"))
     _, _, jops, tapp, tstore = _interval("gs", n_events=8)
-    for scheme in ("mvlk", "pat", "nolock", "tstream_lockstep"):
-        with pytest.raises(NotImplementedError, match="A7"):
-            evaluate(tstore, port_ops(jops), tapp.funs, scheme)
     with pytest.raises(ValueError, match="unknown scheme"):
         evaluate(tstore, port_ops(jops), tapp.funs, "bogus")
 

@@ -216,7 +216,7 @@ def test_sharded_engine_rejects_what_it_does_not_run():
     app = T_APPS["gs"]
     store = app.make_store(device="cpu")
     mesh = ShardMesh(*MESH1, device="cpu")
-    with pytest.raises(NotImplementedError, match="A7"):
+    with pytest.raises(NotImplementedError, match="A9"):
         DualModeEngine(app, store, EngineConfig(scheme="tstream_lockstep"),
                        device="cpu", mesh=mesh)
     with pytest.raises(ValueError, match="TStream/mvlk"):
