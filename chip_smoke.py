@@ -58,7 +58,29 @@ Run from the repository root:  python3 chip_smoke.py [--seed N]
    phases, SL and OB on 4 x 64 events under tstream, tstream_lockstep,
    mvlk and pat match the sequential lock schedule, and nolock on the card
    equals its CPU run bit for bit.
-8. Every driven run of phases 4 to 7 follows one uncounted warm-up run of
+8. Sharded lockstep phase: the sharded driver's lockstep schedule on 4
+   shards, ``shared_nothing``: SL under forced "partition" and "auto", SL's
+   abort repass on the overdrawn stream, the overdrawn stream under
+   ``max_dep_levels=0`` (every gated chain left to the residue sweep; its
+   first 20 intervals), and OB under forced "partition".  Each run's state,
+   outputs and per-op pre/post/success are bitwise with the single-device
+   card run of the same rung and stream, no op is dropped, and the run
+   launches radix_partition for the owner bucketing (and the restructure
+   on "partition") and nothing else; its ``e2e sharded`` line gives
+   events/s and the rounds swept.
+9. Service phase: ``StreamService`` over a replayed, jittered arrival
+   stream of the same 200 x 500 events, 8 intervals a chunk, for GS on the
+   megakernel rung (one megakernel call, three launches, a chunk), TP on
+   the partition rung (one radix_partition and one launch of each segscan
+   a chunk) and SL on the lockstep path (one radix_partition a chunk),
+   each after a warm-up service run: outputs and final state against
+   ``run_stream`` on the card (GS and SL bitwise, TP to rtol = atol = 1e-5:
+   a chunk puts chains at other segscan tile offsets than the whole
+   stream), and a crash -> resume -> replay run with snapshots to a
+   temporary directory bitwise with the clean service run.  Its ``e2e
+   service`` line gives the sustained events/s, the punctuation latency
+   p50/p99 (enqueue to commit, ``ServiceRun``) and the launches a chunk.
+10. Every driven run of phases 4 to 9 follows one uncounted warm-up run of
    the same engine and stream, sets the launch counters to 0 just before it
    and reads them just after; every kernel must have launched, and each
    run must take the rung its plan names (``DualModeEngine.last_rung``).
@@ -70,7 +92,7 @@ Run from the repository root:  python3 chip_smoke.py [--seed N]
    radix_partition calls (every path the kernel picks by shape) is held
    bitwise against its twin and at 64, 512 and 1024 threads per block
    (``hold`` lines).
-9. Prints one JSON line of kernel numbers, the card line again, and last
+11. Prints one JSON line of kernel numbers, the card line again, and last
    ``{"ok": true, "device": {...}}``.
 
 Any failure raises and exits non-zero.  Without a CUDA card it exits 1 and
@@ -224,7 +246,7 @@ def shard_inputs(gs, dev):
     eng = DualModeEngine(gs["app"], gs["store"], cfg, device=dev,
                          mesh=ShardMesh((4,), ("dev",), device=dev))
     sh = eng._sharded
-    rops, _, _, cap = sh.route(events_to_torch(gs["events"], dev))
+    rops, _, _, cap, _ = sh.route(events_to_torch(gs["events"], dev))
     lpad = sh.own.per
     sops, ch = restructure(rops, lpad, rowmajor_ts=True, light=True,
                            method="partition", use_kernels=False,
@@ -1137,11 +1159,12 @@ def lockstep_run(app_name, method, st, card, cuda, launches, rung, **cfg_kw):
     return eng, outs, values, aborted
 
 
-def lockstep_phase(card, cuda, launches, seed) -> None:
+def lockstep_phase(card, cuda, launches, seed) -> dict:
     """SL and OB through the lockstep path on the card, forced "partition"
     and "auto", and SL's abort repass on an overdrawn stream: each bitwise
     with the port's CPU run of the same stream (state, outputs, per-op
-    pre/post/success)."""
+    pre/post/success).  Returns the streams and, by label, each forced
+    run's (state, outputs, per-op results) for the sharded phase."""
     from repro_torch.apps import ALL_APPS
     cpu = torch.device("cpu")
     n = N_INTERVALS * INTERVAL
@@ -1154,6 +1177,7 @@ def lockstep_phase(card, cuda, launches, seed) -> None:
           f"{time.perf_counter() - t0:.1f} s")
     runs = [(a, data[a], {}) for a in LOCKSTEP_APPS]
     runs.append(("sl", over, dict(abort_repass=True)))
+    single = {}
     for app_name, st, cfg_kw in runs:
         eng, outs, values, aborted = lockstep_run(
             app_name, "partition", st, card, cuda, launches, "partition",
@@ -1173,6 +1197,7 @@ def lockstep_phase(card, cuda, launches, seed) -> None:
         res1, res0 = per_op_results(eng, st), per_op_results(cpu_eng, st)
         for k in res0:
             assert_equal(res1[k], res0[k], f"{label}: per-op {k} vs CPU run")
+        single[label] = (values, outs, res1)
         print(f"e2e {label}: state, outputs and per-op pre/post/success "
               f"bitwise with the CPU run (cpu wall_s={wall_c})")
         if cfg_kw:
@@ -1189,6 +1214,274 @@ def lockstep_phase(card, cuda, launches, seed) -> None:
                       N_INTERVALS, bitwise=True)
         print(f"e2e {app_name} rung=auto: bitwise with the partition run")
     print(f"lockstep phase: {time.perf_counter() - t0:.1f} s")
+    return dict(data=data, over=over, single=single)
+
+
+N_SHARDS = 4
+RESIDUE_INTERVALS = 20
+
+
+def sharded_per_op(eng, stream, n_i) -> dict:
+    """Per-op pre/post/success of the sharded driver, back in flat per-op
+    layout ``[n_intervals, N]`` (the reverse exchange's output), on the
+    host."""
+    from repro_torch.convert import events_to_torch
+    sh = eng._sharded
+    ev = {k: np.asarray(v)[: n_i * INTERVAL].reshape(
+        (n_i, INTERVAL) + np.asarray(v).shape[1:]) for k, v in stream.items()}
+    res = sh._blocks_impl(sh.carry_in(eng.init_store.values),
+                          events_to_torch(ev, eng.device), 0)[0]
+    return {k: v.cpu() for k, v in res.items()}
+
+
+def sharded_lockstep_phase(lock, card, cuda, launches) -> None:
+    """The sharded driver's lockstep schedule on the card (4 shards,
+    shared_nothing): each run bitwise with the single-device card run of
+    the same rung and stream (state, outputs, per-op pre/post/success), no
+    op dropped."""
+    from repro_torch.core.mesh import ShardMesh
+    t0 = time.perf_counter()
+    data, over, single = lock["data"], lock["over"], lock["single"]
+    head = {k: np.asarray(v)[: RESIDUE_INTERVALS * INTERVAL]
+            for k, v in over.items()}
+    # the residue branch's single-device reference (its own config)
+    eng = engine("sl", "partition", cuda, max_dep_levels=0)
+    outs_r, vals_r, _ = timed(eng, head)
+    single["sl residue"] = (vals_r, outs_r, per_op_results(eng, head))
+    runs = (("sl", "partition", data["sl"], {}, "sl", "partition"),
+            ("sl", "auto", data["sl"], {}, "sl", "packed"),
+            ("sl", "partition", over, dict(abort_repass=True),
+             "sl abort_repass", "partition"),
+            ("sl", "partition", head, dict(max_dep_levels=0), "sl residue",
+             "partition"),
+            ("ob", "partition", data["ob"], {}, "ob", "partition"))
+    for app_name, method, st, cfg_kw, ref, rung in runs:
+        label = f"sharded {app_name} rung={method}" + "".join(
+            f" {k}={v}" for k, v in cfg_kw.items())
+        eng = engine(app_name, method, cuda,
+                     mesh=ShardMesh((N_SHARDS,), ("dev",), device=cuda),
+                     **cfg_kw)
+        outs, values, wall, got = counted(eng, st, launches, label, card)
+        check_rung(eng, rung, label)
+        want = {k: 0 for k in got}
+        want["radix_partition"] = 1 + int(rung == "partition")
+        if got != want:
+            raise AssertionError(f"{label}: launches {got}, expected {want}")
+        xs = eng.last_exchange_stats
+        dropped = int(np.sum(xs["dropped"]))
+        if dropped:
+            raise AssertionError(f"{label}: {dropped} ops dropped")
+        n_i = len(outs)
+        print(f"e2e {label} mesh=({N_SHARDS},) intervals={n_i}x{INTERVAL}: "
+              f"wall_s={wall} events_per_s={n_i * INTERVAL / wall} "
+              f"launches={got} rounds_swept={int(xs['swept'])} "
+              f"residue_ops={int(xs['residue'])} dropped={dropped} "
+              f"shipped={int(np.sum(xs['shipped']))} max_fill="
+              f"{int(np.max(xs['max_fill']))} capacity={int(xs['capacity'])}"
+              f" card={card}")
+        ref_values, ref_outs, ref_res = single[ref]
+        assert_equal(values, ref_values, f"{label}: state vs single device")
+        check_outputs(outs, ref_outs, label, n_i, bitwise=True)
+        res = sharded_per_op(eng, st, n_i)
+        for k in ref_res:
+            assert_equal(res[k], ref_res[k],
+                         f"{label}: per-op {k} vs single device")
+        if cfg_kw.get("max_dep_levels") == 0 and int(xs["residue"]) <= 0:
+            raise AssertionError(f"{label}: no op reached the residue")
+        print(f"e2e {label}: state, outputs and per-op pre/post/success "
+              "bitwise with the single-device card run")
+        if method == "partition" and not cfg_kw:
+            profiled(eng, {k: np.asarray(v)[: PROFILE_INTERVALS * INTERVAL]
+                           for k, v in st.items()},
+                     f"{label} (first {PROFILE_INTERVALS} intervals)")
+    print(f"sharded lockstep phase: {time.perf_counter() - t0:.1f} s")
+
+
+SERVICE_CHUNK = 8
+SERVICE_JITTER = 50
+SERVICE_PROFILE_INTERVALS = 40
+
+
+def service_shapes(label, run, card) -> None:
+    """Run ``run()`` (a service run) recording its kernel calls: each
+    launch shape of radix_partition and the segscans once, held and timed
+    alone (``hold`` and ``shape`` lines), and the first megakernel chunk
+    call held against its stream twin and timed beside its bound."""
+    import repro_torch.core.scheduler as sched
+    from repro_torch.core.engines import simple_affine_luts
+    from repro_torch.kernels.megakernel.ref import fused_chain_stream_ref
+    mega = []
+    real = sched.fused_chain_eval
+
+    def rec(values, sops, ch, pad_uid, **kw):
+        if not mega:
+            mega.append((values.clone(), sops, ch, pad_uid, kw))
+        out = real(values, sops, ch, pad_uid, **kw)
+        if len(mega) == 1:
+            mega.append(tuple(out[:2]))
+        return out
+    sched.fused_chain_eval = rec
+    try:
+        calls = recording(run)
+    finally:
+        sched.fused_chain_eval = real
+    seen, first = set(), []
+    for c in calls:
+        kernel, args = c[0], c[2]
+        key = (kernel, tuple(args[0].shape),
+               args[1] if kernel == "radix_partition" else None)
+        if args[0].numel() and key not in seen:
+            seen.add(key)
+            first.append(c)
+    hold_radix(label, first)
+    shape_times(label, first, card)
+    if not mega:
+        return
+    (values, sops, ch, pad_uid, kw), (res1, v1) = mega
+    res0, v0, _ = fused_chain_stream_ref(values.clone(), sops, ch, pad_uid,
+                                         a_lut=kw["a_lut"], b_lut=kw["b_lut"])
+    assert_equal(v1, v0, f"megakernel[{label}] values vs stream twin")
+    for k in res0:
+        assert_equal(res1[k], res0[k], f"megakernel[{label}] {k}")
+    scratch = values.clone()
+    ms, _ = cuda_ms(lambda: real(scratch, sops, ch, pad_uid, **kw), 20)
+    n_luts = kw["a_lut"].numel()
+    bnd = bound(*mega_work(values, sops, ch, pad_uid, n_luts))
+    print(f"shape megakernel[{label}] intervals x rows = "
+          f"{list(sops.uid.shape)} W={values.shape[-1]} slots="
+          f"{values.shape[0]}: bitwise with the stream twin; ms={ms} "
+          f"bound_ms={bnd[0]} ({bnd[1]}) share_of_bound={bnd[0] / ms} "
+          f"| {card}")
+
+
+def service_profile(label, eng, source, cfg) -> None:
+    """Service runs under their own ``ChunkProfiler`` (a torch.profiler
+    window on the executor thread, a ``service_chunk`` range per chunk):
+    the device's busy share of the second run's wall time, from the
+    kernel, copy and memset events of the trace it writes."""
+    import tempfile
+    from repro_torch.runtime.service import StreamService
+    from repro_torch.runtime.telemetry import TelemetryConfig
+    with tempfile.TemporaryDirectory() as d:
+        # a first profiled run starts the profiler's own machinery, which
+        # takes seconds once per process: the second one is read
+        for run in range(2):
+            out = os.path.join(d, str(run))
+            svc = StreamService(eng, cfg(telemetry=TelemetryConfig(
+                profile_dir=out)))
+            t0 = time.perf_counter()
+            rec = svc.run(source())
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        paths = [os.path.join(out, f) for f in os.listdir(out)]
+        events = []
+        for path in paths:
+            with open(path) as f:
+                events += json.load(f)["traceEvents"]
+    dev_us = sum(e.get("dur", 0) for e in events if e.get("cat") in (
+        "kernel", "gpu_memcpy", "gpu_memset"))
+    chunks = sum(1 for e in events if e.get("name") == "service_chunk")
+    n = len(rec.outputs)
+    if dev_us <= 0:
+        print(f"profile {label} (first {n} intervals): wall_s={wall} "
+              f"service_chunk ranges={chunks}; device time not measured "
+              "(the trace holds no kernel events)")
+        return
+    print(f"profile {label} (first {n} intervals): wall_s={wall} "
+          f"device_busy_s={dev_us / 1e6} busy_share={dev_us / 1e6 / wall} "
+          f"service_chunk ranges={chunks} ({len(paths)} trace file)")
+
+
+def service_phase(stream, lock, single, card, cuda, launches) -> None:
+    """The streaming service on the card, one app per path: against
+    ``run_stream`` on the card, and a crash -> resume -> replay run."""
+    import tempfile
+    from repro_torch import LAUNCHES, reset_launches
+    from repro_torch.core.intervals import ReplaySource, WatermarkPolicy
+    from repro_torch.runtime.service import ServiceConfig, StreamService
+    t0 = time.perf_counter()
+    n = N_INTERVALS * INTERVAL
+    n_chunks = N_INTERVALS // SERVICE_CHUNK
+    snap_every = 5 * SERVICE_CHUNK
+    crash_after = 3 * snap_every + SERVICE_CHUNK + 2
+    sl_values, sl_outs, _ = lock["single"]["sl"]
+    runs = (("gs", "megakernel", stream["gs"], single["gs", "megakernel"],
+             dict(megakernel=3, radix_partition=1)),
+            ("tp", "partition", stream["tp"], single["tp", "partition"],
+             dict(radix_partition=1, segscan_affine=1, segscan_max=1)),
+            ("sl", "partition", lock["data"]["sl"], (sl_outs, sl_values),
+             dict(radix_partition=1)))
+    for app_name, method, st, (ref_outs, ref_values), per_chunk in runs:
+        label = f"service {app_name} rung={method}"
+        eng = engine(app_name, method, cuda)
+        source = lambda: ReplaySource(lambda rng, _n: st, n, seed=7,
+                                      arrival_batch=INTERVAL,
+                                      jitter=SERVICE_JITTER)
+        cfg = lambda **kw: ServiceConfig(
+            punct_interval=INTERVAL, chunk_intervals=SERVICE_CHUNK,
+            watermark=WatermarkPolicy(allowed_lateness=SERVICE_JITTER), **kw)
+        service_shapes(label, lambda: StreamService(eng, cfg()).run(source()),
+                       card)                             # warm-up
+        reset_launches()
+        rec = StreamService(eng, cfg()).run(source())
+        got = dict(LAUNCHES)
+        for k, v in got.items():
+            launches[k] += v
+        want = {k: per_chunk.get(k, 0) * n_chunks for k in got}
+        if got != want:
+            raise AssertionError(f"{label}: launches {got}, expected {want}")
+        if rec.stats["processed"] != n or len(rec.outputs) != N_INTERVALS:
+            raise AssertionError(f"{label}: processed "
+                                 f"{rec.stats['processed']} of {n} events")
+        drops = rec.stats["drops"]
+        if any(drops.values()):
+            raise AssertionError(f"{label}: drops {drops}")
+        values = torch.from_numpy(rec.final_values)
+        if app_name == "tp":
+            assert_close(values, ref_values, f"{label}: state vs run_stream")
+            check_outputs(rec.outputs, ref_outs, label, N_INTERVALS)
+        else:
+            assert_equal(values, ref_values, f"{label}: state vs run_stream")
+            check_outputs(rec.outputs, ref_outs, label, N_INTERVALS,
+                          bitwise=True)
+        pct = rec.latency_percentiles((50, 99))
+        print(f"e2e {label} chunk={SERVICE_CHUNK} intervals={N_INTERVALS}x"
+              f"{INTERVAL} jitter={SERVICE_JITTER}: sustained_events_per_s="
+              f"{rec.sustained_events_per_s()} latency_p50_s={pct['p50']} "
+              f"latency_p99_s={pct['p99']} chunks={len(rec.chunk_records)}"
+              f" launches={got} launches_per_chunk="
+              f"{ {k: v / n_chunks for k, v in got.items() if v} } "
+              f"state max abs err vs run_stream "
+              f"{max_err(values, ref_values)} card={card}")
+        # crash -> resume -> replay, snapshots every 5 chunks
+        with tempfile.TemporaryDirectory() as d:
+            scfg = cfg(snapshot_every=snap_every, ckpt_dir=d)
+            try:
+                StreamService(eng, scfg).run(
+                    source(), crash_after_interval=crash_after)
+                raise AssertionError(f"{label}: the injected crash did not "
+                                     "fire")
+            except RuntimeError as e:
+                if "injected failure" not in str(e):
+                    raise
+            res = StreamService(eng, scfg).resume(source())
+        snap = res.stats["replayed"] // INTERVAL
+        if snap != 3 * snap_every:
+            raise AssertionError(f"{label}: resumed at {snap}, expected "
+                                 f"{3 * snap_every}")
+        assert_equal(torch.from_numpy(res.final_values), values,
+                     f"{label}: resumed state vs the clean run")
+        check_outputs(res.outputs, rec.outputs[snap:], label + " resumed",
+                      N_INTERVALS - snap, bitwise=True)
+        print(f"e2e {label}: crash after interval {crash_after} -> resume "
+              f"from the snapshot at {snap} -> replay: bitwise with the "
+              "clean run")
+        n_head = SERVICE_PROFILE_INTERVALS * INTERVAL
+        head = {k: np.asarray(v)[:n_head] for k, v in st.items()}
+        service_profile(label, eng, lambda: ReplaySource(
+            lambda rng, _n: head, n_head, seed=7, arrival_batch=INTERVAL,
+            jitter=SERVICE_JITTER), cfg)
+    print(f"service phase: {time.perf_counter() - t0:.1f} s")
 
 
 def main() -> int:
@@ -1223,7 +1516,9 @@ def main() -> int:
     single = end_to_end(stream, card, cuda, launches)
     sharded_phase(stream, card, cuda, single, launches)
     capacity_phase(stream, card, cuda, launches, args.seed)
-    lockstep_phase(card, cuda, launches, args.seed)
+    lock = lockstep_phase(card, cuda, launches, args.seed)
+    sharded_lockstep_phase(lock, card, cuda, launches)
+    service_phase(stream, lock, single, card, cuda, launches)
     missing = sorted(k for k in LAUNCHES if launches[k] <= 0)
     if missing:
         raise AssertionError(f"kernels never launched on the driven paths: "

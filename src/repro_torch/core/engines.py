@@ -355,9 +355,9 @@ def _chain_levels(sops: OpBatch, ch: Chains, n: int, max_levels: int):
     return lvl, lvl >= INF_LEVEL
 
 
-def _lockstep_sweep(values, sops: OpBatch, ch: Chains,
+def _lockstep_sweep(values, sops: OpBatch, dst: torch.Tensor,
                     funs: Tuple[FunSpec, ...], group: torch.Tensor, results,
-                    pad_uid: int):
+                    pad_uid: int, frontier: Optional[torch.Tensor] = None):
     """Walk chains in lockstep, in place on ``values`` and ``results``.
 
     ``group`` (sorted layout) gives each active op its round: a round of
@@ -369,6 +369,11 @@ def _lockstep_sweep(values, sops: OpBatch, ch: Chains,
     so skipping either changes no result.  That holds as the pad row holds
     0 on entry, as every store and engine keeps it.  A round holds one op
     per state, so its scatters have no duplicate index.
+
+    ``dst`` is each sorted op's row in ``results`` (``ch.order`` on one
+    device).  A gated op reads its mate's success at row ``gate`` of
+    ``results["success"]``, or of ``frontier`` when one is given (the
+    sharded walk's merged success frontier).
 
     One host read per call: the round sizes, the funs that occur, and
     whether a gate or the pad state is involved.  Returns the number of
@@ -395,12 +400,13 @@ def _lockstep_sweep(values, sops: OpBatch, ch: Chains,
 
     p = perm[:sum(sizes)]
     uid, fun, opnd = sops.uid[p].long(), sops.fun[p], sops.operand[p]
-    dst = ch.order[p].long()
+    dst = dst[p].long()
     if any_gate:
         gate = sops.gate[p]
         mate, ungated = gate.clamp(min=0).long(), gate < 0
     res_pre, res_post, res_ok = (results["pre"], results["post"],
                                  results["success"])
+    mate_ok = res_ok if frontier is None else frontier
     a = 0
     for c in sizes:
         b = a + c
@@ -408,8 +414,8 @@ def _lockstep_sweep(values, sops: OpBatch, ch: Chains,
         cur = values.index_select(0, u)
         post, ok = apply_funs(funs, fun[a:b], cur, opnd[a:b], present)
         if any_gate:
-            # the mate's success, recorded in flat layout by earlier rounds
-            open_ = res_ok.index_select(0, mate[a:b]) | ungated[a:b]
+            # the mate's success, recorded by earlier rounds
+            open_ = mate_ok.index_select(0, mate[a:b]) | ungated[a:b]
             post = torch.where(open_[:, None], post, cur)
             ok = ok & open_
         values.index_copy_(0, u, post)
@@ -437,7 +443,7 @@ def eval_tstream_lockstep(store: StateStore, ops: OpBatch,
     if not has_gates:
         # the reference sweeps ch.max_len rounds, the padding chain's
         # included; past the last valid op no round is active
-        swept = _lockstep_sweep(values, sops, ch, funs,
+        swept = _lockstep_sweep(values, sops, ch.order, funs,
                                 torch.where(sops.valid, ch.pos, never),
                                 results, store.pad_uid)
         rounds, residue = ch.max_len, 0
@@ -448,7 +454,7 @@ def eval_tstream_lockstep(store: StateStore, ops: OpBatch,
         # levels 0..max_dep_levels in turn, each level's rounds in order
         in_level = sops.valid & (lvl_s <= max_dep_levels)
         key = lvl_s.clamp(max=max_dep_levels).long() * n + ch.pos
-        swept = _lockstep_sweep(values, sops, ch, funs,
+        swept = _lockstep_sweep(values, sops, ch.order, funs,
                                 torch.where(in_level, key, -1),
                                 results, store.pad_uid)
         # the reference's round count: each level's longest chain
@@ -474,20 +480,24 @@ def eval_tstream_lockstep(store: StateStore, ops: OpBatch,
 # Sequential oracle / LOCK schedule
 # ---------------------------------------------------------------------------
 def _sequential_sweep(values, ops: OpBatch, funs, results, *, mask_flat,
-                      pad_uid: int) -> int:
+                      pad_uid: int, sink: Optional[torch.Tensor] = None
+                      ) -> int:
     """Apply the masked valid ops one at a time in global (ts, slot) order
     (the S2PL schedule), in place on ``values`` and ``results``.
 
     The reference's ``lax.scan`` visits every op and sends an unmasked one
     to the pad state and the sink row ``n``, which changes no result; here
     only the masked valid ops run.  Their columns come to the host in one
-    read; the state and each gate's success stay on the device.  Returns
-    the number of ops run.
+    read; the state and each gate's success stay on the device.  Op ``j``
+    records at row ``sink[j]`` of ``results`` (``j`` when None), the space
+    its gate indexes.  The order comes from two stable sorts, on slot and
+    then on ts.  Returns the number of ops run.
     """
     order = _stable_argsort(ops.slot)
     order = order[_stable_argsort(ops.ts[order])]
     js = order[(mask_flat & ops.valid)[order]]
-    cols = torch.stack([js.to(I32), ops.uid[js], ops.fun[js],
+    rows = js if sink is None else sink[js]
+    cols = torch.stack([rows.to(I32), ops.uid[js], ops.fun[js],
                         ops.gate[js]]).tolist()
     opnd = ops.operand[js]
     res_pre, res_post, res_ok = (results["pre"], results["post"],

@@ -13,7 +13,7 @@ every other axis number is the one a shard's own array would have, as in
 JAX, so the driver's body reads like the reference's.  A collective returns
 the stacked result of every shard at once.
 
-Every exchange of the sharded driver goes through these four functions, so a
+Every exchange of the sharded driver goes through these five functions, so a
 transport across cards (``torch.distributed``) replaces only this module.
 """
 from __future__ import annotations
@@ -117,6 +117,11 @@ class ShardMesh:
         With every value but one owner's masked to -inf it is the sharded
         driver's ownership-masked select (exact, unlike a sum of deltas)."""
         return self._reduce(x, axes, dim, torch.amax)
+
+    def pmin(self, x: torch.Tensor, axes: Axes, *, dim: int) -> torch.Tensor:
+        """``jax.lax.pmin`` over ``axes``: every shard gets its group's min
+        (the sharded lockstep walk's level fixpoint)."""
+        return self._reduce(x, axes, dim, torch.amin)
 
     def _reduce(self, x, axes, dim, op):
         xu = self._unflatten(x, dim)

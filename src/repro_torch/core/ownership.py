@@ -25,9 +25,9 @@ What differs from the reference:
   port keeps the counting pass alone.
 * The hash-probe table is one int32 key table (``kernels/hash_probe``), not
   two float32 tables of 16-bit halves.
-* ``rebalance_ownership`` and ``migration_plan`` wait for live resharding,
-  which migrates the resident carry of the chunked service (ROADMAP A9,
-  after A8).  ``chunk_shard_output`` / ``unchunk_output`` work around
+* ``rebalance_ownership`` is the reference's, pure numpy: the service's
+  controller calls it.  ``migration_plan`` waits for live resharding, which
+  migrates the resident carry of the chunked service (ROADMAP A9.2).  ``chunk_shard_output`` / ``unchunk_output`` work around
   ``shard_map``'s output specs; a stacked mesh has no such outputs, so they
   have no counterpart.
 """
@@ -115,6 +115,69 @@ def build_ownership(store: StateStore, n_owners: int,
         sim[fwd[:-1].long()] = flags[:-1]
     return Ownership(n_owners=n_owners, per=per, s_pad=s_pad, fwd=fwd,
                      slot_is_max=sim, overrides=overrides)
+
+
+def rebalance_ownership(n_slots: int, n_owners: int, overrides,
+                        shard_load: np.ndarray, hot,
+                        max_moves: int = 16):
+    """Greedy skew-aware placement from the observed access histogram.
+
+    ``shard_load``: i64[n_owners] ops served per shard over the decision
+    window; ``hot``: ``[(uid, count), ...]`` the window's hottest slots.
+    Each step moves the heaviest not-yet-moved hot uid from the most
+    loaded shard to the least loaded one, *swapping* it with that
+    shard's coldest hot-listed (or synthetic zero-load) resident so
+    every bin keeps exactly its striped size — ``per``/``s_pad`` and
+    all block shapes are migration-invariant.  Pure host arithmetic,
+    deterministic (ties broken by lowest uid), replay-safe: the result
+    depends only on the arguments, which the decision trace records.
+
+    Returns the new overrides tuple (sorted), or the input overrides
+    unchanged when no beneficial move exists.
+    """
+    n_owners = max(int(n_owners), 1)
+    if n_owners <= 1 or not len(hot):
+        return tuple(sorted((int(u), int(o)) for u, o in overrides))
+    load = np.asarray(shard_load, np.int64).copy()
+    assert load.shape == (n_owners,)
+    owner = owner_of_uids(n_slots, n_owners, overrides)
+    hot = sorted(((int(u), int(c)) for u, c in hot),
+                 key=lambda t: (-t[1], t[0]))
+    hot_count = {u: c for u, c in hot}
+    moved: set = set()
+    for u, c in hot:
+        if len(moved) >= 2 * max_moves:
+            break
+        if u in moved or c <= 0:
+            continue
+        src = int(owner[u])
+        dst = int(np.argmin(load))
+        if dst == src:
+            continue
+        # only move when it strictly shrinks the src/dst imbalance
+        if load[src] - c < load[dst]:
+            continue
+        # swap victim: dst's coldest resident (prefer load-0, lowest uid)
+        residents = np.flatnonzero(owner == dst)
+        victim, v_load = -1, None
+        for v in residents:
+            if int(v) in moved:
+                continue
+            vl = hot_count.get(int(v), 0)
+            if v_load is None or vl < v_load:
+                victim, v_load = int(v), vl
+                if vl == 0:
+                    break
+        if victim < 0:
+            continue
+        owner[u], owner[victim] = dst, src
+        load[src] += v_load - c
+        load[dst] += c - v_load
+        moved.add(u)
+        moved.add(victim)
+    stripe = np.arange(n_slots, dtype=np.int64) % n_owners
+    diff = np.flatnonzero(owner != stripe)
+    return tuple((int(u), int(owner[u])) for u in diff)
 
 
 def permute_values(own: Ownership, values: torch.Tensor) -> torch.Tensor:

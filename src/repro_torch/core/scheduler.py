@@ -21,15 +21,20 @@ Two drivers share the per-interval logic:
 
 The engine runs on the CUDA card unless built with ``device="cpu"``.  Built
 with a ``mesh`` (``core/mesh.ShardMesh``) it runs the sharded fused driver
-instead (``core/sharded_stream``).  The chunked service API
-(``run_stream_chunk``, ``ensure_variant``) comes with a later slice
-(ROADMAP A8).
+instead (``core/sharded_stream``).
+
+The chunked service API (``runtime/service.py``) drives the same fused
+program one chunk of K intervals at a time: ``run_stream_chunk`` takes the
+carry and ``[K, interval, ...]`` device columns and returns the next carry,
+so K-chunked execution is the monolithic run's schedule, bit for bit;
+``ensure_variant`` binds a scheme/rung plan variant for the controller.  On
+a sharded engine the chunk API is ROADMAP A9.2, with live resharding.
 """
 from __future__ import annotations
 
 import dataclasses
 import functools
-from typing import Dict, List, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -95,6 +100,11 @@ class DualModeEngine:
         self.last_rung = None
         # the per-interval EngineStats of the last single-device fused run
         self.last_stats = None
+        # the fused program, and its scheme/rung plan variants (adaptive
+        # control plane, DESIGN.md §2.9), selectable per chunk
+        self._fused = functools.partial(_fused_impl, app=app, cfg=cfg,
+                                        store=self.init_store)
+        self._variants: Dict[Tuple[str, str], functools.partial] = {}
         if mesh is not None:
             if mesh.device != self.device:
                 raise ValueError(f"mesh on {mesh.device}, engine on "
@@ -172,6 +182,82 @@ class DualModeEngine:
                         0, app=self.app, cfg=self.cfg, store=self.init_store)
         return self._outs(res_all, ebs_all, n_intervals), values
 
+    # -- chunked service API (runtime/service.py; DESIGN.md §2.6/§2.9) -----
+    def ensure_variant(self, scheme: Optional[str] = None,
+                       restructure_method: Optional[str] = None):
+        """Bind a plan variant with scheme/rung overridden.
+
+        Returns the key to pass to :meth:`run_stream_chunk`, or None when
+        the requested plan is the construction plan.  Idempotent.
+        Single-device only: the sharded driver's lattice is {exchange
+        slack, chunk size}.
+        """
+        sch = scheme or self.cfg.scheme
+        rung = restructure_method or self.cfg.restructure_method
+        if (sch, rung) == (self.cfg.scheme, self.cfg.restructure_method):
+            return None
+        if self._sharded is not None:
+            raise ValueError("the sharded driver has no scheme/rung plan "
+                             "variants")
+        key = (sch, rung)
+        if key not in self._variants:
+            cfg = dataclasses.replace(self.cfg, scheme=sch,
+                                      restructure_method=rung)
+            self._variants[key] = functools.partial(
+                _fused_impl, app=self.app, cfg=cfg, store=self.init_store)
+        return key
+
+    def run_stream_chunk(self, values, batched, ts0: int, variant=None):
+        """One chunk of a continuous run.
+
+        ``batched`` holds ``[K, interval, ...]`` columns on the engine's
+        device and ``values`` the carry; the caller threads the returned
+        carry into the next chunk, so K-chunked execution runs the same
+        per-interval schedule as one monolithic ``run_stream`` over the
+        concatenated events.  The carry is copied once on entry: the
+        megakernel commits in place, and the caller's ``values`` must stay
+        the pre-chunk state (the service's emergency snapshot reads it).
+        ``ts0`` is the global timestamp base of the chunk's first interval;
+        it and every base of the chunk must fit int32.  ``variant``
+        selects a plan variant (``ensure_variant``).
+
+        Returns ``(res_all, ebs_all, values', stats)``; ``stats`` is
+        ``dict(engine=EngineStats)`` with the K intervals' counters stacked
+        (``[K]`` tensors).  The associative rungs read the host nowhere,
+        so the call returns before the device finishes; the lockstep path
+        reads each sweep's round sizes.  Materialize the outputs with
+        :meth:`post_outputs`.
+        """
+        if self._sharded is not None:
+            raise NotImplementedError(SHARDED_CHUNK_NOT_PORTED)
+        some = next(iter(batched.values()))
+        k, interval = int(some.shape[0]), int(some.shape[1])
+        if not 0 <= int(ts0) or int(ts0) + k * interval > 2 ** 31 - 1:
+            raise ValueError(f"ts0={ts0}: the chunk's timestamps must fit "
+                             f"int32 (use runtime.service.ts_base_for)")
+        fn = self._fused if variant is None else self._variants[variant]
+        res_all, ebs_all, values, est, rung = fn(
+            values.to(self.device, copy=True), batched, int(ts0))
+        self.last_rung = rung
+        return res_all, ebs_all, values, dict(engine=_stack_stats(est))
+
+    def post_outputs(self, res_all, ebs_all, n_intervals: int):
+        """Materialize a chunk's per-interval outputs (one device-to-host
+        copy)."""
+        return self._outs(res_all, ebs_all, n_intervals)
+
+    def chunk_lowered_text(self, values, batched, variant=None) -> str:
+        """The reference returns the chunk program's compiled XLA HLO for
+        its cost attribution; eager PyTorch has no such program text."""
+        raise NotImplementedError(
+            "chunk_lowered_text reads compiled XLA HLO, which eager PyTorch "
+            "does not have; what replaces it is open (ROADMAP A8.2)")
+
+    @property
+    def reshardable(self) -> bool:
+        """Live migration of the carry (ROADMAP A9.2): not ported yet."""
+        return False
+
     # -- carry and ownership (reference: scheduler.py, elastic carry API) --
     def carry_in(self, values):
         """Canonical [S+1, W] values -> the driver's resident carry."""
@@ -204,8 +290,28 @@ class DualModeEngine:
         return [{k: v[i] for k, v in outs.items()} for i in range(n_intervals)]
 
 
+SHARDED_CHUNK_NOT_PORTED = (
+    "the chunk API on a sharded engine (ShardedStream.run_chunk) comes with "
+    "live resharding: ROADMAP A9.2")
+
+
 def _stack(dicts: List[Dict[str, torch.Tensor]]) -> Dict[str, torch.Tensor]:
     return {k: torch.stack([d[k] for d in dicts]) for k in dicts[0]}
+
+
+def _stack_stats(stats) -> EngineStats:
+    """Per-interval EngineStats (a list, or one already stacked over the
+    intervals, as the megakernel's) as one EngineStats of ``[K]``
+    counters."""
+    if isinstance(stats, EngineStats):
+        return stats
+    col = lambda f: torch.stack([torch.as_tensor(getattr(s, f)).reshape(())
+                                 for s in stats])
+    first = stats[0]
+    return dataclasses.replace(
+        first, rounds=col("rounds"), n_chains=col("n_chains"),
+        max_chain=col("max_chain"), swept=sum(s.swept for s in stats),
+        residue=sum(s.residue for s in stats))
 
 
 def _eval_interval(store: StateStore, ops, *, app: AppSpec,

@@ -46,13 +46,27 @@ call), so there a sharded run with max tables (TP) agrees with the
 single-device run to a tolerance, not bit for bit; the megakernel rung
 (GS) stays bitwise.
 
-Not ported here: the lockstep branch for non-associative apps and schemes
-(ROADMAP A9), the chunk entry ``run_chunk`` and live resharding
+Non-associative or gated apps (SL, OB), and the ``tstream_lockstep`` and
+``mvlk`` schemes, run the lockstep schedule sharded, under
+``shared_nothing`` on a 1-D mesh only (as in the reference).  Each shard
+walks its local chains with the single-device walk (``engines.
+_lockstep_sweep``, every shard's round at once on the stacked blocks, one
+host read a sweep, only the rounds that hold a valid op); cross-chain gates
+resolve level by level against a success frontier keyed by global op id and
+merged with a max over the shard axis after each level (a gated op's mate
+chain always sits at a strictly lower level); the level fixpoint merges with
+a min over that axis; and the dependency-cycle residue runs once, as the
+sequential sweep over every shard's gathered residue ops in global (ts,
+slot) order.  So the sharded lockstep run is bitwise the single-device one,
+on the CPU and on the card.
+
+Not ported here: the chunk entry ``run_chunk`` and live resharding
 (``reshard``, ``_migrate_impl``), which move the chunked service's resident
-carry (ROADMAP A8, A9).
+carry (ROADMAP A9.2).
 """
 from __future__ import annotations
 
+import dataclasses
 import functools
 import logging
 from typing import Dict, Optional
@@ -65,26 +79,23 @@ from ..kernels.megakernel.ops import fused_chain_eval
 from ..kernels.megakernel.ref import fused_chain_stream_ref
 from ..kernels.runtime import smem_optin
 from .blotter import AppSpec, build_opbatch
-from .engines import (simple_affine_luts, tstream_scan_coefs,
-                      tstream_scan_execute, tstream_scan_plan)
+from .engines import (INF_LEVEL, _empty_results, _lockstep_sweep,
+                      _segment_max, _sequential_sweep, simple_affine_luts,
+                      tstream_scan_coefs, tstream_scan_execute,
+                      tstream_scan_plan)
 from .mesh import ShardMesh
 from .ownership import (LAYOUTS, bucket_by_owner, build_ownership,
                         build_probe_route, exchange_capacity,
                         make_local_store, permute_values, route_gather,
                         unpermute_values, unroute_gather)
 from .restructure import (megakernel_engaged, restructure_path,
-                          restructure_stream)
+                          restructure_stream, take_along)
 from .scheduler import _post_stream, _stack
 from .types import OpBatch, StateStore, tree_index
 
 log = logging.getLogger(__name__)
 
 I32 = torch.int32
-
-LOCKSTEP_NOT_PORTED = (
-    "the sharded lockstep schedule (non-associative or gated apps, the "
-    "tstream_lockstep and mvlk schemes) is not ported yet: it comes with "
-    "ROADMAP A9")
 
 
 class ShardedStream:
@@ -105,11 +116,17 @@ class ShardedStream:
                 f"sharded run_stream implements the TStream/mvlk engines "
                 f"only (got scheme={cfg.scheme!r})")
         self.assoc = (app.associative_only
-                      and cfg.scheme in ("tstream", "tstream_scan"))
-        if not self.assoc:
-            raise NotImplementedError(
-                f"sharded {cfg.scheme!r} on app {app.name!r}: "
-                + LOCKSTEP_NOT_PORTED)
+                      and cfg.scheme in ("tstream", "tstream_scan")
+                      and not (cfg.abort_repass and app.may_abort))
+        if not self.assoc and (layout != "shared_nothing"
+                               or len(mesh.shape) != 1):
+            # lockstep sharding (mvlk included: eval_mvlk IS the lockstep
+            # schedule) exchanges gate successes on global op ids; state
+            # must be shard-resident and the mesh flat
+            raise ValueError(
+                f"sharded {cfg.scheme!r} on app {app.name!r} takes the "
+                f"lockstep schedule, which shards under shared_nothing on a "
+                f"1-D mesh only (got {layout!r} on mesh {mesh.shape})")
         self.app, self.cfg, self.mesh, self.layout = app, cfg, mesh, layout
         self.store = store.to(mesh.device)
         self.exchange_slack = float(exchange_slack)
@@ -266,9 +283,15 @@ class ShardedStream:
                 vals0 = vals0.repeat_interleave(self.n_core, dim=0)
                 sim_d = sim_d.repeat_interleave(self.n_core, dim=0)
 
-        rops, plans, ebs_all, cap = self.route(events_b, ts0)
-        vals_fin, res_routed = self._evaluate(
-            vals0, sim_d if has_max else None, rops)
+        rops, plans, ebs_all, cap, gflat = self.route(events_b, ts0)
+        walk = {}
+        if self.assoc:
+            vals_fin, res_routed = self._evaluate(
+                vals0, sim_d if has_max else None, rops)
+        else:
+            vals_fin, res_routed, walk = self._evaluate_lockstep(
+                vals0, rops, gflat,
+                next(iter(events_b.values())).shape[1] * self.app.max_ops)
         res_loc = self._reverse(res_routed, plans, cap)
 
         # carry out: the canonical block layout (pad rows zero)
@@ -312,7 +335,7 @@ class ShardedStream:
             shipped=torch.sum(plans.ok, dim=(1, 2, 3), dtype=I32),
             max_fill=torch.amax(plans.fill, dim=1),
             capacity=cap, exchanged_rows_per_device=n_dev * cap,
-            shard_load=shard_load, slot_load=slot_load)
+            shard_load=shard_load, slot_load=slot_load, **walk)
         return res_loc, ebs_all, carry, stats
 
     def route(self, events_b, ts0: int = 0):
@@ -321,11 +344,14 @@ class ShardedStream:
         ``events_b``: event columns ``[n_intervals, interval, ...]`` on the
         mesh's device.  Each shard registers the ops of its slice of every
         interval, buckets them by owner and ships them with one
-        ``all_to_all``.  Returns ``(rops, plans, ebs, cap)``: the op batch
-        each shard received (fields ``[n_intervals, n_shards, R]``, rows
-        source-shard-major, then cell, so row order is ts order), the route
-        plans (``[n_intervals, n_shards, ...]``), the event payloads in the
-        single-device layout and the bucket capacity.
+        ``all_to_all``.  Returns ``(rops, plans, ebs, cap, gflat)``: the op
+        batch each shard received (fields ``[n_intervals, n_shards, R]``,
+        rows source-shard-major, then cell, so row order is ts order), the
+        route plans (``[n_intervals, n_shards, ...]``), the event payloads
+        in the single-device layout, the bucket capacity, and for the
+        lockstep schedule each received row's global op id (``N_glob`` on a
+        padding row; None on the associative path).  There the gates ship
+        too, as global op ids.
         """
         app, cfg, own, layout = self.app, self.cfg, self.own, self.layout
         mesh, n_dev, n_route = self.mesh, self.n_dev, self.n_route
@@ -348,6 +374,7 @@ class ShardedStream:
         ops_all, ebs_all = build_opbatch(app, self.store, ev, ts_bases)
         ebs_all = {k: v.reshape((n_intervals, interval) + tuple(v.shape[3:]))
                    for k, v in ebs_all.items()}
+        n_loc = ops_all.uid.shape[-1]
 
         # ---- owner routing (values-independent, hoisted) ------------------
         uid_perm = own.fwd[ops_all.uid.long()]           # [n_i, n_dev, N_loc]
@@ -378,6 +405,16 @@ class ShardedStream:
             ts=route_gather(plans, ops_all.ts, 0),
             slot=route_gather(plans, ops_all.slot, 0),
         )
+        if not self.assoc:
+            # gates and op ids as global op ids: shard d's ops are the
+            # interval's flat ops [d * N_loc, (d + 1) * N_loc)
+            base = (shard * n_loc)[None, :, None]
+            gflat = (base + torch.arange(n_loc, dtype=I32, device=dev)
+                     ).expand(ops_all.uid.shape)
+            send["gate"] = route_gather(
+                plans, torch.where(ops_all.gate >= 0, ops_all.gate + base,
+                                   torch.full_like(ops_all.gate, -1)), -1)
+            send["gflat"] = route_gather(plans, gflat, n_dev * n_loc)
 
         # ---- THE exchange: one all_to_all for the whole stream ------------
         recv = {k: mesh.all_to_all(v, self.route_axes, 1, 1, dim=1)
@@ -398,9 +435,9 @@ class ShardedStream:
         zeros = torch.zeros_like(ruid)
         rops = OpBatch(uid=ruid, ts=recv["ts"], txn=zeros, slot=recv["slot"],
                        kind=zeros, fun=recv["fun"],
-                       gate=torch.full_like(ruid, -1),
+                       gate=recv.get("gate", torch.full_like(ruid, -1)),
                        operand=recv["operand"], valid=rvalid)
-        return rops, plans, ebs_all, cap
+        return rops, plans, ebs_all, cap, recv.get("gflat")
 
     def _evaluate(self, vals0, sim_d, rops):
         """State-access mode: the intervals carry every shard's block.
@@ -495,6 +532,37 @@ class ShardedStream:
                 res_l.append({k: plan.ch.untake(v) for k, v in res.items()})
         return vals, _stack(res_l)
 
+    # -- the lockstep schedule (shared_nothing, 1-D mesh) -----------------
+    def _evaluate_lockstep(self, vals0, rops, gflat, n_glob: int):
+        """State-access mode of the lockstep schedule: one restructure for
+        the stream (on the partition rung one radix launch), then one
+        lockstep walk per interval, every shard's at once.
+
+        ``vals0``: ``[n_dev, per+1, W]`` state blocks; ``gflat``: each
+        received row's global op id (``n_glob`` on a padding row).  Returns
+        the final blocks, per-op results ``[n_intervals, n_dev, R, ...]`` in
+        each shard's received-row order, and the walk's totals (``swept``:
+        rounds run, ``residue``: ops left to the sequential sweep).
+        """
+        cfg = self.cfg
+        lpad = vals0.shape[1] - 1
+        n_intervals, _, rows = rops.uid.shape
+        self.last_rung = restructure_path(rows, lpad, rowmajor_ts=True,
+                                          method=cfg.restructure_method)
+        sops_all, ch_all = restructure_stream(
+            rops, lpad, rowmajor_ts=True, method=cfg.restructure_method,
+            use_kernels=cfg.use_kernels,
+            threads=cfg.block_param("radix_partition"))
+        vals, res_l, walk = vals0, [], dict(swept=0, residue=0)
+        for i in range(n_intervals):
+            walker = _LockstepWalk(self, tree_index(sops_all, i),
+                                   tree_index(ch_all, i), gflat[i], n_glob)
+            vals, res = walker.interval(vals)
+            walk["swept"] += walker.swept
+            walk["residue"] += walker.residue
+            res_l.append(res)
+        return vals, _stack(res_l), walk
+
     def _reverse(self, res_routed, plans, cap: int):
         """The reverse exchange: results home to their source shard, then
         back to flat per-op layout ``[n_intervals, N_glob, ...]``."""
@@ -527,3 +595,185 @@ class ShardedStream:
             res_loc[k] = v.reshape((n_intervals, n_dev * v.shape[2])
                                    + tuple(v.shape[3:]))
         return res_loc
+
+
+class _LockstepWalk:
+    """One interval of the sharded lockstep schedule, every shard at once.
+
+    Reference: ``_lockstep_interval``, ``_lockstep_eval``,
+    ``_sweep_sharded``, ``_chain_levels_sharded`` and ``_residue_sharded``
+    (``repro/core/sharded_stream.py``).  The stacked blocks ``[n_dev,
+    per+1, W]`` are walked as one state of ``n_dev * (per+1)`` rows (shard
+    d's local uid u is row ``d * (per+1) + u``), so the single-device walk
+    runs round r of every shard at once: the shards' states are disjoint,
+    and a valid received op never addresses a pad row.  Per-op results sit
+    per shard in received-row order (row ``d * R + ch.order``); the success
+    frontier and the level array are keyed by global op id, one replica
+    per shard (``[n_dev, N_glob+1]``), merged over the shard axis.
+
+    A gated op reads its mate's success from the frontier alone, where the
+    reference also reads the shard's own results: the mate's chain sits at
+    a strictly lower level (or the op is residue), so the frontier already
+    holds it.  ``swept`` and ``residue`` count the last pass's rounds and
+    residue ops.
+    """
+
+    def __init__(self, eng: ShardedStream, sops: OpBatch, ch, gflat_r,
+                 n_glob: int):
+        self.eng, self.sops, self.ch = eng, sops, ch
+        self.gflat_r = gflat_r                          # [n_dev, R]
+        self.gflat_s = take_along(gflat_r, ch.order)    # sorted layout
+        self.n_glob = n_glob
+        self.n_dev, self.rows = sops.uid.shape
+        self.shard = torch.arange(self.n_dev, dtype=I32,
+                                  device=sops.uid.device)[:, None]
+        self.dst = (self.shard * self.rows + ch.order).reshape(-1)
+        self.swept = self.residue = 0
+
+    def interval(self, vals):
+        """``_lockstep_interval``: the walk, then under ``abort_repass``
+        the walk again from the pre-interval values with every transaction
+        that failed an op masked (its verdict needs the global valid mask
+        and success frontier)."""
+        app, cfg = self.eng.app, self.eng.cfg
+        vals1, res1, succ1 = self.evaluate(vals, self.sops)
+        if not (cfg.abort_repass and app.may_abort):
+            return vals1, res1
+        n_glob, m = self.n_glob, app.max_ops
+        gvalid = self.frontier(self.ch.untake(self.sops.valid))[0]
+        txn_ok = torch.all((succ1[:n_glob] | ~gvalid[:n_glob])
+                           .reshape(-1, m), dim=1)         # [interval]
+        txn = torch.clamp(self.gflat_s // m, max=txn_ok.shape[0] - 1)
+        keep = txn_ok[txn.long()] & (self.gflat_s < n_glob)
+        sops2 = dataclasses.replace(self.sops, valid=self.sops.valid & keep)
+        vals2, res2, _ = self.evaluate(vals, sops2)
+        return vals2, res2
+
+    def frontier(self, flags_r):
+        """A bool per received row -> the global-op-id frontier ``[n_dev,
+        N_glob+1]``: scattered on each shard, merged with a max over the
+        shard axis (the reference's bool ``pmax``).  A padding row lands
+        on column ``N_glob`` and is False."""
+        arr = torch.zeros((self.n_dev, self.n_glob + 1), dtype=I32,
+                          device=flags_r.device)
+        arr.scatter_(1, self.gflat_r.long(), flags_r.to(I32))
+        return self.eng.mesh.pmax(arr, self.eng.axes, dim=0) > 0
+
+    def levels(self, sops):
+        """``_chain_levels_sharded``: the per-chain level fixpoint against a
+        per-op level array keyed by global op id, merged with a min over the
+        shard axis (levels only decrease).  Returns each shard's chain
+        levels and which chains stay unresolved."""
+        mesh, axes = self.eng.mesh, self.eng.axes
+        ch, n_dev, rows = self.ch, self.n_dev, self.rows
+        seg = (self.shard * rows + ch.seg_id).reshape(-1).long()
+        gated = (sops.gate >= 0) & sops.valid
+        has_gate = (_segment_max(gated.to(I32).reshape(-1), seg,
+                                 n_dev * rows) > 0).reshape(n_dev, rows)
+        zero = torch.zeros((n_dev, rows), dtype=I32, device=seg.device)
+        inf = torch.full_like(zero, INF_LEVEL)
+        lvl = torch.where(has_gate, inf, zero)
+        mate = sops.gate.clamp(min=0).long()
+        shipped = self.gflat_s < self.n_glob
+        for _ in range(self.eng.cfg.max_dep_levels):
+            per_op = torch.where(shipped, take_along(lvl, ch.seg_id), inf)
+            opl = torch.full((n_dev, self.n_glob + 1), INF_LEVEL, dtype=I32,
+                             device=seg.device)
+            opl = mesh.pmin(opl.scatter_(1, self.gflat_s.long(), per_op),
+                            axes, dim=0)
+            pred = torch.gather(opl, 1, mate)
+            need = _segment_max(
+                torch.where(gated, torch.clamp(pred + 1, max=INF_LEVEL),
+                            zero).reshape(-1), seg, n_dev * rows)
+            lvl = torch.where(has_gate, torch.clamp(
+                need.reshape(n_dev, rows), max=INF_LEVEL), zero)
+        return lvl, lvl >= INF_LEVEL
+
+    def evaluate(self, vals, sops):
+        """``_lockstep_eval``: the walk of one pass from ``vals``.  Returns
+        the new blocks, the per-op results ``[n_dev, R, ...]`` and the
+        merged success frontier ``[N_glob+1]``."""
+        app, cfg = self.eng.app, self.eng.cfg
+        ch, n_dev, rows, n_glob = self.ch, self.n_dev, self.rows, self.n_glob
+        dev, w = vals.device, vals.shape[-1]
+        lpad = vals.shape[1] - 1
+        values = vals.clone()
+        res = _empty_results(n_dev * rows, w, dev)
+        success_r = res["success"][:n_dev * rows].view(n_dev, rows)
+        # one flat state and op batch over every shard; a gate addresses
+        # its shard's replica of the frontier
+        flat = OpBatch(**{f.name: getattr(sops, f.name).reshape(
+            (n_dev * rows,) + tuple(getattr(sops, f.name).shape[2:]))
+            for f in dataclasses.fields(OpBatch)})
+        flat = dataclasses.replace(
+            flat, uid=(sops.uid + self.shard * (lpad + 1)).reshape(-1),
+            gate=torch.where(sops.gate >= 0,
+                             sops.gate + self.shard * (n_glob + 1),
+                             torch.full_like(sops.gate, -1)).reshape(-1))
+        never = torch.full_like(ch.pos, -1)
+
+        def sweep(group, frontier=None):
+            return _lockstep_sweep(values.view(-1, w), flat, self.dst,
+                                   app.funs, group.reshape(-1), res, lpad,
+                                   frontier=frontier)
+
+        self.residue = 0
+        if not app.has_gates:
+            self.swept = sweep(torch.where(sops.valid, ch.pos, never))
+            succ = self.frontier(success_r)[0]
+            return values, self._per_shard(res), succ
+
+        lvl, unresolved = self.levels(sops)
+        lvl_s = take_along(lvl, ch.seg_id)
+        succ = self.frontier(success_r)
+        self.swept = 0
+        for level in range(cfg.max_dep_levels + 1):
+            at = sops.valid & (lvl_s == level)
+            swept = sweep(torch.where(at, ch.pos, never),
+                          frontier=succ.reshape(-1))
+            if swept:
+                self.swept += swept
+                succ = self.frontier(success_r)
+        succ = self._residue(values, sops, take_along(unresolved, ch.seg_id)
+                             & sops.valid, res, succ[0].clone())
+        return values, self._per_shard(res), succ
+
+    def _residue(self, values, sops, run, res, succ):
+        """``_residue_sharded``: the ops of unresolved chains (dependency
+        cycles) run once, one at a time in global (ts, slot) order, over
+        every shard's gathered residue ops and the gathered state (the
+        reference's all_gathers are reshapes here), then each shard takes
+        its block and its ops' results back.  Returns the frontier."""
+        n_dev, rows, n_glob = self.n_dev, self.rows, self.n_glob
+        per, w = values.shape[1] - 1, values.shape[-1]
+        s_pad = n_dev * per
+        vals_full = torch.cat([values[:, :per].reshape(s_pad, w),
+                               values.new_zeros((1, w))])
+        flat = lambda x: x.reshape((n_dev * rows,) + tuple(x.shape[2:]))
+        g = dataclasses.replace(
+            sops, **{f.name: flat(getattr(sops, f.name))
+                     for f in dataclasses.fields(OpBatch)})
+        g = dataclasses.replace(g, uid=flat(torch.where(
+            run, sops.uid + self.shard * per, torch.full_like(sops.uid,
+                                                              s_pad))))
+        gres = dict(pre=values.new_zeros((n_glob + 1, w)),
+                    post=values.new_zeros((n_glob + 1, w)), success=succ)
+        self.residue = _sequential_sweep(vals_full, g, self.eng.app.funs,
+                                         gres, mask_flat=flat(run),
+                                         pad_uid=s_pad,
+                                         sink=flat(self.gflat_s))
+        if not self.residue:
+            return succ
+        values[:, :per] = vals_full[:s_pad].reshape(n_dev, per, w)
+        un = flat(self.ch.untake(run))
+        back = flat(self.gflat_r).long()
+        for k in ("pre", "post", "success"):
+            mine = res[k][:n_dev * rows]
+            sel = un[:, None] if mine.dim() == 2 else un
+            mine.copy_(torch.where(sel, gres[k][back], mine))
+        return gres["success"]
+
+    def _per_shard(self, res):
+        n = self.n_dev * self.rows
+        return {k: v[:n].reshape((self.n_dev, self.rows) + tuple(v.shape[1:]))
+                for k, v in res.items()}

@@ -14,6 +14,12 @@ A failed build raises with nvcc's output; nothing falls back.
 
 Each C entry returns ``cudaGetLastError()`` after its launch;
 ``check_launch`` raises on a code other than 0.
+
+The build and the library cache are safe for several threads of one process
+(the streaming service makes CUDA calls from its executor thread and the
+main thread): one process-wide lock covers ``build_all`` and ``library``,
+and a temporary output is named by process and thread, so two threads
+never write one file.
 """
 from __future__ import annotations
 
@@ -31,7 +37,7 @@ BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 
-_LOCK = threading.Lock()
+_LOCK = threading.RLock()
 _LIBS: Dict[str, ctypes.CDLL] = {}
 
 
@@ -58,6 +64,11 @@ def build_dir() -> Path:
 
 def build_all() -> Dict[str, Path]:
     """Compile every kernel source (in parallel); return name -> library."""
+    with _LOCK:
+        return _build_all()
+
+
+def _build_all() -> Dict[str, Path]:
     out_dir = build_dir()
     out_dir.mkdir(parents=True, exist_ok=True)
     srcs = sources()
@@ -68,7 +79,8 @@ def build_all() -> Dict[str, Path]:
     nvcc = _nvcc()
     procs = {}
     for name in todo:
-        tmp = out_dir / f"{name}.{os.getpid()}.tmp.so"
+        tmp = out_dir / (f"{name}.{os.getpid()}.{threading.get_ident()}"
+                         ".tmp.so")
         cmd = [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp),
                str(srcs[name])]
         procs[name] = (tmp, subprocess.Popen(cmd, stdout=subprocess.PIPE,

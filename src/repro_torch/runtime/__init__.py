@@ -1,0 +1,7 @@
+"""The streaming service runtime on the port's engine (the reference's
+``repro/runtime``, without the training loop ``ft.py``)."""
+from .faults import (Fault, FaultPlane, HangAborted, InjectedCrashError,
+                     InjectedFault, TransientSourceError, corrupt_snapshot,
+                     random_schedule, schedule_from_json, schedule_to_json)
+from .service import (ExecutorHungError, ServiceConfig, ServiceRun,
+                      StragglerPolicy, StreamService, ts_base_for)

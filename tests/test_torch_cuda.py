@@ -16,6 +16,8 @@ cannot take raise.  The sharded driver on the
 card is held to the single-device driver on the card: bitwise on the
 megakernel rung, to rtol = atol = 1e-5 where the staged rung's segscans run
 (their association depends on where a chain lies among the kernel's tiles).
+Its lockstep schedule (SL, OB) is bitwise with the single-device card run,
+and the chunked service with ``run_stream`` on the card (TP to 1e-5).
 """
 import numpy as np
 import pytest
@@ -675,3 +677,90 @@ def test_sharded_on_card_matches_single_device_on_card(
         assert LAUNCHES["segscan_affine"] == 1
         torch.testing.assert_close(v1, v0, rtol=1e-5, atol=1e-5)
     assert_outputs_close(o1, o0, f"{app_name}/{layout} sharded vs single")
+
+
+@pytest.mark.parametrize("app_name,method,case", [
+    ("sl", "partition", "plain"), ("sl", "auto", "plain"),
+    ("ob", "partition", "plain"), ("sl", "partition", "abort_repass"),
+    ("sl", "partition", "residue")])
+def test_sharded_lockstep_on_card_matches_single_device_on_card(
+        app_name, method, case):
+    """The sharded lockstep schedule (4 shards, shared_nothing) on the card:
+    state and outputs bitwise with the single-device card run and with the
+    sharded CPU run, no op dropped; the exchange's owner bucketing launches
+    radix_partition once, and forced "partition" once more to restructure.
+    ``abort_repass`` and ``residue`` (max_dep_levels=0) run the overdrawn
+    stream."""
+    dev = need_card()
+    app = ALL_APPS[app_name]
+    stream = app.gen_events(np.random.default_rng(11), 4 * 128)
+    cfg = dict(restructure_method=method)
+    if case != "plain":
+        _overdraw(stream)
+        cfg.update(abort_repass=True) if case == "abort_repass" else \
+            cfg.update(max_dep_levels=0)
+    cfg = EngineConfig(**cfg)
+    store = app.make_store(device=dev)
+    o0, v0 = DualModeEngine(app, store, cfg, device=dev).run_stream(
+        store.values, stream, 128)
+    runs = {}
+    for d in (dev, torch.device("cpu")):
+        eng = DualModeEngine(app, app.make_store(device=d), cfg, device=d,
+                             mesh=ShardMesh((4,), ("dev",), device=d),
+                             exchange_slack=8.0)
+        reset_launches()
+        runs[d.type] = eng.run_stream(eng.init_store.values, stream, 128)
+        st = eng.last_exchange_stats
+        assert int(np.sum(st["dropped"])) == 0
+        if d.type == "cuda":
+            assert LAUNCHES["radix_partition"] == (
+                2 if method == "partition" else 1)
+            assert eng.last_rung == ("partition" if method == "partition"
+                                     else "packed")
+            if case == "residue":
+                assert int(st["residue"]) > 0
+    (o1, v1), (oc, vc) = runs["cuda"], runs["cpu"]
+    assert torch.equal(v1, v0)
+    assert torch.equal(v1.cpu(), vc)
+    for a, b, c in zip(o1, o0, oc):
+        for k in b:
+            np.testing.assert_array_equal(a[k], b[k], err_msg=k)
+            np.testing.assert_array_equal(a[k], c[k], err_msg=k)
+
+
+@pytest.mark.parametrize("app_name,method", [
+    ("gs", "megakernel"), ("tp", "partition"), ("sl", "partition")])
+def test_service_on_card_matches_run_stream_on_card(app_name, method):
+    """One chunked service run per path against ``run_stream`` on the card:
+    GS on the megakernel rung (one stream call, three launches, a chunk)
+    and SL on the lockstep path bitwise; TP on the staged rung within
+    rtol = atol = 1e-5 (the affine segscan associates by tile, and a chunk
+    puts chains at other tile offsets than the whole stream)."""
+    from repro_torch.core.intervals import ReplaySource, WatermarkPolicy
+    from repro_torch.runtime.service import ServiceConfig, StreamService
+    dev = need_card()
+    app = ALL_APPS[app_name]
+    eng = DualModeEngine(app, app.make_store(device=dev),
+                         EngineConfig(restructure_method=method), device=dev)
+    src = ReplaySource(app.gen_events, 8 * 128, seed=3, arrival_batch=100,
+                       jitter=20)
+    o0, v0 = eng.run_stream(eng.init_store.values, src.in_order_events, 128)
+    reset_launches()
+    rec = StreamService(eng, ServiceConfig(
+        punct_interval=128, chunk_intervals=2,
+        watermark=WatermarkPolicy(allowed_lateness=20))).run(src)
+    assert len(rec.outputs) == 8 and rec.stats["processed"] == 8 * 128
+    if method == "megakernel":
+        assert LAUNCHES["megakernel"] == 3 * 4
+    else:
+        assert LAUNCHES["radix_partition"] == 4
+    if app_name == "tp":
+        assert LAUNCHES["segscan_affine"] == LAUNCHES["segscan_max"] == 4
+        np.testing.assert_allclose(rec.final_values, v0.cpu().numpy(),
+                                   rtol=1e-5, atol=1e-5)
+        assert_outputs_close(rec.outputs, o0, "tp service vs run_stream")
+    else:
+        np.testing.assert_array_equal(rec.final_values, v0.cpu().numpy())
+        for a, b in zip(rec.outputs, o0):
+            for k in b:
+                np.testing.assert_array_equal(a[k], b[k], err_msg=k)

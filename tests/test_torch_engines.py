@@ -90,15 +90,20 @@ def test_scan_plan_and_coefs_bitwise(app_name):
 
 
 def test_later_schemes_raise_not_ported():
-    """What still raises: the sharded driver's lockstep branch, which SL and
-    OB need (ROADMAP A9), and ``evaluate`` on a scheme it does not know."""
+    """What still raises: the chunk API and the service on a sharded engine
+    (ROADMAP A9.2; SL and OB shard since their lockstep branch was ported),
+    and ``evaluate`` on a scheme it does not know."""
     from repro_torch.core.mesh import ShardMesh
     from repro_torch.core.scheduler import DualModeEngine
+    from repro_torch.runtime.service import ServiceConfig, StreamService
     for app_name in ("sl", "ob"):
         app = T_APPS[app_name]
-        with pytest.raises(NotImplementedError, match="A9"):
-            DualModeEngine(app, app.make_store(device="cpu"), device="cpu",
-                           mesh=ShardMesh((4,), ("dev",), device="cpu"))
+        eng = DualModeEngine(app, app.make_store(device="cpu"), device="cpu",
+                             mesh=ShardMesh((4,), ("dev",), device="cpu"))
+        with pytest.raises(NotImplementedError, match="A9.2"):
+            StreamService(eng, ServiceConfig(punct_interval=16))
+        with pytest.raises(NotImplementedError, match="A9.2"):
+            eng.run_stream_chunk(eng.init_store.values, {}, 0)
     _, _, jops, tapp, tstore = _interval("gs", n_events=8)
     with pytest.raises(ValueError, match="unknown scheme"):
         evaluate(tstore, port_ops(jops), tapp.funs, "bogus")

@@ -216,9 +216,9 @@ def test_sharded_engine_rejects_what_it_does_not_run():
     app = T_APPS["gs"]
     store = app.make_store(device="cpu")
     mesh = ShardMesh(*MESH1, device="cpu")
-    with pytest.raises(NotImplementedError, match="A9"):
+    with pytest.raises(ValueError, match="1-D mesh"):
         DualModeEngine(app, store, EngineConfig(scheme="tstream_lockstep"),
-                       device="cpu", mesh=mesh)
+                       device="cpu", mesh=mesh, layout="shared_everything")
     with pytest.raises(ValueError, match="TStream/mvlk"):
         DualModeEngine(app, store, EngineConfig(scheme="lock"),
                        device="cpu", mesh=mesh)
