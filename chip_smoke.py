@@ -80,7 +80,27 @@ Run from the repository root:  python3 chip_smoke.py [--seed N]
    temporary directory bitwise with the clean service run.  Its ``e2e
    service`` line gives the sustained events/s, the punctuation latency
    p50/p99 (enqueue to commit, ``ServiceRun``) and the launches a chunk.
-10. Every driven run of phases 4 to 9 follows one uncounted warm-up run of
+10. Sharded service phase: ``StreamService`` on a 4 x ``shared_nothing``
+   engine under a reshard-only controller, over a storm of 500-event
+   intervals (calm, Zipf theta 2.5 with every hot key on one residue of 4,
+   calm: GS 40, 80 and 40 intervals, SL 16, 32 and 16) in arrival batches
+   of 500 with jitter 50, 8 intervals a chunk, slack 4: GS on the
+   megakernel rung (10,000 records) and SL on the lockstep path (10,000
+   accounts + 10,000 assets, forced "partition").  Each run must migrate
+   live at least once (moved rows > 0) with no op dropped, launch 2
+   radix_partition a chunk (GS also one megakernel call) and one more a
+   migration, and be bitwise with the single-device card ``run_stream`` of
+   the in-order events; for GS a crash at ``reshard.apply``, resume and
+   replay must be bitwise with the uninterrupted elastic run, on its plan.
+   Its ``e2e sharded service`` line gives sustained events/s, latency
+   p50/p99, migrations, moved rows and launches a chunk.
+11. Baseline phase: the replicate-everything ``evaluate_sharded`` on one GS
+   interval (500 events, 5,000 ops, 10,000 records) under each layout on 4
+   shards, forced "partition" (one radix_partition and one segscan_affine
+   launch), bitwise with the single-device staged evaluation on the card;
+   its ``e2e baseline`` line gives its wall time beside the fused sharded
+   driver's for the same interval and layout.
+12. Every driven run of phases 4 to 11 follows one uncounted warm-up run of
    the same engine and stream, sets the launch counters to 0 just before it
    and reads them just after; every kernel must have launched, and each
    run must take the rung its plan names (``DualModeEngine.last_rung``).
@@ -92,7 +112,7 @@ Run from the repository root:  python3 chip_smoke.py [--seed N]
    radix_partition calls (every path the kernel picks by shape) is held
    bitwise against its twin and at 64, 512 and 1024 threads per block
    (``hold`` lines).
-11. Prints one JSON line of kernel numbers, the card line again, and last
+13. Prints one JSON line of kernel numbers, the card line again, and last
    ``{"ok": true, "device": {...}}``.
 
 Any failure raises and exits non-zero.  Without a CUDA card it exits 1 and
@@ -610,9 +630,10 @@ SHARDED = (
 
 
 def engine(app_name, method, dev, *, mesh=None, layout="shared_nothing",
-           probe=False, n_keys=None, **cfg_kw):
+           probe=False, n_keys=None, slack=2.0, **cfg_kw):
     """An engine on ``dev``; ``n_keys`` sizes a GS store other than the
-    app's 10,000 records; ``cfg_kw`` sets more of its EngineConfig."""
+    app's 10,000 records; ``slack`` is a sharded engine's exchange slack;
+    ``cfg_kw`` sets more of its EngineConfig."""
     from repro_torch.apps import ALL_APPS
     from repro_torch.core.scheduler import DualModeEngine, EngineConfig
     app = ALL_APPS[app_name]
@@ -621,7 +642,7 @@ def engine(app_name, method, dev, *, mesh=None, layout="shared_nothing",
     store = (app.make_store(device=dev) if n_keys is None else
              app.make_store(n_keys, device=dev))
     return DualModeEngine(app, store, cfg, device=dev, mesh=mesh,
-                          layout=layout)
+                          layout=layout, exchange_slack=slack)
 
 
 def timed(eng, stream, interval=INTERVAL):
@@ -1306,9 +1327,10 @@ def service_shapes(label, run, card) -> None:
     """Run ``run()`` (a service run) recording its kernel calls: each
     launch shape of radix_partition and the segscans once, held and timed
     alone (``hold`` and ``shape`` lines), and the first megakernel chunk
-    call held against its stream twin and timed beside its bound."""
+    call (of the single-device or the sharded driver) held against its
+    stream twin and timed beside its bound."""
     import repro_torch.core.scheduler as sched
-    from repro_torch.core.engines import simple_affine_luts
+    import repro_torch.core.sharded_stream as sharded
     from repro_torch.kernels.megakernel.ref import fused_chain_stream_ref
     mega = []
     real = sched.fused_chain_eval
@@ -1320,11 +1342,11 @@ def service_shapes(label, run, card) -> None:
         if len(mega) == 1:
             mega.append(tuple(out[:2]))
         return out
-    sched.fused_chain_eval = rec
+    sched.fused_chain_eval = sharded.fused_chain_eval = rec
     try:
         calls = recording(run)
     finally:
-        sched.fused_chain_eval = real
+        sched.fused_chain_eval = sharded.fused_chain_eval = real
     seen, first = set(), []
     for c in calls:
         kernel, args = c[0], c[2]
@@ -1349,7 +1371,9 @@ def service_shapes(label, run, card) -> None:
     bnd = bound(*mega_work(values, sops, ch, pad_uid, n_luts))
     print(f"shape megakernel[{label}] intervals x rows = "
           f"{list(sops.uid.shape)} W={values.shape[-1]} slots="
-          f"{values.shape[0]}: bitwise with the stream twin; ms={ms} "
+          f"{values.shape[-2]}" + (f" per shard x {values.shape[0]}"
+                                   if values.dim() == 3 else "")
+          + f": bitwise with the stream twin; ms={ms} "
           f"bound_ms={bnd[0]} ({bnd[1]}) share_of_bound={bnd[0] / ms} "
           f"| {card}")
 
@@ -1484,6 +1508,222 @@ def service_phase(stream, lock, single, card, cuda, launches) -> None:
     print(f"service phase: {time.perf_counter() - t0:.1f} s")
 
 
+# The elastic sharded service (ROADMAP A9.2): a storm of 500-event intervals,
+# calm, hot (Zipf theta 2.5 with every hot key on one residue of the shard
+# count, so one shard's owner bucket takes the hot phase) and calm, replayed
+# in arrival batches of 500 with jitter 50, on 4 x shared_nothing under a
+# reshard-only controller (the reference's tests/reshard_worker.py
+# controller).  A slack of the shard count sizes each bucket for all of a
+# shard's ops, so the hot phase cannot drop one.  GS runs 40, 80 and 40
+# intervals; SL 16, 32 and 16, since its hot phase chains most transfers on
+# a few accounts and the lockstep walk runs at a few thousand events/s there
+# (on one device too); its migration still lands in the hot phase.
+HOT = dict(theta=2.5, align_mod=N_SHARDS)
+STORMS = {"gs": ((40, {}), (80, HOT), (40, {})),
+          "sl": ((16, {}), (32, HOT), (16, {}))}
+STORM_SLACK = float(N_SHARDS)
+
+
+def storm_controller():
+    from repro_torch.runtime.controller import ControllerConfig
+    return ControllerConfig(window=4, sustain=2, cooldown=4,
+                            slack_widen=False, reshard_imbalance=3.0,
+                            reshard_max_moves=24)
+
+
+def sharded_service_phase(card, cuda, launches, seed) -> None:
+    """The service on a 4-shard shared_nothing engine on the card: GS on
+    the megakernel rung, SL on the lockstep path (forced "partition").  Each
+    run migrates live at least once with no op dropped, its state and
+    outputs bitwise with the single-device card ``run_stream`` of the
+    in-order events; for GS a crash at ``reshard.apply``, resume and replay
+    are bitwise with the uninterrupted elastic run, on its plan."""
+    import tempfile
+    from repro_torch import LAUNCHES, reset_launches
+    from repro_torch.apps import ALL_APPS
+    from repro_torch.core.intervals import PhasedReplaySource, WatermarkPolicy
+    from repro_torch.core.mesh import ShardMesh
+    from repro_torch.runtime.faults import (RESHARD_APPLY, Fault, FaultPlane,
+                                            InjectedCrashError)
+    from repro_torch.runtime.service import ServiceConfig, StreamService
+    t0 = time.perf_counter()
+    cfg = lambda **kw: ServiceConfig(
+        punct_interval=INTERVAL, chunk_intervals=SERVICE_CHUNK,
+        watermark=WatermarkPolicy(allowed_lateness=SERVICE_JITTER),
+        controller=storm_controller(), **kw)
+    for app_name, method, per_chunk in (
+            ("gs", "megakernel", dict(radix_partition=2, megakernel=3)),
+            ("sl", "partition", dict(radix_partition=2))):
+        label = f"sharded service {app_name} rung={method}"
+        storm = STORMS[app_name]
+        n_i = sum(k for k, _ in storm)
+        n_chunks = n_i // SERVICE_CHUNK
+        src = PhasedReplaySource(
+            ALL_APPS[app_name].gen_events,
+            [(k * INTERVAL, kw) for k, kw in storm], seed=seed + 21,
+            arrival_batch=INTERVAL, jitter=SERVICE_JITTER)
+        ref_outs, ref_values, ref_wall = timed(engine(app_name, method, cuda),
+                                               src.in_order_events)
+        fresh = lambda: engine(
+            app_name, method, cuda, slack=STORM_SLACK,
+            mesh=ShardMesh((N_SHARDS,), ("dev",), device=cuda))
+        service_shapes(label, lambda: StreamService(fresh(), cfg()).run(src),
+                       card)                             # warm-up
+        eng = fresh()
+        reset_launches()
+        rec = StreamService(eng, cfg()).run(src)
+        got = dict(LAUNCHES)
+        for k, v in got.items():
+            launches[k] += v
+        check_rung(eng, method, label)
+        place = rec.stats["placement"]
+        migs = place["migrations"]
+        if not migs or place["moved_rows"] <= 0:
+            raise AssertionError(f"{label}: no live migration ({place})")
+        want = {k: per_chunk.get(k, 0) * n_chunks for k in got}
+        want["radix_partition"] += len(migs)   # one for each migration
+        if got != want:
+            raise AssertionError(f"{label}: launches {got}, expected {want}")
+        drops = rec.stats["drops"]
+        if any(drops.values()) or rec.stats["processed"] != n_i * INTERVAL:
+            raise AssertionError(f"{label}: drops {drops}, processed "
+                                 f"{rec.stats['processed']}")
+        values = torch.from_numpy(rec.final_values)
+        assert_equal(values, ref_values, f"{label}: state vs single device")
+        check_outputs(rec.outputs, ref_outs, label, n_i, bitwise=True)
+        pct = rec.latency_percentiles((50, 99))
+        print(f"e2e {label} mesh=({N_SHARDS},) chunk={SERVICE_CHUNK} "
+              f"intervals={n_i}x{INTERVAL} storm={[k for k, _ in storm]} "
+              f"jitter={SERVICE_JITTER}: sustained_events_per_s="
+              f"{rec.sustained_events_per_s()} latency_p50_s={pct['p50']} "
+              f"latency_p99_s={pct['p99']} migrations={len(migs)} "
+              f"moved_rows={place['moved_rows']} migration_boundaries="
+              f"{[m['g'] for m in migs]} moved={[m['moved'] for m in migs]} "
+              f"apply_s={[m['apply_s'] for m in migs]} imbalance="
+              f"{place['imbalance']} shard_events={place['shard_events']} "
+              f"capacity={rec.stats['exchange']['capacity']} launches={got} "
+              f"launches_per_chunk="
+              f"{ {k: v / n_chunks for k, v in got.items() if v} } "
+              f"single_device_run_stream_events_per_s="
+              f"{n_i * INTERVAL / ref_wall} card={card}")
+        print(f"e2e {label}: state and outputs bitwise with the "
+              "single-device card run_stream, no op dropped")
+        if app_name != "gs":
+            continue
+        service_profile(label, fresh(), lambda: src, cfg)
+        # crash at reshard.apply -> resume -> replay, snapshots every 5 chunks
+        with tempfile.TemporaryDirectory() as d:
+            snap_every = 5 * SERVICE_CHUNK
+            ref = StreamService(fresh(), cfg(
+                snapshot_every=snap_every,
+                ckpt_dir=os.path.join(d, "ref"))).run(src)
+            scfg = cfg(snapshot_every=snap_every,
+                       ckpt_dir=os.path.join(d, "go"))
+            svc = StreamService(fresh(), scfg)
+            try:
+                svc.run(src, faults=FaultPlane([Fault(
+                    site=RESHARD_APPLY, at=0, kind="crash")]))
+                raise AssertionError(f"{label}: the injected crash at "
+                                     "reshard.apply did not fire")
+            except InjectedCrashError:
+                pass
+            crashed = svc.last_run
+            res = StreamService(fresh(), scfg).resume(src)
+        snap = res.stats["replayed"] // INTERVAL
+        if not crashed.migrations or snap != crashed.snapshots[-1]:
+            raise AssertionError(f"{label}: crashed after "
+                                 f"{crashed.migrations}, resumed at {snap}")
+        if res.stats["controller"]["plan"] != ref.stats["controller"]["plan"]:
+            raise AssertionError(f"{label}: the resumed plan differs")
+        assert_equal(torch.from_numpy(ref.final_values), values,
+                     f"{label}: snapshotting run vs the clean run")
+        assert_equal(torch.from_numpy(res.final_values), values,
+                     f"{label}: resumed state vs the uninterrupted run")
+        check_outputs(res.outputs, ref.outputs[snap:], label + " resumed",
+                      n_i - snap, bitwise=True)
+        check_outputs(crashed.outputs, ref.outputs[:len(crashed.outputs)],
+                      label + " before the crash", len(crashed.outputs),
+                      bitwise=True)
+        print(f"e2e {label}: crash at reshard.apply (boundary "
+              f"{crashed.migrations[0]['g']}) -> resume from the snapshot at "
+              f"{snap} -> replay: bitwise with the uninterrupted elastic "
+              "run, on its plan")
+    print(f"sharded service phase: {time.perf_counter() - t0:.1f} s")
+
+
+BASELINE_LAYOUTS = (("shared_nothing", (N_SHARDS,), ("dev",)),
+                    ("shared_per_socket", (2, N_SHARDS // 2),
+                     ("socket", "core")),
+                    ("shared_everything", (N_SHARDS,), ("dev",)))
+
+
+def host_s(fn, reps: int = 5) -> float:
+    """Median host-clock seconds of ``fn()`` waited for on the card."""
+    out = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        out.append(time.perf_counter() - t0)
+    return float(np.median(out))
+
+
+def baseline_phase(stream, card, cuda, launches) -> None:
+    """The replicate-everything baseline (``core/sharded.evaluate_sharded``)
+    on one GS interval under each layout on 4 shards, forced "partition":
+    bitwise with the single-device staged evaluation on the card, beside the
+    fused sharded driver's time for the same interval and layout."""
+    from repro_torch import LAUNCHES, reset_launches
+    from repro_torch.apps import ALL_APPS
+    from repro_torch.convert import events_to_torch
+    from repro_torch.core.blotter import build_opbatch
+    from repro_torch.core.engines import eval_tstream_scan
+    from repro_torch.core.mesh import ShardMesh
+    from repro_torch.core.sharded import evaluate_sharded
+    t0 = time.perf_counter()
+    app = ALL_APPS["gs"]
+    store = app.make_store(device=cuda)
+    ev = {k: np.asarray(v)[:INTERVAL] for k, v in stream["gs"].items()}
+    ops, _ = build_opbatch(app, store, events_to_torch(ev, cuda), 0)
+    _, want, _ = eval_tstream_scan(store, ops, app.funs, rowmajor_ts=True,
+                                   restructure_method="partition")
+    for layout, shape, names in BASELINE_LAYOUTS:
+        label = f"baseline gs {layout}"
+        mesh = ShardMesh(shape, names, device=cuda)
+        fn = lambda: evaluate_sharded(store, ops, app.funs, mesh, layout,
+                                      restructure_method="partition")
+        calls = recording(fn)                            # warm-up
+        hold_radix(label, calls)
+        shape_times(label, calls, card)
+        reset_launches()
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        got = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t1
+        counts = dict(LAUNCHES)
+        for k, v in counts.items():
+            launches[k] += v
+        expect = {k: 0 for k in counts}
+        expect.update(radix_partition=1, segscan_affine=1)
+        if counts != expect:
+            raise AssertionError(f"{label}: launches {counts}, expected "
+                                 f"{expect}")
+        assert_equal(got, want[:-1], f"{label}: state vs single device")
+        eng = engine("gs", "partition", cuda, mesh=mesh, layout=layout)
+        timed(eng, ev)
+        fused = host_s(lambda: eng.run_stream(eng.init_store.values, ev,
+                                              INTERVAL))
+        base = host_s(fn)
+        print(f"e2e {label} mesh={shape} ops={ops.uid.shape[-1]} "
+              f"records={store.n_slots}: wall_s={wall} median_wall_s={base} "
+              f"fused_sharded_interval_s={fused} baseline_over_fused="
+              f"{base / fused} launches={counts} bitwise with the "
+              f"single-device staged evaluation card={card}")
+    print(f"baseline phase: {time.perf_counter() - t0:.1f} s")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1519,6 +1759,8 @@ def main() -> int:
     lock = lockstep_phase(card, cuda, launches, args.seed)
     sharded_lockstep_phase(lock, card, cuda, launches)
     service_phase(stream, lock, single, card, cuda, launches)
+    sharded_service_phase(card, cuda, launches, args.seed)
+    baseline_phase(stream, card, cuda, launches)
     missing = sorted(k for k in LAUNCHES if launches[k] <= 0)
     if missing:
         raise AssertionError(f"kernels never launched on the driven paths: "

@@ -23,7 +23,12 @@ manifest records each leaf's byte size and CRC32, so
   which lets a service resume fall back to the newest snapshot that
   verifies.
 
-Not ported here: ``reshard``, which loads onto another mesh (ROADMAP A9.2).
+``reshard`` loads a snapshot for another mesh.  The reference's
+``spec_fn(target, mesh)`` gives each leaf a JAX sharding; the port's mesh
+(``core/mesh.ShardMesh``) keeps every shard on one device, so here it gives
+each leaf the device to load onto.  The service's snapshots hold canonical
+uid-order values, so a snapshot cut on any mesh restores onto any other
+through ``DualModeEngine.carry_in``.
 """
 from __future__ import annotations
 
@@ -266,12 +271,14 @@ def prune_checkpoints(ckpt_dir: str, keep_last: int) -> List[int]:
 
 
 def load_checkpoint(ckpt_dir: str, step: int, target: Tree,
-                    verify: bool = False) -> Tree:
+                    verify: bool = False, devices: Tree = None) -> Tree:
     """Restore into the structure of ``target``, a tree of tensors or numpy
     arrays (only their shapes are read).  A tensor leaf comes back as a
-    tensor on its device, any other leaf as a numpy array.  With
-    ``verify``, integrity-check the snapshot first and raise
-    ``ValueError`` instead of loading damaged bytes."""
+    tensor on its device, any other leaf as a numpy array; ``devices``, a
+    tree of devices shaped like ``target``, places every leaf as a tensor
+    on its own device instead.  With ``verify``, integrity-check the
+    snapshot first and raise ``ValueError`` instead of loading damaged
+    bytes."""
     src = os.path.join(ckpt_dir, f"step_{step:08d}")
     if verify:
         ok, why = verify_checkpoint(ckpt_dir, step)
@@ -281,8 +288,14 @@ def load_checkpoint(ckpt_dir: str, step: int, target: Tree,
     with open(os.path.join(src, "manifest.json")) as f:
         manifest = json.load(f)
 
+    flat = _flatten(target)
+    places = ([d for _, d in _flatten(devices)] if devices is not None
+              else [None] * len(flat))
+    if len(places) != len(flat):
+        raise ValueError(f"devices has {len(places)} leaves, target "
+                         f"{len(flat)}")
     out = []
-    for path, leaf in _flatten(target):
+    for (path, leaf), place in zip(flat, places):
         key = _path_str(path)
         ent = manifest["leaves"].get(key)
         if ent is None:
@@ -291,12 +304,20 @@ def load_checkpoint(ckpt_dir: str, step: int, target: Tree,
         expect = tuple(getattr(leaf, "shape", arr.shape))
         if tuple(arr.shape) != expect:
             raise ValueError(f"{key}: ckpt shape {arr.shape} != {expect}")
-        if isinstance(leaf, torch.Tensor):
+        if isinstance(leaf, torch.Tensor) or place is not None:
             t = torch.from_numpy(arr.view(np.int16) if ent["dtype"] ==
                                  "bfloat16" else arr)
             if ent["dtype"] == "bfloat16":
                 t = t.view(torch.bfloat16)
-            out.append(t.to(leaf.device))
+            out.append(t.to(leaf.device if place is None else place))
         else:
             out.append(arr)
     return _unflatten(target, iter(out))
+
+
+def reshard(ckpt_dir: str, step: int, target: Tree, mesh, spec_fn) -> Tree:
+    """Load a checkpoint for another mesh: ``spec_fn(target, mesh)``
+    returns a tree like ``target`` holding the device of each leaf (on a
+    ``ShardMesh``, whose shards share one device, ``mesh.device``)."""
+    return load_checkpoint(ckpt_dir, step, target,
+                           devices=spec_fn(target, mesh))

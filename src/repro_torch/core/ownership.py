@@ -25,11 +25,12 @@ What differs from the reference:
   port keeps the counting pass alone.
 * The hash-probe table is one int32 key table (``kernels/hash_probe``), not
   two float32 tables of 16-bit halves.
-* ``rebalance_ownership`` is the reference's, pure numpy: the service's
-  controller calls it.  ``migration_plan`` waits for live resharding, which
-  migrates the resident carry of the chunked service (ROADMAP A9.2).  ``chunk_shard_output`` / ``unchunk_output`` work around
-  ``shard_map``'s output specs; a stacked mesh has no such outputs, so they
-  have no counterpart.
+* ``rebalance_ownership`` and ``migration_plan`` are the reference's, pure
+  numpy on the host: the service's controller calls the first, live
+  resharding (``ShardedStream.reshard``) the second.
+* ``chunk_shard_output`` / ``unchunk_output`` work around ``shard_map``'s
+  output specs; a stacked mesh has no such outputs, so they have no
+  counterpart.
 """
 from __future__ import annotations
 
@@ -178,6 +179,41 @@ def rebalance_ownership(n_slots: int, n_owners: int, overrides,
     stripe = np.arange(n_slots, dtype=np.int64) % n_owners
     diff = np.flatnonzero(owner != stripe)
     return tuple((int(u), int(owner[u])) for u in diff)
+
+
+def migration_plan(old: Ownership, new: Ownership):
+    """Host-side plan for the moved-rows migration exchange.
+
+    For each shard d and local block row r (permuted uid p = d*per+r):
+      ``dst``  i32[n_dev, per]: new owner of the uid stored there under
+               ``old`` (== d when the row stays put; dead padding rows
+               route to their own shard so no traffic is generated)
+      ``nidx`` i32[n_dev, per]: the row's index in the NEW owner's block
+               (dead rows -> per, the local padding slot, overwritten by
+               the pad-row reset)
+      ``cap``  int: max rows moved between any (src, dst) pair, the
+               all_to_all bucket capacity.  Exact by construction: a
+               migration never drops rows.
+    Shapes are migration-invariant because swaps preserve bin sizes.
+    """
+    if old.per != new.per or old.n_owners != new.n_owners:
+        raise ValueError(f"migration between unequal ownerships: "
+                         f"{old.n_owners} x {old.per} -> "
+                         f"{new.n_owners} x {new.per}")
+    n_dev, per = old.n_owners, old.per
+    fwd_o = old.fwd[:-1].cpu().numpy()   # [S]
+    fwd_n = new.fwd[:-1].cpu().numpy()
+    dst = np.tile(np.arange(n_dev, dtype=np.int32)[:, None], (1, per))
+    nidx = np.full((n_dev, per), per, np.int32)
+    dst.flat[fwd_o] = (fwd_n // per).astype(np.int32)
+    nidx.flat[fwd_o] = (fwd_n % per).astype(np.int32)
+    src = np.repeat(np.arange(n_dev), per).reshape(n_dev, per)
+    movers = dst != src
+    cap = 0
+    if movers.any():
+        pair = src[movers].astype(np.int64) * n_dev + dst[movers]
+        cap = int(np.bincount(pair).max())
+    return dst, nidx, max(1, cap)
 
 
 def permute_values(own: Ownership, values: torch.Tensor) -> torch.Tensor:

@@ -28,7 +28,9 @@ program one chunk of K intervals at a time: ``run_stream_chunk`` takes the
 carry and ``[K, interval, ...]`` device columns and returns the next carry,
 so K-chunked execution is the monolithic run's schedule, bit for bit;
 ``ensure_variant`` binds a scheme/rung plan variant for the controller.  On
-a sharded engine the chunk API is ROADMAP A9.2, with live resharding.
+a sharded engine the carry is the ownership-block layout
+(``carry_in``/``carry_out``), and ``apply_resharding`` migrates it live onto
+a new placement between chunks.
 """
 from __future__ import annotations
 
@@ -223,18 +225,27 @@ class DualModeEngine:
 
         Returns ``(res_all, ebs_all, values', stats)``; ``stats`` is
         ``dict(engine=EngineStats)`` with the K intervals' counters stacked
-        (``[K]`` tensors).  The associative rungs read the host nowhere,
-        so the call returns before the device finishes; the lockstep path
-        reads each sweep's round sizes.  Materialize the outputs with
-        :meth:`post_outputs`.
+        (``[K]`` tensors) on one device, and ``dict(exchange=...)`` on a
+        sharded engine (``ShardedStream.run_chunk``: dropped/shipped/
+        max_fill per interval, capacity, shard_load, slot_load).  There the
+        carry is the ownership-block layout and is not written.  The
+        associative rungs read the host nowhere, so the call returns before
+        the device finishes; the lockstep path reads each sweep's round
+        sizes.  Materialize the outputs with :meth:`post_outputs`.
         """
-        if self._sharded is not None:
-            raise NotImplementedError(SHARDED_CHUNK_NOT_PORTED)
         some = next(iter(batched.values()))
         k, interval = int(some.shape[0]), int(some.shape[1])
         if not 0 <= int(ts0) or int(ts0) + k * interval > 2 ** 31 - 1:
             raise ValueError(f"ts0={ts0}: the chunk's timestamps must fit "
                              f"int32 (use runtime.service.ts_base_for)")
+        if self._sharded is not None:
+            if variant is not None:
+                raise ValueError("the sharded driver has no scheme/rung plan "
+                                 "variants")
+            res_all, ebs_all, values, xst = self._sharded.run_chunk(
+                values, batched, int(ts0))
+            self.last_rung = self._sharded.last_rung
+            return res_all, ebs_all, values, dict(exchange=xst)
         fn = self._fused if variant is None else self._variants[variant]
         res_all, ebs_all, values, est, rung = fn(
             values.to(self.device, copy=True), batched, int(ts0))
@@ -252,11 +263,6 @@ class DualModeEngine:
         raise NotImplementedError(
             "chunk_lowered_text reads compiled XLA HLO, which eager PyTorch "
             "does not have; what replaces it is open (ROADMAP A8.2)")
-
-    @property
-    def reshardable(self) -> bool:
-        """Live migration of the carry (ROADMAP A9.2): not ported yet."""
-        return False
 
     # -- carry and ownership (reference: scheduler.py, elastic carry API) --
     def carry_in(self, values):
@@ -276,11 +282,26 @@ class DualModeEngine:
         """Current ownership overrides (() = pure striping)."""
         return self._sharded.owners if self._sharded is not None else ()
 
+    @property
+    def reshardable(self) -> bool:
+        """Whether ``apply_resharding`` can migrate the carry: a sharded
+        engine under shared_nothing on more than one shard, without the
+        probe route (``ShardedStream.reshardable``)."""
+        return self._sharded is not None and self._sharded.reshardable
+
     def rebind_ownership(self, overrides) -> None:
         """Rebind the sharded plan to ``overrides`` without moving data;
         identity on the single-device driver."""
         if self._sharded is not None and overrides != self._sharded.owners:
             self._sharded.set_ownership(overrides)
+
+    def apply_resharding(self, carry, overrides):
+        """Live migration of the resident carry onto ``overrides`` (the
+        sharded driver; ``ShardedStream.reshard``).  Returns ``(carry,
+        moved_rows)``; identity on one device."""
+        if self._sharded is None:
+            return carry, 0
+        return self._sharded.reshard(carry, overrides)
 
     def _outs(self, res_all, ebs_all, n_intervals: int) -> List[Dict]:
         """Shared output program + one bulk device-to-host copy, split per
@@ -288,11 +309,6 @@ class DualModeEngine:
         outs = {k: v.cpu().numpy()
                 for k, v in _post_stream(res_all, ebs_all, app=self.app).items()}
         return [{k: v[i] for k, v in outs.items()} for i in range(n_intervals)]
-
-
-SHARDED_CHUNK_NOT_PORTED = (
-    "the chunk API on a sharded engine (ShardedStream.run_chunk) comes with "
-    "live resharding: ROADMAP A9.2")
 
 
 def _stack(dicts: List[Dict[str, torch.Tensor]]) -> Dict[str, torch.Tensor]:

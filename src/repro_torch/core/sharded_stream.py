@@ -60,9 +60,12 @@ sequential sweep over every shard's gathered residue ops in global (ts,
 slot) order.  So the sharded lockstep run is bitwise the single-device one,
 on the CPU and on the card.
 
-Not ported here: the chunk entry ``run_chunk`` and live resharding
-(``reshard``, ``_migrate_impl``), which move the chunked service's resident
-carry (ROADMAP A9.2).
+The chunked service drives the same program one chunk at a time
+(``run_chunk``: blocks in, blocks out, so chunks chain with no per-chunk
+permute), and moves its resident carry onto a new placement between chunks
+(``reshard``: live migration under ``shared_nothing``; only the rows whose
+owner changed travel, through one ``all_to_all`` at the exact capacity of
+``ownership.migration_plan``, so a migration never drops a row).
 """
 from __future__ import annotations
 
@@ -86,8 +89,8 @@ from .engines import (INF_LEVEL, _empty_results, _lockstep_sweep,
 from .mesh import ShardMesh
 from .ownership import (LAYOUTS, bucket_by_owner, build_ownership,
                         build_probe_route, exchange_capacity,
-                        make_local_store, permute_values, route_gather,
-                        unpermute_values, unroute_gather)
+                        make_local_store, migration_plan, permute_values,
+                        route_gather, unpermute_values, unroute_gather)
 from .restructure import (megakernel_engaged, restructure_path,
                           restructure_stream, take_along)
 from .scheduler import _post_stream, _stack
@@ -168,12 +171,81 @@ class ShardedStream:
         """Current ownership overrides (sorted ``((uid, owner), ...)``)."""
         return self.own.overrides
 
+    @property
+    def reshardable(self) -> bool:
+        """Live migration needs one state block per shard (the moved-rows
+        exchange is a shard-level all_to_all), more than one owner to move
+        to, and the direct-addressed route (the probe table records owners
+        at construction)."""
+        return (self.layout == "shared_nothing" and self.n_dev > 1
+                and self.probe is None)
+
     def set_ownership(self, overrides) -> None:
         """Rebind the plan to a new placement without touching data (the
         canonical values re-enter through ``carry_in`` under it)."""
         overrides = tuple(sorted((int(u), int(o)) for u, o in overrides))
         if overrides != self.own.overrides:
             self._bind_ownership(overrides)
+
+    def reshard(self, blocks: torch.Tensor, overrides):
+        """Live migration: move the block carry onto a new placement.
+
+        Rows that stay keep their shard and move to their new index there;
+        only the moved rows travel, bucketed by new owner
+        (``bucket_by_owner``) at the exact capacity from the host-side
+        :func:`migration_plan` and shipped with one ``all_to_all``, so a
+        migration never drops a row.  Then the plan rebinds to the new
+        ownership.  Returns ``(blocks, moved_rows)``.  Must run at a
+        punctuation boundary with the pipeline drained (the service's
+        snapshot barrier).
+        """
+        if not self.reshardable:
+            raise ValueError(f"live migration needs shared_nothing on more "
+                             f"than one shard without the probe route (got "
+                             f"{self.layout!r} on {self.n_dev} shards, "
+                             f"probe={self.probe is not None})")
+        overrides = tuple(sorted((int(u), int(o)) for u, o in overrides))
+        if overrides == self.own.overrides:
+            return blocks, 0
+        new_own = build_ownership(self.store, self._n_owners, overrides)
+        dst, nidx, cap = migration_plan(self.own, new_own)
+        blocks, moved = self._migrate(blocks, dst, nidx, cap)
+        self._bind_ownership(overrides)
+        return blocks, moved
+
+    def _migrate(self, blocks, dst, nidx, cap: int):
+        """Reference: ``_migrate_impl`` / ``_migrate_body``, every shard at
+        once.  ``dst``/``nidx`` (``[n_dev, per]``, from ``migration_plan``)
+        give each block row its new owner and its row in that owner's
+        block."""
+        n_dev, per, w = self.n_dev, self.own.per, blocks.shape[-1]
+        dev = blocks.device
+        b = blocks.reshape(n_dev, per + 1, w)
+        rows = b[:, :per]
+        dstv = torch.from_numpy(dst).to(dev)
+        nidxv = torch.from_numpy(nidx).to(dev)
+        stay = dstv == torch.arange(n_dev, dtype=I32, device=dev)[:, None]
+        out = torch.zeros_like(b)
+        # rows that stay scatter straight to their new index; the others
+        # (and dead padding rows, nidx == per) land on the pad row as 0
+        at = torch.where(stay, nidxv, torch.full_like(nidxv, per)).long()
+        out.scatter_(1, at[..., None].expand(n_dev, per, w).contiguous(),
+                     torch.where(stay[..., None], rows,
+                                 torch.zeros_like(rows)))
+        # moved rows bucket by new owner and ship with ONE all_to_all;
+        # cells beyond a pair's move count hold 0.0 at index per
+        plan = bucket_by_owner(
+            torch.where(stay, torch.full_like(dstv, n_dev), dstv), n_dev,
+            cap, use_kernels=self.cfg.use_kernels,
+            threads=self.cfg.block_param("radix_partition"))
+        srows = route_gather(plan, rows, 0.0)          # [n_dev, n_dev, cap, w]
+        sidx = route_gather(plan, nidxv, per)          # [n_dev, n_dev, cap]
+        rrows = self.mesh.all_to_all(srows, self.axes, 0, 0, dim=0)
+        ridx = self.mesh.all_to_all(sidx, self.axes, 0, 0, dim=0)
+        out.scatter_(1, ridx.reshape(n_dev, -1, 1).expand(
+            n_dev, n_dev * cap, w).long(), rrows.reshape(n_dev, -1, w))
+        out[:, per] = 0.0
+        return out.reshape(n_dev * (per + 1), w), int(plan.ok.sum())
 
     def set_exchange_slack(self, slack: float) -> None:
         """Widen (or narrow) the per-bucket capacity from the next call on;
@@ -220,10 +292,7 @@ class ShardedStream:
         ``last_rung`` (the rung of the state-access mode)."""
         self.last_rung = None
         n = len(next(iter(event_stream.values())))
-        interval = int(punct_interval)
-        if interval % self.n_dev:
-            raise ValueError(f"punct_interval={interval} must divide evenly "
-                             f"across {self.n_dev} shards")
+        interval = self._check_interval(punct_interval)
         n_intervals = n // interval
         if n_intervals == 0:
             # publish empty (not stale) exchange stats for this call
@@ -258,6 +327,30 @@ class ShardedStream:
                                          app=self.app).items()}
         return [{k: v[i] for k, v in outs.items()}
                 for i in range(n_intervals)], values
+
+    def run_chunk(self, blocks: torch.Tensor, batched, ts0: int):
+        """Chunked service entry (see ``DualModeEngine.run_stream_chunk``).
+
+        ``blocks`` is the resident block carry (``carry_in`` of the
+        canonical values; it is not written) and ``batched`` holds ``[K,
+        interval, ...]`` event columns on the mesh's device.  Returns the
+        chunk's per-op results and event payloads, the next carry and the
+        chunk's exchange stats (``dropped``/``shipped``/``max_fill`` per
+        interval, ``capacity``, ``shard_load``, ``slot_load``; the lockstep
+        schedule adds ``swept`` and ``residue``), as ``run_stream`` gives
+        them.  Overflow is not logged here: the service logs each drop
+        category once per run."""
+        self.last_rung = None
+        self._check_interval(next(iter(batched.values())).shape[1])
+        return self._blocks_impl(blocks, batched, int(ts0))
+
+    def _check_interval(self, interval) -> int:
+        """Each shard registers an equal slice of every interval."""
+        interval = int(interval)
+        if interval % self.n_dev:
+            raise ValueError(f"punct_interval={interval} must divide evenly "
+                             f"across {self.n_dev} shards")
+        return interval
 
     # -- the whole-stream program (block-carry form) ------------------------
     def _blocks_impl(self, blocks, events_b, ts0: int):

@@ -15,8 +15,7 @@ policy, controller and drop accounting.  What differs:
 * on the card the kernels are built before the first chunk (nvcc takes
   longer than ``watchdog_grace_s`` is meant to cover);
 * ``ChunkProfiler`` windows are ``torch.profiler``'s, opened and closed on
-  the executor thread; HLO cost attribution is not ported (ROADMAP A8.2);
-* a service on a sharded engine is ROADMAP A9.2 and raises.
+  the executor thread; HLO cost attribution is not ported (ROADMAP A8.2).
 
 ``StreamService`` turns the batch-replay drivers into a steady-state
 pipeline over an unbounded arrival source:
@@ -32,8 +31,9 @@ pipeline over an unbounded arrival source:
   after chunk *i+1* is dispatched.
 * **Chunked == monolithic**: chunk boundaries are punctuation boundaries
   and the carry is the state buffer, so K-chunked execution is
-  bit-identical to one ``run_stream`` over the same events
-  (tests/test_torch_service.py).
+  bit-identical to one ``run_stream`` over the same events, on both the
+  single-device and sharded drivers (tests/test_torch_service.py,
+  tests/test_torch_service_sharded.py).
 * **Backpressure / admission control**: the ready queue is bounded
   (``queue_intervals``); when the source outruns the engine the service
   either stops pulling (``admission="block"``) or drops whole arrival
@@ -73,22 +73,37 @@ Adaptive control plane (DESIGN.md §2.9, ``runtime/controller.py``):
 * With ``ServiceConfig.controller`` set, a deterministic feedback
   controller runs on the main thread at every chunk boundary: it reads
   the per-chunk record window (see below), moves the live plan inside a
-  small legal lattice (scheme degradation, chunk size K, restructure
-  rung), and the chunk is submitted *carrying* its plan — the executor
-  binds the plan variant at the dispatch that first observes a new plan.  Every switch appends to a monotone decision
+  small legal lattice (scheme degradation, exchange slack, chunk size K,
+  restructure rung), and the chunk is submitted *carrying* its plan — the
+  executor binds the plan variant / slack at the dispatch that first
+  observes a new plan.  Every switch appends to a monotone decision
   trace; punctuation-aligned snapshots publish the trace (+ the record
   window tail) in their manifest and ``resume`` folds it back, so
   crash → restore → replay of an adaptive run is bitwise identical to the
   uninterrupted adaptive run.
+* ``escalate_overflow`` is sugar for an implicit slack-only controller: a
+  sharded chunk that dropped ops triggers a logged ``exchange_slack``
+  widening at a later boundary, up to ``escalate_overflow`` times — a
+  traced decision, so it composes with snapshots.
 * **Per-chunk time series**: the service keeps a ring buffer of the last
   ``chunk_record_ring`` chunk records (latency, failed ops, chain stats,
-  queue fill) — the controller's observation window, exposed as
-  ``stats["chunks"]``.
+  exchange drop/fill, queue fill) — the controller's observation window,
+  exposed as ``stats["chunks"]``.
 
-The reference's sharded service (exchange slack escalation, elastic
-resharding with live migration, DESIGN.md §2.10) comes with ROADMAP A9.2;
-until then a sharded engine is refused and the exchange drop counter
-stays 0.
+Elastic resharding (DESIGN.md §2.10):
+
+* On the sharded driver every chunk record also carries the per-shard
+  access histogram (``x_shard``) and the chunk's hottest slots
+  (``hot``).  With ``ControllerConfig.reshard_imbalance`` set, sustained
+  imbalance emits a ``reshard`` decision — a skew-aware ownership
+  permutation computed by greedy bin-packing over the observed load —
+  and the dispatch that first observes the new plan applies it as a
+  *live migration*: drain the pipe at the punctuation boundary, ship
+  only the rows whose owner changed through the owner-routed
+  ``all_to_all``, rebind the plan, resume.  Migrations are traced
+  decisions and snapshots store canonical uid-order values, so
+  crash → restore → replay across a migration stays bitwise identical;
+  the run's placement ledger lands in ``stats["placement"]``.
 
 ``StreamService.stats`` is the one merged accounting record: watermark
 drops, admission drops, exchange overflow, the assembler ledger,
@@ -104,8 +119,8 @@ Unified telemetry plane (DESIGN.md §2.11, ``runtime/telemetry.py``):
   messages, same logger, no hand-rolled flags).
 * With ``ServiceConfig.telemetry.trace_path`` set, every pipeline stage
   (source pull → assembly → admission → dispatch → execute → commit →
-  ``controller.decide`` → snapshot publish) emits a Chrome-trace/Perfetto
-  span; ``profile_dir`` adds per-chunk
+  ``controller.decide`` → snapshot publish → ``reshard.apply``) emits a
+  Chrome-trace/Perfetto span; ``profile_dir`` adds per-chunk
   ``torch.profiler`` windows.
 * Replay-safety contract: telemetry never feeds ``decide()`` — a
   tracing-enabled run is bitwise identical to a tracing-off run,
@@ -132,7 +147,6 @@ from .. import convert
 from ..ckpt import (checkpoint_steps, load_checkpoint, prune_checkpoints,
                     read_manifest_meta, save_checkpoint, verify_checkpoint)
 from ..core.intervals import IntervalAssembler, WatermarkPolicy
-from ..core.scheduler import SHARDED_CHUNK_NOT_PORTED
 from ..kernels._build import build_all
 from .controller import (AdvisoryTiming, ControllerConfig, Plan,
                          PlanController, replay_plan)
@@ -275,8 +289,16 @@ class ServiceRun:
     # chunk-record ring (per-chunk time series, newest last)
     decisions: List[Dict] = dataclasses.field(default_factory=list)
     chunk_records: List[Dict] = dataclasses.field(default_factory=list)
+    # elastic resharding: one dict per applied live migration (boundary
+    # interval, rows moved, override count) and the per-shard observed
+    # event totals behind stats["placement"]
+    migrations: List[Dict] = dataclasses.field(default_factory=list)
+    shard_events: Optional[np.ndarray] = None
     admission_dropped: int = 0
     replayed_intervals: int = 0
+    exchange_dropped: int = 0
+    exchange_shipped: int = 0
+    exchange_capacity: int = 0
     t_first_enqueue: Optional[float] = None
     t_last_commit: Optional[float] = None
     final_values: Optional[np.ndarray] = None
@@ -312,8 +334,7 @@ class StreamService:
 
     def __init__(self, engine, cfg: ServiceConfig):
         if engine._sharded is not None:
-            raise NotImplementedError("a service on a sharded engine: "
-                                      + SHARDED_CHUNK_NOT_PORTED)
+            engine._sharded._check_interval(cfg.punct_interval)
         self.engine = engine
         self.cfg = cfg
         self.last_run: Optional[ServiceRun] = None
@@ -526,6 +547,35 @@ class StreamService:
                 entry["max_chain"] = int(np.max(_host(est.max_chain)))
                 entry["n_chains"] = int(np.min(_host(est.n_chains)))
                 entry["rounds"] = int(np.max(_host(est.rounds)))
+            xs = st_d.get("exchange")
+            if xs is not None:
+                st = {k: _host(v) for k, v in xs.items()}
+                dropped_now = int(np.sum(st["dropped"]))
+                rec.exchange_dropped += dropped_now
+                rec.exchange_shipped += int(np.sum(st["shipped"]))
+                rec.exchange_capacity = int(st["capacity"])
+                entry["x_drop"] = dropped_now
+                entry["x_ship"] = int(np.sum(st["shipped"]))
+                entry["x_fill"] = (int(np.max(st["max_fill"]))
+                                   if np.size(st["max_fill"]) else 0)
+                entry["x_cap"] = int(st["capacity"])
+                sl = st.get("shard_load")
+                if sl is not None:
+                    # per-shard access histogram (state rows touched on
+                    # each ownership shard this chunk) — the controller's
+                    # skew signal, and the top hot slots its placement
+                    # input.  The stable argsort makes the hot list (and
+                    # therefore every reshard decision derived from it)
+                    # replay-exact.
+                    shard = np.asarray(sl, np.int64)
+                    entry["x_shard"] = [int(v) for v in shard]
+                    slot = np.asarray(st["slot_load"], np.int64)
+                    top = np.argsort(-slot, kind="stable")[:32]
+                    entry["hot"] = [[int(u), int(slot[u])]
+                                    for u in top if slot[u] > 0]
+                    if rec.shard_events is None:
+                        rec.shard_events = np.zeros(shard.size, np.int64)
+                    rec.shard_events = rec.shard_events + shard
             with rec_cv:
                 hist.append(entry)
                 chn["last_i"] = entry["i"]
@@ -555,6 +605,14 @@ class StreamService:
             host_vals = _host(eng.carry_out(vals))
             extra = dict(intervals_done=step, punct_interval=interval,
                          emergency=emergency)
+            if eng._sharded is not None:
+                # the ownership the engine is bound to at this boundary ==
+                # replay_plan(init_plan, trace g < step).owners; recorded
+                # so operators (and tests) can see the layout a snapshot
+                # was cut on without replaying the trace
+                extra["ownership"] = dict(
+                    n_owners=int(eng._sharded.n_dev),
+                    overrides=[[int(u), int(o)] for (u, o) in eng.owners])
             if ctl is not None:
                 # decisions AT the boundary (g == step) race with this
                 # write on the main thread, so the manifest records the
@@ -590,15 +648,56 @@ class StreamService:
             variant = None
             if plan is not None:
                 prev = applied["plan"]
-                variant = eng.ensure_variant(
-                    scheme=plan.scheme, restructure_method=plan.rung)
-                if (plan.scheme, plan.rung) != (prev.scheme, prev.rung):
+                if eng._sharded is not None and plan.slack != prev.slack:
+                    # graceful degradation, a replayed decision: widen the
+                    # exchange at the boundary the trace recorded (shipped
+                    # results are unaffected, only the padding widens)
+                    eng._sharded.set_exchange_slack(plan.slack)
                     tele.event(
-                        "controller.variant_switch",
-                        "controller: plan variant %s/%s -> %s/%s at "
+                        "controller.slack_widen",
+                        "controller: exchange slack %.2f -> %.2f at "
                         "punctuation boundary %d",
-                        prev.scheme, prev.rung, plan.scheme, plan.rung,
-                        g_next, logger=log, limit=-1)
+                        prev.slack, plan.slack, g_next,
+                        logger=log, limit=-1)
+                if eng._sharded is not None and plan.owners != prev.owners:
+                    # live migration (DESIGN.md §2.10): drain the pipe so
+                    # the carry is exactly this punctuation boundary's
+                    # state, ship only the rows whose owner changed
+                    # through the owner-routed all_to_all, rebind the plan
+                    # to the new ownership and resume — the stream never
+                    # stops
+                    while in_flight:
+                        commit_oldest()
+                    vals_ok["safe"] = False
+                    t0m = time.monotonic()
+                    with tracer.span("reshard.apply", g=g_next,
+                                     overrides=len(plan.owners)) as rsp:
+                        vals, moved = eng.apply_resharding(vals, plan.owners)
+                        rsp.set(moved=int(moved))
+                    vals_ok["safe"] = True
+                    progress["t"] = time.monotonic()
+                    rec.migrations.append(dict(
+                        g=g_next, moved=int(moved),
+                        overrides=len(plan.owners),
+                        apply_s=float(time.monotonic() - t0m)))
+                    tele.event(
+                        "controller.migration",
+                        "controller: live migration at punctuation "
+                        "boundary %d (%d rows moved, %d overrides)",
+                        g_next, int(moved), len(plan.owners),
+                        logger=log, limit=-1)
+                    if faults is not None:
+                        faults.on_reshard_apply()
+                if eng._sharded is None:
+                    variant = eng.ensure_variant(
+                        scheme=plan.scheme, restructure_method=plan.rung)
+                    if (plan.scheme, plan.rung) != (prev.scheme, prev.rung):
+                        tele.event(
+                            "controller.variant_switch",
+                            "controller: plan variant %s/%s -> %s/%s at "
+                            "punctuation boundary %d",
+                            prev.scheme, prev.rung, plan.scheme, plan.rung,
+                            g_next, logger=log, limit=-1)
                 applied["plan"] = plan
             shape = (variant, None if plan is None else plan.slack,
                      None if plan is None else plan.owners, kk)
@@ -869,15 +968,25 @@ class StreamService:
 
     def _make_controller(self, controller_state: Optional[Dict]
                          ) -> Optional[PlanController]:
-        """Build the run's controller: the configured one or None.
-        Restoring from ``controller_state`` folds the snapshot's decision
-        trace back into the plan; the scheme/rung variants bind here so a
-        mid-storm switch costs a rebind.  (The reference also builds an
-        implicit slack-only controller from ``escalate_overflow`` on a
-        sharded engine; a sharded service is ROADMAP A9.2.)"""
+        """Build the run's controller: the configured one, or the implicit
+        slack-only controller that subsumes ``escalate_overflow``, or
+        None.  Restoring from ``controller_state`` folds the snapshot's
+        decision trace back into the plan and re-applies its slack and
+        ownership; single-device scheme/rung variants bind here so a
+        mid-storm switch costs a rebind."""
         cfg, eng = self.cfg, self.engine
         ctl_cfg = cfg.controller
-        if ctl_cfg is not None and cfg.escalate_overflow:
+        if (ctl_cfg is None and cfg.escalate_overflow
+                and eng._sharded is not None):
+            # the escalate_overflow contract as a one-knob controller:
+            # widen on observed drops only, one boundary of cool-down,
+            # bounded by the configured escalation budget
+            ctl_cfg = ControllerConfig(
+                window=1, sustain=1, cooldown=cfg.chunk_intervals,
+                slack_widen=True, slack_factor=cfg.escalate_factor,
+                max_escalations=cfg.escalate_overflow, fill_widen=0.0,
+                degrade_scheme="", chunk_ladder=(), rung_ladder=())
+        elif ctl_cfg is not None and cfg.escalate_overflow:
             ctl_cfg = dataclasses.replace(
                 ctl_cfg, max_escalations=cfg.escalate_overflow,
                 slack_factor=cfg.escalate_factor)
@@ -891,9 +1000,11 @@ class StreamService:
             # wall latencies are not replayable signals: a snapshotted
             # run must decide from the deterministic tier only
             ctl_cfg = dataclasses.replace(ctl_cfg, allow_timing=False)
+        sharded = eng._sharded is not None
         init_plan = Plan(
             scheme=eng.cfg.scheme, rung=eng.cfg.restructure_method,
-            slack=0.0, chunk=cfg.chunk_intervals, owners=eng.owners)
+            slack=(eng._sharded.exchange_slack if sharded else 0.0),
+            chunk=cfg.chunk_intervals, owners=eng.owners)
         if controller_state and controller_state.get("init_plan"):
             stored = Plan.from_dict(controller_state["init_plan"])
             # scheme/rung/chunk come from the engine/service config and
@@ -908,8 +1019,12 @@ class StreamService:
                  f"{init_plan.as_dict()}")
             init_plan = stored
         ctl = PlanController(
-            ctl_cfg, init_plan, sharded=False,
-            snap_align=cfg.snapshot_every, queue_cap=cfg.queue_intervals)
+            ctl_cfg, init_plan, sharded=sharded,
+            snap_align=cfg.snapshot_every, queue_cap=cfg.queue_intervals,
+            # the reshard knob only opens on an engine that can migrate
+            # (shared_nothing, >1 shard, index routing)
+            n_owners=(eng._sharded.n_dev if eng.reshardable else 0),
+            n_slots=(eng.init_store.n_slots if eng.reshardable else 0))
         if controller_state:
             # pre-elastic manifests recorded plans without an "owners"
             # key; round-tripping through Plan normalizes the dict so the
@@ -919,10 +1034,18 @@ class StreamService:
                 plan_check = Plan.from_dict(plan_check).as_dict()
             ctl.restore(controller_state.get("trace", ()),
                         plan_check=plan_check)
-        for sch in {ctl_cfg.degrade_scheme} - {""}:
-            eng.ensure_variant(scheme=sch)
-        for rung in ctl_cfg.rung_ladder:
-            eng.ensure_variant(restructure_method=rung)
+        if sharded:
+            # re-enter the restored layout: the snapshot's canonical
+            # uid-order values are loaded by run() AFTER this rebind, so
+            # they enter under the ownership the replayed trace folds to
+            eng.rebind_ownership(ctl.plan.owners)
+            if ctl.plan.slack != eng._sharded.exchange_slack:
+                eng._sharded.set_exchange_slack(ctl.plan.slack)
+        else:
+            for sch in {ctl_cfg.degrade_scheme} - {""}:
+                eng.ensure_variant(scheme=sch)
+            for rung in ctl_cfg.rung_ladder:
+                eng.ensure_variant(restructure_method=rung)
         return ctl
 
     def resume(self, source, **run_kwargs) -> ServiceRun:
@@ -996,7 +1119,7 @@ class StreamService:
         tele.count("service.late_rerouted", asm.late_rerouted)
         tele.count("service.drops", asm.watermark_dropped, kind="watermark")
         tele.count("service.drops", rec.admission_dropped, kind="admission")
-        tele.count("service.drops", 0, kind="exchange")   # one device
+        tele.count("service.drops", rec.exchange_dropped, kind="exchange")
         tele.count("service.unprocessed", unprocessed)
         tele.gauge("service.watermark", int(asm.watermark))
         tele.gauge("service.crashed", int(crashed))
@@ -1047,6 +1170,29 @@ class StreamService:
                 hung_thread=hung_thread, **getattr(error, "info", {})))
         if plane is not None:
             plane.publish(tele)
+        if self.engine._sharded is not None:
+            tele.count("exchange.dropped", rec.exchange_dropped)
+            tele.count("exchange.shipped", rec.exchange_shipped)
+            tele.gauge("exchange.capacity", rec.exchange_capacity)
+            tele.gauge("exchange.escalations",
+                       controller.esc_done if controller is not None else 0)
+            tele.gauge("exchange.slack",
+                       self.engine._sharded.exchange_slack)
+            # skew-aware placement ledger: observed load per ownership
+            # shard over the whole run, its imbalance ratio (max/mean),
+            # and every live migration the controller applied
+            sh = rec.shard_events
+            tot = int(sh.sum()) if sh is not None else 0
+            tele.record_doc("placement", dict(
+                shard_events=([int(v) for v in sh]
+                              if sh is not None else []),
+                imbalance=(float(int(sh.max()) * sh.size / tot)
+                           if tot else 1.0),
+                owners=[[int(u), int(o)]
+                        for (u, o) in self.engine.owners]))
+            tele.ensure_records("migrations")
+            for m in rec.migrations:
+                tele.record_doc("migrations", dict(m))
         rec.stats = stats_view(tele.snapshot())
         if not crashed:
             self._log_events(tele, rec.stats)

@@ -17,7 +17,11 @@ card is held to the single-device driver on the card: bitwise on the
 megakernel rung, to rtol = atol = 1e-5 where the staged rung's segscans run
 (their association depends on where a chain lies among the kernel's tiles).
 Its lockstep schedule (SL, OB) is bitwise with the single-device card run,
-and the chunked service with ``run_stream`` on the card (TP to 1e-5).
+and the chunked service with ``run_stream`` on the card (TP to 1e-5).  The
+service on a sharded engine migrates live under a skew storm, bitwise with
+the single-device card run, and the replicate-everything baseline
+(``evaluate_sharded``) matches the single-device card evaluation (GS
+bitwise, TP to 1e-5).
 """
 import numpy as np
 import pytest
@@ -764,3 +768,79 @@ def test_service_on_card_matches_run_stream_on_card(app_name, method):
         for a, b in zip(rec.outputs, o0):
             for k in b:
                 np.testing.assert_array_equal(a[k], b[k], err_msg=k)
+
+
+def test_elastic_service_on_card_matches_single_device_on_card():
+    """The service on a 4-shard shared_nothing engine on the card (GS,
+    megakernel rung) live-migrates under an aligned skew storm with no op
+    dropped; state and outputs bitwise with the single-device card run.
+    Each chunk launches radix_partition for the exchange and the
+    restructure and one megakernel stream call; each migration one more
+    radix_partition for its moved rows."""
+    from repro_torch.core.intervals import PhasedReplaySource, WatermarkPolicy
+    from repro_torch.runtime.controller import ControllerConfig
+    from repro_torch.runtime.service import ServiceConfig, StreamService
+    dev = need_card()
+    app = ALL_APPS["gs"]
+    cfg = EngineConfig(restructure_method="megakernel")
+    src = PhasedReplaySource(
+        app.gen_events, [(4 * 128, {}),
+                         (8 * 128, dict(theta=2.5, align_mod=4)),
+                         (4 * 128, {})], seed=7, arrival_batch=100, jitter=20)
+    one = DualModeEngine(app, app.make_store(device=dev), cfg, device=dev)
+    o0, v0 = one.run_stream(one.init_store.values, src.in_order_events, 128)
+    eng = DualModeEngine(app, app.make_store(device=dev), cfg, device=dev,
+                         mesh=ShardMesh((4,), ("dev",), device=dev),
+                         exchange_slack=4.0)
+    reset_launches()
+    rec = StreamService(eng, ServiceConfig(
+        punct_interval=128, chunk_intervals=2,
+        watermark=WatermarkPolicy(allowed_lateness=20),
+        controller=ControllerConfig(
+            window=4, sustain=2, cooldown=4, slack_widen=False,
+            reshard_imbalance=3.0, reshard_max_moves=24))).run(src)
+    migs = rec.stats["placement"]["migrations"]
+    assert migs and rec.stats["placement"]["moved_rows"] > 0
+    assert rec.stats["drops"]["exchange"] == 0
+    assert LAUNCHES["megakernel"] == 3 * 8
+    assert LAUNCHES["radix_partition"] == 2 * 8 + len(migs)
+    np.testing.assert_array_equal(rec.final_values, v0.cpu().numpy())
+    for a, b in zip(rec.outputs, o0):
+        for k in b:
+            np.testing.assert_array_equal(a[k], b[k], err_msg=k)
+    assert len(rec.outputs) == len(o0) == 16
+
+
+@pytest.mark.parametrize("app_name", ["gs", "tp"])
+@pytest.mark.parametrize("layout,shape,names", [
+    ("shared_nothing", (4,), ("dev",)),
+    ("shared_per_socket", (2, 2), ("socket", "core")),
+    ("shared_everything", (4,), ("dev",))])
+def test_evaluate_sharded_on_card_matches_single_device(app_name, layout,
+                                                        shape, names):
+    """The replicate-everything baseline on the card, forced "partition":
+    one radix_partition launch (every shard's local batch at once) and one
+    segscan_affine; the new state bitwise with the single-device card
+    evaluation for GS, to rtol = atol = 1e-5 for TP (the affine segscan
+    associates by tile)."""
+    from repro_torch.convert import events_to_torch
+    from repro_torch.core.blotter import build_opbatch
+    from repro_torch.core.engines import eval_tstream_scan
+    from repro_torch.core.sharded import evaluate_sharded
+    dev = need_card()
+    app = ALL_APPS[app_name]
+    store = app.make_store(device=dev)
+    ev = app.gen_events(np.random.default_rng(5), 500)
+    ops, _ = build_opbatch(app, store, events_to_torch(ev, dev), 0)
+    _, want, _ = eval_tstream_scan(store, ops, app.funs, rowmajor_ts=True,
+                                   restructure_method="partition")
+    reset_launches()
+    got = evaluate_sharded(store, ops, app.funs,
+                           ShardMesh(shape, names, device=dev), layout,
+                           restructure_method="partition")
+    assert LAUNCHES["radix_partition"] == 1
+    assert LAUNCHES["segscan_affine"] == 1
+    if app_name == "gs":
+        assert torch.equal(got, want[:-1])
+    else:
+        torch.testing.assert_close(got, want[:-1], rtol=1e-5, atol=1e-5)

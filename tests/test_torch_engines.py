@@ -3,8 +3,8 @@
 ``evaluate`` under every scheme (the segmented-scan path, the lockstep
 walk, the sequential oracle and the baselines) must give the reference's
 per-op results and new state bit for bit for GS and TP, and the staged
-stages must agree stage by stage.  The sharded lockstep branch raises, naming ROADMAP A9 (the
-lockstep schemes and SL and OB are held in ``test_torch_lockstep.py``).
+stages must agree stage by stage (the lockstep schemes and SL and OB are
+held in ``test_torch_lockstep.py``); what still raises is pinned last.
 """
 import importlib
 import logging
@@ -90,20 +90,33 @@ def test_scan_plan_and_coefs_bitwise(app_name):
 
 
 def test_later_schemes_raise_not_ported():
-    """What still raises: the chunk API and the service on a sharded engine
-    (ROADMAP A9.2; SL and OB shard since their lockstep branch was ported),
-    and ``evaluate`` on a scheme it does not know."""
+    """What still raises: the lockstep schedule (SL, OB) on a 2-D mesh or
+    under a layout other than shared_nothing, a scheme or rung override on
+    a sharded engine, the compiled-HLO text of a chunk (ROADMAP A8.2), and
+    ``evaluate`` on a scheme it does not know.  (The chunk API and the
+    service on a sharded engine, which raised here until ROADMAP A9.2 was
+    ported, are held in ``test_torch_service_sharded.py``.)"""
     from repro_torch.core.mesh import ShardMesh
     from repro_torch.core.scheduler import DualModeEngine
-    from repro_torch.runtime.service import ServiceConfig, StreamService
     for app_name in ("sl", "ob"):
         app = T_APPS[app_name]
-        eng = DualModeEngine(app, app.make_store(device="cpu"), device="cpu",
+        store = app.make_store(device="cpu")
+        for shape, names, layout in (
+                ((2, 2), ("socket", "core"), "shared_nothing"),
+                ((2, 2), ("socket", "core"), "shared_per_socket"),
+                ((4,), ("dev",), "shared_everything")):
+            with pytest.raises(ValueError, match="lockstep schedule"):
+                DualModeEngine(app, store, device="cpu", layout=layout,
+                               mesh=ShardMesh(shape, names, device="cpu"))
+        eng = DualModeEngine(app, store, device="cpu",
                              mesh=ShardMesh((4,), ("dev",), device="cpu"))
-        with pytest.raises(NotImplementedError, match="A9.2"):
-            StreamService(eng, ServiceConfig(punct_interval=16))
-        with pytest.raises(NotImplementedError, match="A9.2"):
-            eng.run_stream_chunk(eng.init_store.values, {}, 0)
+        assert eng.ensure_variant() is None
+        with pytest.raises(ValueError, match="plan variants"):
+            eng.ensure_variant(scheme="lock")
+        with pytest.raises(ValueError, match="plan variants"):
+            eng.ensure_variant(restructure_method="partition")
+        with pytest.raises(NotImplementedError, match="A8.2"):
+            eng.chunk_lowered_text(eng.init_store.values, {})
     _, _, jops, tapp, tstore = _interval("gs", n_events=8)
     with pytest.raises(ValueError, match="unknown scheme"):
         evaluate(tstore, port_ops(jops), tapp.funs, "bogus")
