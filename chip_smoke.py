@@ -98,8 +98,10 @@ Run from the repository root:  python3 chip_smoke.py [--seed N]
    interval (500 events, 5,000 ops, 10,000 records) under each layout on 4
    shards, forced "partition" (one radix_partition and one segscan_affine
    launch), bitwise with the single-device staged evaluation on the card;
-   its ``e2e baseline`` line gives its wall time beside the fused sharded
-   driver's for the same interval and layout.
+   its ``e2e baseline`` line gives its wall time from built ops and from
+   the interval's events beside the fused sharded driver's chunk time
+   (``run_stream_chunk``: state and per-op results on the device, no output
+   copy) for the same interval and layout.
 12. Every driven run of phases 4 to 11 follows one uncounted warm-up run of
    the same engine and stream, sets the launch counters to 0 just before it
    and reads them just after; every kernel must have launched, and each
@@ -1673,7 +1675,8 @@ def baseline_phase(stream, card, cuda, launches) -> None:
     """The replicate-everything baseline (``core/sharded.evaluate_sharded``)
     on one GS interval under each layout on 4 shards, forced "partition":
     bitwise with the single-device staged evaluation on the card, beside the
-    fused sharded driver's time for the same interval and layout."""
+    fused sharded driver's chunk time (``run_stream_chunk``, no output
+    copy) for the same interval and layout."""
     from repro_torch import LAUNCHES, reset_launches
     from repro_torch.apps import ALL_APPS
     from repro_torch.convert import events_to_torch
@@ -1685,7 +1688,8 @@ def baseline_phase(stream, card, cuda, launches) -> None:
     app = ALL_APPS["gs"]
     store = app.make_store(device=cuda)
     ev = {k: np.asarray(v)[:INTERVAL] for k, v in stream["gs"].items()}
-    ops, _ = build_opbatch(app, store, events_to_torch(ev, cuda), 0)
+    ev_t = events_to_torch(ev, cuda)
+    ops, _ = build_opbatch(app, store, ev_t, 0)
     _, want, _ = eval_tstream_scan(store, ops, app.funs, rowmajor_ts=True,
                                    restructure_method="partition")
     for layout, shape, names in BASELINE_LAYOUTS:
@@ -1711,16 +1715,28 @@ def baseline_phase(stream, card, cuda, launches) -> None:
             raise AssertionError(f"{label}: launches {counts}, expected "
                                  f"{expect}")
         assert_equal(got, want[:-1], f"{label}: state vs single device")
+        # the fused driver's side: one chunk of the same interval on the
+        # device, state only (no output copy to the host)
         eng = engine("gs", "partition", cuda, mesh=mesh, layout=layout)
-        timed(eng, ev)
-        fused = host_s(lambda: eng.run_stream(eng.init_store.values, ev,
-                                              INTERVAL))
+        carry = eng.carry_in(eng.init_store.values)
+        batched = events_to_torch({k: v[None] for k, v in ev.items()}, cuda)
+        chunk = lambda: eng.run_stream_chunk(carry, batched, 0)
+        if int(chunk()[3]["exchange"]["dropped"].sum()):
+            raise AssertionError(f"{label}: the fused chunk dropped ops")
+        fused = host_s(chunk)
         base = host_s(fn)
+        # the baseline from the same device-resident events
+        from_events = host_s(lambda: evaluate_sharded(
+            store, build_opbatch(app, store, ev_t, 0)[0], app.funs, mesh,
+            layout, restructure_method="partition"))
         print(f"e2e {label} mesh={shape} ops={ops.uid.shape[-1]} "
               f"records={store.n_slots}: wall_s={wall} median_wall_s={base} "
-              f"fused_sharded_interval_s={fused} baseline_over_fused="
-              f"{base / fused} launches={counts} bitwise with the "
-              f"single-device staged evaluation card={card}")
+              f"(ops built, state out) median_from_events_s={from_events} "
+              f"(events in, ops built, state out) fused_chunk_s={fused} "
+              f"(events in, routed, state and per-op results out) "
+              f"baseline_over_fused={from_events / fused} (from events) "
+              f"launches={counts} bitwise with the single-device staged "
+              f"evaluation card={card}")
     print(f"baseline phase: {time.perf_counter() - t0:.1f} s")
 
 

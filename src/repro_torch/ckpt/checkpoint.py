@@ -271,14 +271,12 @@ def prune_checkpoints(ckpt_dir: str, keep_last: int) -> List[int]:
 
 
 def load_checkpoint(ckpt_dir: str, step: int, target: Tree,
-                    verify: bool = False, devices: Tree = None) -> Tree:
+                    verify: bool = False) -> Tree:
     """Restore into the structure of ``target``, a tree of tensors or numpy
     arrays (only their shapes are read).  A tensor leaf comes back as a
-    tensor on its device, any other leaf as a numpy array; ``devices``, a
-    tree of devices shaped like ``target``, places every leaf as a tensor
-    on its own device instead.  With ``verify``, integrity-check the
-    snapshot first and raise ``ValueError`` instead of loading damaged
-    bytes."""
+    tensor on its device, any other leaf as a numpy array.  With
+    ``verify``, integrity-check the snapshot first and raise
+    ``ValueError`` instead of loading damaged bytes."""
     src = os.path.join(ckpt_dir, f"step_{step:08d}")
     if verify:
         ok, why = verify_checkpoint(ckpt_dir, step)
@@ -288,14 +286,8 @@ def load_checkpoint(ckpt_dir: str, step: int, target: Tree,
     with open(os.path.join(src, "manifest.json")) as f:
         manifest = json.load(f)
 
-    flat = _flatten(target)
-    places = ([d for _, d in _flatten(devices)] if devices is not None
-              else [None] * len(flat))
-    if len(places) != len(flat):
-        raise ValueError(f"devices has {len(places)} leaves, target "
-                         f"{len(flat)}")
     out = []
-    for (path, leaf), place in zip(flat, places):
+    for path, leaf in _flatten(target):
         key = _path_str(path)
         ent = manifest["leaves"].get(key)
         if ent is None:
@@ -304,12 +296,12 @@ def load_checkpoint(ckpt_dir: str, step: int, target: Tree,
         expect = tuple(getattr(leaf, "shape", arr.shape))
         if tuple(arr.shape) != expect:
             raise ValueError(f"{key}: ckpt shape {arr.shape} != {expect}")
-        if isinstance(leaf, torch.Tensor) or place is not None:
+        if isinstance(leaf, torch.Tensor):
             t = torch.from_numpy(arr.view(np.int16) if ent["dtype"] ==
                                  "bfloat16" else arr)
             if ent["dtype"] == "bfloat16":
                 t = t.view(torch.bfloat16)
-            out.append(t.to(leaf.device if place is None else place))
+            out.append(t.to(leaf.device))
         else:
             out.append(arr)
     return _unflatten(target, iter(out))
@@ -318,6 +310,16 @@ def load_checkpoint(ckpt_dir: str, step: int, target: Tree,
 def reshard(ckpt_dir: str, step: int, target: Tree, mesh, spec_fn) -> Tree:
     """Load a checkpoint for another mesh: ``spec_fn(target, mesh)``
     returns a tree like ``target`` holding the device of each leaf (on a
-    ``ShardMesh``, whose shards share one device, ``mesh.device``)."""
-    return load_checkpoint(ckpt_dir, step, target,
-                           devices=spec_fn(target, mesh))
+    ``ShardMesh``, whose shards share one device, ``mesh.device``).  Every
+    leaf comes back as a tensor on its device."""
+    flat = _flatten(target)
+    places = [d for _, d in _flatten(spec_fn(target, mesh))]
+    if len(places) != len(flat):
+        raise ValueError(f"spec_fn gave {len(places)} leaves, target has "
+                         f"{len(flat)}")
+    # load_checkpoint puts a tensor leaf on that leaf's device: stand each
+    # leaf in as one element on its device, expanded to the leaf's shape
+    placed = [torch.empty((), device=dev).expand(tuple(np.shape(leaf)))
+              for (_, leaf), dev in zip(flat, places)]
+    return load_checkpoint(ckpt_dir, step,
+                           _unflatten(target, iter(placed)))

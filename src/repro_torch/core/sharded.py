@@ -46,8 +46,7 @@ __all__ = ["LAYOUTS", "evaluate_sharded"]
 
 def evaluate_sharded(store: StateStore, ops: OpBatch,
                      funs: Tuple[FunSpec, ...], mesh: ShardMesh, layout: str,
-                     *, restructure_method: str = "auto",
-                     use_kernels: bool = True) -> torch.Tensor:
+                     *, restructure_method: str = "auto") -> torch.Tensor:
     """TStream's segmented-scan path under a chain-shard layout.
 
     ``ops`` (fields ``[N]``) must come from ``build_opbatch``: row order is
@@ -55,7 +54,7 @@ def evaluate_sharded(store: StateStore, ops: OpBatch,
     Returns the new values ``[S, W]`` in the original slot order, pad row
     dropped (the reference's contract); the layout governs where each chain
     is evaluated and which collective reconciles the state.
-    ``restructure_method`` and ``use_kernels`` are ``eval_tstream_scan``'s.
+    ``restructure_method`` is ``eval_tstream_scan``'s.
     """
     if layout not in LAYOUTS:
         raise ValueError(f"layout={layout!r}; choose from {LAYOUTS}")
@@ -124,8 +123,7 @@ def evaluate_sharded(store: StateStore, ops: OpBatch,
         valid=mine)
     _, new_vals, _ = eval_tstream_scan(
         make_local_store(vals, sim_d if has_max else None), lops, funs,
-        rowmajor_ts=True, restructure_method=restructure_method,
-        use_kernels=use_kernels)
+        rowmajor_ts=True, restructure_method=restructure_method)
 
     if owned is None:                                   # shared_nothing
         out = new_vals[:, :per].reshape(s_pad, w)

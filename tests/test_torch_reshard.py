@@ -277,31 +277,36 @@ def test_elastic_service_migrates_bitwise(app_name, scheme):
 # ---------------------------------------------------------------------------
 # 5. crash at reshard.apply -> resume -> replay
 # ---------------------------------------------------------------------------
-def test_crash_at_reshard_apply_resumes_bitwise(tmp_path):
-    japp, app = J_APPS["gs"], ALL_APPS["gs"]
-    jstore = japp.make_store()
-    events = storm_source(app, {}).in_order_events
-    _, j_vals = JEngine(japp, jstore, JConfig()).run_stream(
+@pytest.mark.parametrize("app_name,scheme", [("gs", "tstream"),
+                                             ("sl", "tstream")])
+def test_crash_at_reshard_apply_resumes_bitwise(tmp_path, app_name, scheme):
+    """GS takes the associative rung; SL the lockstep path, whose resumed
+    carry re-enters through ``carry_in`` under the rebound ownership."""
+    kw = app_kwargs(app_name)
+    japp, app = J_APPS[app_name], ALL_APPS[app_name]
+    jstore = japp.make_store(**kw)
+    events = storm_source(app, kw).in_order_events
+    _, j_vals = JEngine(japp, jstore, JConfig(scheme=scheme)).run_stream(
         jstore.values, {k: jnp.asarray(v) for k, v in events.items()},
         INTERVAL, fused=True)
-    fresh = lambda: elastic_engine("gs", "tstream", jstore)
+    fresh = lambda: elastic_engine(app_name, scheme, jstore)
 
     ref = StreamService(fresh(), elastic_cfg(
         snapshot_every=4, ckpt_dir=str(tmp_path / "ref"))).run(
-            storm_source(app, {}))
+            storm_source(app, kw))
     assert ref.stats["placement"]["migrations"]
 
     cfg = elastic_cfg(snapshot_every=4, ckpt_dir=str(tmp_path / "go"))
     plane = FaultPlane([Fault(site=RESHARD_APPLY, at=0, kind="crash")])
     svc = StreamService(fresh(), cfg)
     with pytest.raises(InjectedCrashError):
-        svc.run(storm_source(app, {}), faults=plane)
+        svc.run(storm_source(app, kw), faults=plane)
     crashed = svc.last_run
     assert crashed.migrations and crashed.snapshots
     assert crashed.stats["placement"]["migrations"] == crashed.migrations
     assert os.path.isdir(tmp_path / "go")
 
-    rec = StreamService(fresh(), cfg).resume(storm_source(app, {}))
+    rec = StreamService(fresh(), cfg).resume(storm_source(app, kw))
     snap = rec.stats["replayed"] // INTERVAL
     assert snap == crashed.snapshots[-1]
     assert rec.stats["placement"]["migrations"], "resumed run never migrated"
