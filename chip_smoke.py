@@ -102,7 +102,25 @@ Run from the repository root:  python3 chip_smoke.py [--seed N]
    the interval's events beside the fused sharded driver's chunk time
    (``run_stream_chunk``: state and per-op results on the device, no output
    copy) for the same interval and layout.
-12. Every driven run of phases 4 to 11 follows one uncounted warm-up run of
+12. Substrate phase, the training and serving layer on the card:
+   ``StreamingPipeline(PipelineConfig())`` ingests 200 intervals of 64
+   documents (one segscan_affine launch each, timed alone at its shape),
+   its stats state and outputs bitwise with the port's CPU run and the
+   doc-count lane summing to 12,800 (``e2e pipeline``); minicpm-2b at its
+   published widths cut to 2 layers trains 20 steps through ``TrainLoop``
+   (bf16 params, AdamW f32, batch 8 x 128 from ``batch_for_step``, WSD,
+   remat "dots"), checkpoints every 10 steps in a temporary directory; a
+   crash at 15 resumed from 10 ends bitwise equal (params, optimizer state,
+   losses) to the uninterrupted run, and step 0's loss agrees with the
+   port's CPU loss on the same params within 2e-2 (``e2e train minicpm-2b``:
+   steps/s, tokens/s, model FLOP share against 989 TFLOP/s dense bf16);
+   granite-34b, 2 layers: the serve launcher's quota transactions on the
+   engine, then batch 4, prompt 16, gen 16 through ``decode_step``, each
+   step's float32 logits against ``forward`` to 2e-2 (``e2e serve
+   granite-34b``: tokens/s in f32 and bf16); mamba2-2.7b, 2 layers, f32:
+   256 decode steps against the 256-token ``ssd_chunked`` prefill to 5e-2
+   (``e2e serve mamba2-2.7b``).
+13. Every driven run of phases 4 to 11 follows one uncounted warm-up run of
    the same engine and stream, sets the launch counters to 0 just before it
    and reads them just after; every kernel must have launched, and each
    run must take the rung its plan names (``DualModeEngine.last_rung``).
@@ -114,7 +132,7 @@ Run from the repository root:  python3 chip_smoke.py [--seed N]
    radix_partition calls (every path the kernel picks by shape) is held
    bitwise against its twin and at 64, 512 and 1024 threads per block
    (``hold`` lines).
-13. Prints one JSON line of kernel numbers, the card line again, and last
+14. Prints one JSON line of kernel numbers, the card line again, and last
    ``{"ok": true, "device": {...}}``.
 
 Any failure raises and exits non-zero.  Without a CUDA card it exits 1 and
@@ -803,6 +821,34 @@ def profiled(eng, stream, label) -> None:
     top = sorted(dev, key=lambda e: -e.self_device_time_total)[:6]
     print(f"profile {label}: wall_s={wall} device_busy_s={busy} "
           f"busy_share={busy / wall} top: " + "; ".join(
+              f"{e.key[:48]} {e.self_device_time_total / 1e3:.3f} ms "
+              f"x{e.count}" for e in top))
+
+
+def profile_call(label, fn) -> None:
+    """``fn()`` once more under torch.profiler: the device's busy share of
+    its wall time and the kernels that take it (the profiler's own cost
+    lengthens the wall time)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    dev = [e for e in prof.key_averages()
+           if e.device_type == DeviceType.CUDA]
+    busy = sum(e.self_device_time_total for e in dev) / 1e6
+    if busy <= 0:
+        print(f"profile {label}: wall_s={wall} device time not measured "
+              "(the profiler saw no CUDA activity)")
+        return
+    launches = sum(e.count for e in dev)
+    top = sorted(dev, key=lambda e: -e.self_device_time_total)[:6]
+    print(f"profile {label}: wall_s={wall} device_busy_s={busy} "
+          f"busy_share={busy / wall} device_ops={launches} top: " + "; ".join(
               f"{e.key[:48]} {e.self_device_time_total / 1e3:.3f} ms "
               f"x{e.count}" for e in top))
 
@@ -1740,6 +1786,315 @@ def baseline_phase(stream, card, cuda, launches) -> None:
     print(f"baseline phase: {time.perf_counter() - t0:.1f} s")
 
 
+# -- the training and serving substrate (ROADMAP A10.1, A10.2) ---------------
+# Dense bf16 peak of one H100 SXM, tensor cores, no sparsity (NVIDIA data
+# sheet, at the 700 W limit): the denominator of the model FLOP share.
+BF16_PEAK_FLOPS = 989e12
+PIPE_INTERVALS = 200
+TRAIN_STEPS, TRAIN_CKPT_EVERY, TRAIN_CRASH_AT = 20, 10, 15
+# the port's CPU loss against the card's for the same bf16 params and
+# batch: the reference's bf16 bar
+LOSS_BF16_TOL = 2e-2
+
+
+def cut(name: str, n_layers: int):
+    """A published configuration at its widths with ``n_layers`` layers (the
+    depth is the one cut: it is listed as reduced)."""
+    import dataclasses
+    from repro_torch.configs import get_arch
+    return dataclasses.replace(get_arch(name), n_layers=n_layers)
+
+
+def depth(cfg) -> str:
+    from repro_torch.configs import ARCHS
+    return (f"n_layers {cfg.n_layers} (reduced from "
+            f"{ARCHS[cfg.name].n_layers})")
+
+
+def counts_since(launches) -> dict:
+    from repro_torch import LAUNCHES
+    got = dict(LAUNCHES)
+    for k, v in got.items():
+        launches[k] += v
+    return {k: v for k, v in got.items() if v}
+
+
+def pipeline_phase(card, cuda, launches, seed) -> None:
+    """``StreamingPipeline(PipelineConfig())`` ingests 200 intervals of 64
+    documents on the card: its stats state bitwise with the port's CPU run
+    of the same seed, the doc-count lane summing to 12,800, one
+    segscan_affine launch an interval."""
+    from repro_torch import reset_launches
+    from repro_torch.data import (STATS_APP, PipelineConfig,
+                                  StreamingPipeline)
+    cfg = PipelineConfig()
+
+    def ingest(dev):
+        pipe = StreamingPipeline(cfg, device=dev)
+        rng = np.random.default_rng(seed)
+        outs = [pipe.ingest(rng, cfg.punct_interval)
+                for _ in range(PIPE_INTERVALS)]
+        return pipe, outs
+
+    t0 = time.perf_counter()
+    cpu_pipe, cpu_outs = ingest("cpu")
+    calls = recording(lambda: ingest(cuda))          # warm-up, uncounted
+    shapes = {tuple(args[0].shape) for _, _, args, _, _ in calls}
+    if len(shapes) != 1:
+        raise AssertionError(f"pipeline: segscan shapes {shapes}")
+    shape_times("pipeline", calls[:1], card)         # every interval's shape
+    reset_launches()
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    pipe, outs = ingest(cuda)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t1
+    got = counts_since(launches)
+    assert_equal(pipe.stats_values, cpu_pipe.stats_values,
+                 "pipeline stats_values vs the CPU run")
+    for i, (o, oc) in enumerate(zip(outs, cpu_outs)):
+        for k in oc:
+            if not np.array_equal(o[k], oc[k]):
+                raise AssertionError(f"pipeline interval {i} {k}: not "
+                                     "bitwise equal to the CPU run")
+    n_docs = PIPE_INTERVALS * cfg.punct_interval
+    docs = float(pipe.stats_values[:16, 1].sum())
+    if docs != n_docs:
+        raise AssertionError(f"pipeline doc-count lane sums to {docs}, "
+                             f"expected {n_docs}")
+    if got.get("segscan_affine") != PIPE_INTERVALS:
+        raise AssertionError(f"pipeline launches {got}: expected one "
+                             "segscan_affine an interval")
+    print(f"e2e pipeline: {PIPE_INTERVALS} x {cfg.punct_interval} docs "
+          f"({n_docs * STATS_APP.max_ops} ops) wall_s={wall} docs_per_s="
+          f"{n_docs / wall} rung={pipe.engine.last_rung} launches={got} "
+          f"stats_values bitwise with the CPU run, doc lane {docs:.0f}, "
+          f"mixture {np.round(pipe.mixture_weights(), 4).tolist()} "
+          f"card={card}")
+    print(f"pipeline phase: {time.perf_counter() - t0:.1f} s")
+
+
+
+def train_phase(card, cuda, launches, seed) -> None:
+    """minicpm-2b at its published widths, 2 layers: ``TrainLoop`` over 20
+    steps of the launcher's step (batches from ``batch_for_step``, AdamW,
+    WSD, remat "dots"), checkpoints every 10 steps; a crash at 15 resumed
+    from 10 ends bitwise equal to the uninterrupted run; step 0's loss
+    within the bf16 bar of the port's CPU loss on the same params."""
+    import shutil
+    import tempfile
+    from repro_torch import reset_launches
+    from repro_torch.ckpt.checkpoint import _flatten, _unflatten
+    from repro_torch.data import PipelineConfig, StreamingPipeline
+    from repro_torch.launch.train import make_train_step
+    from repro_torch.models import init_params, loss_fn
+    from repro_torch.optim import AdamWConfig, adamw_init
+    from repro_torch.runtime import TrainLoop, TrainLoopConfig
+    t0 = time.perf_counter()
+    cfg = cut("minicpm-2b", 2)
+    batch, seq = 8, 128
+    pipe = StreamingPipeline(PipelineConfig(vocab=cfg.vocab, seq_len=seq,
+                                            batch=batch), device=cuda)
+    opt = AdamWConfig(lr=3e-3, state_dtype=torch.float32)
+    step = make_train_step(cfg, opt, TRAIN_STEPS)
+    step_s = []
+
+    def timed_step(params, state, b):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = step(params, state, b)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t)
+        return out
+
+    params0 = init_params(cfg, torch.Generator(device=cuda).manual_seed(seed),
+                          device=cuda)
+    opt0 = adamw_init(params0, opt)
+    # every leaf (param_count() leaves out the norms' weights)
+    n_params = sum(p.numel() for _, p in _flatten(params0))
+
+    def loop(ckpt_dir):
+        return TrainLoop(TrainLoopConfig(
+            ckpt_dir=ckpt_dir, ckpt_every=TRAIN_CKPT_EVERY,
+            max_steps=TRAIN_STEPS, data_seed=seed, keep_last=1),
+            timed_step, lambda i, rng: pipe.batch_for_step(i), params0, opt0)
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    try:
+        reset_launches()
+        a = loop(os.path.join(tmp, "a"))
+        t1 = time.perf_counter()
+        a.run()
+        wall_a = time.perf_counter() - t1
+        got = counts_since(launches)
+        steps_a = list(step_s)
+        shutil.rmtree(os.path.join(tmp, "a"))
+        b = loop(os.path.join(tmp, "b"))
+        try:
+            b.run(crash_at=TRAIN_CRASH_AT)
+            raise AssertionError("the injected crash did not fire")
+        except RuntimeError as e:
+            if "injected failure" not in str(e):
+                raise
+        del b
+        c = loop(os.path.join(tmp, "b"))
+        t1 = time.perf_counter()
+        if not c.try_resume() or c.start_step != TRAIN_CKPT_EVERY:
+            raise AssertionError(f"resumed at {c.start_step}, expected "
+                                 f"{TRAIN_CKPT_EVERY}")
+        load_s = time.perf_counter() - t1
+        c.run()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    for (path, x), (_, y) in zip(_flatten(dict(p=a.params, o=a.opt_state)),
+                                 _flatten(dict(p=c.params, o=c.opt_state))):
+        assert_equal(x, y, f"train resume {'/'.join(path)}")
+    if c.losses != a.losses[TRAIN_CKPT_EVERY:]:
+        raise AssertionError("train resume: losses differ after the resume")
+    if not all(np.isfinite(a.losses)):
+        raise AssertionError(f"non-finite losses {a.losses}")
+
+    # step 0's loss on the CPU, same bf16 params and batch
+    t1 = time.perf_counter()
+    b0 = pipe.batch_for_step(0)
+    with torch.no_grad():
+        cpu_params = _unflatten(params0, iter(
+            x.cpu() for _, x in _flatten(params0)))
+        cpu_loss = float(loss_fn(cfg, cpu_params,
+                                 {k: v.cpu() for k, v in b0.items()},
+                                 remat="none"))
+    cpu_s = time.perf_counter() - t1
+    if abs(a.losses[0] - cpu_loss) > LOSS_BF16_TOL * abs(cpu_loss):
+        raise AssertionError(f"step 0 loss {a.losses[0]} on the card, "
+                             f"{cpu_loss} on the CPU")
+    profile_call("train minicpm-2b step", lambda: step(
+        params0, opt0, pipe.batch_for_step(0)))
+    steady = steps_a[1:]
+    sps = len(steady) / sum(steady)
+    tokens = batch * seq
+    flop_share = 6.0 * n_params * tokens * sps / BF16_PEAK_FLOPS
+    ckpt_bytes = sum(x.numel() * x.element_size() for _, x in _flatten(
+        dict(p=a.params, o=a.opt_state)))
+    print(f"e2e train minicpm-2b (d_model {cfg.d_model}, {cfg.n_heads} heads, "
+          f"d_ff {cfg.d_ff}, vocab {cfg.vocab}, {depth(cfg)}, "
+          f"{n_params} params bf16, AdamW f32, batch "
+          f"{batch} x seq {seq}, remat dots): {TRAIN_STEPS} steps "
+          f"loop_wall_s={wall_a} (2 checkpoints of {ckpt_bytes} B) "
+          f"step0_s={steps_a[0]} steps_per_s={sps} (steps 1-19) "
+          f"tokens_per_s={sps * tokens} model_flop_share={flop_share} "
+          f"(6*N*tokens/s over {BF16_PEAK_FLOPS:.3g} FLOP/s dense bf16, "
+          f"NVIDIA data sheet) loss {a.losses[0]:.4f} -> {a.losses[-1]:.4f} "
+          f"step0 loss card {a.losses[0]} cpu {cpu_loss} (cpu {cpu_s:.1f} s)"
+          f" crash@{TRAIN_CRASH_AT} resume@{TRAIN_CKPT_EVERY} "
+          f"(load {load_s:.1f} s) bitwise with the uninterrupted run "
+          f"launches={got} card={card}")
+    print(f"train phase: {time.perf_counter() - t0:.1f} s")
+
+
+def serve_phase(card, cuda, launches, seed) -> None:
+    """granite-34b at its published widths, 2 layers: the serve launcher's
+    quota transactions on the engine, then batch 4, prompt 16, gen 16
+    through ``decode_step``; in float32 params every step's logits against
+    ``forward`` over the same tokens to 2e-2; tokens/s in float32 and in
+    the launcher's bf16."""
+    from repro_torch import reset_launches
+    from repro_torch.launch.serve import admit, generate
+    from repro_torch.models import forward, init_params
+    t0 = time.perf_counter()
+    cfg = cut("granite-34b", 2)
+    batch, plen, glen = 4, 16, 16
+    rng = np.random.default_rng(seed)
+    admit(batch, plen + glen, np.random.default_rng(seed), cuda)  # warm-up
+    reset_launches()
+    t1 = time.perf_counter()
+    admitted = admit(batch, plen + glen, rng, cuda)
+    quota_s = time.perf_counter() - t1
+    got = counts_since(launches)
+    if not admitted.all():
+        raise AssertionError(f"quota: admitted {admitted}")
+    prompt = torch.from_numpy(rng.integers(0, cfg.vocab, (batch, plen))
+                              .astype(np.int32)).to(cuda)
+    rates = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        params = init_params(cfg, torch.Generator(device=cuda).manual_seed(
+            seed), dtype=dtype, device=cuda)
+        generate(cfg, params, prompt[:, :2], 1)                  # warm-up
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        gen, steps = generate(cfg, params, prompt, glen)
+        torch.cuda.synchronize()
+        rates[str(dtype).split(".")[-1]] = batch * (plen + glen) / (
+            time.perf_counter() - t1)
+        if dtype == torch.bfloat16:
+            profile_call("serve granite-34b bf16 decode", lambda: generate(
+                cfg, params, prompt, glen))
+        if dtype == torch.float32:
+            with torch.no_grad():
+                full = forward(cfg, params, dict(
+                    tokens=torch.cat([prompt, gen], 1)), remat="none")
+            err = max_err(steps, full)
+            assert_close(steps.cpu().numpy(), full.cpu().numpy(),
+                         "serve granite-34b decode vs forward", tol=2e-2)
+        del params
+    print(f"e2e serve granite-34b (d_model {cfg.d_model}, {cfg.n_heads} heads,"
+          f" MQA kv {cfg.n_kv_heads}, gelu d_ff {cfg.d_ff}, vocab "
+          f"{cfg.vocab}, {depth(cfg)}): quota "
+          f"{int(admitted.sum())}/{batch} admitted in {quota_s:.4f} s "
+          f"launches={got}; batch {batch} prompt {plen} gen {glen}: "
+          f"tokens_per_s f32={rates['float32']} bf16={rates['bfloat16']}; "
+          f"f32 decode vs forward max_abs_err={err} (bar 2e-2) card={card}")
+    print(f"serve phase: {time.perf_counter() - t0:.1f} s")
+
+
+def mamba_phase(card, cuda, seed) -> None:
+    """mamba2-2.7b at its published widths, 2 layers, float32 params:
+    prefill of one 256-token chunk through ``ssd_chunked`` against 256
+    decode steps of the recurrence, to 5e-2."""
+    from repro_torch.models import decode_step, forward, init_cache, init_params
+    t0 = time.perf_counter()
+    cfg = cut("mamba2-2.7b", 2)
+    batch, seq = 2, cfg.ssm_chunk
+    params = init_params(cfg, torch.Generator(device=cuda).manual_seed(seed),
+                         dtype=torch.float32, device=cuda)
+    toks = torch.from_numpy(np.random.default_rng(seed).integers(
+        0, cfg.vocab, (batch, seq)).astype(np.int32)).to(cuda)
+    with torch.no_grad():
+        forward(cfg, params, dict(tokens=toks), remat="none")   # warm-up
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        full = forward(cfg, params, dict(tokens=toks), remat="none")
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t1
+        caches = init_cache(cfg, batch, seq, dtype=torch.float32, device=cuda)
+        outs = []
+        t1 = time.perf_counter()
+        for i in range(seq):
+            lg, caches = decode_step(cfg, params, caches, toks[:, i:i + 1], i)
+            outs.append(lg)
+        dec = torch.cat(outs, 1)
+        torch.cuda.synchronize()
+        decode_s = time.perf_counter() - t1
+    err = max_err(dec, full)
+    assert_close(dec.cpu().numpy(), full.cpu().numpy(),
+                 "serve mamba2-2.7b decode vs prefill", tol=5e-2)
+
+    n_prof = min(32, seq)
+
+    def decode_some():
+        c = init_cache(cfg, batch, seq, dtype=torch.float32, device=cuda)
+        with torch.no_grad():
+            for i in range(n_prof):
+                _, c = decode_step(cfg, params, c, toks[:, i:i + 1], i)
+    profile_call(f"serve mamba2-2.7b {n_prof} decode steps", decode_some)
+    print(f"e2e serve mamba2-2.7b (d_model {cfg.d_model}, ssm_state "
+          f"{cfg.ssm_state}, head_dim {cfg.ssm_head_dim}, chunk "
+          f"{cfg.ssm_chunk}, vocab {cfg.vocab}, {depth(cfg)}, f32): prefill {batch} x {seq} in {prefill_s} s "
+          f"({batch * seq / prefill_s} tokens/s); {seq} decode steps in "
+          f"{decode_s} s ({batch * seq / decode_s} tokens/s); decode vs "
+          f"prefill max_abs_err={err} (bar 5e-2) card={card}")
+    print(f"mamba phase: {time.perf_counter() - t0:.1f} s")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1777,6 +2132,10 @@ def main() -> int:
     service_phase(stream, lock, single, card, cuda, launches)
     sharded_service_phase(card, cuda, launches, args.seed)
     baseline_phase(stream, card, cuda, launches)
+    pipeline_phase(card, cuda, launches, args.seed)
+    train_phase(card, cuda, launches, args.seed)
+    serve_phase(card, cuda, launches, args.seed)
+    mamba_phase(card, cuda, args.seed)
     missing = sorted(k for k in LAUNCHES if launches[k] <= 0)
     if missing:
         raise AssertionError(f"kernels never launched on the driven paths: "

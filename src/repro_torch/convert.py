@@ -7,14 +7,20 @@ static table fields), take one back to numpy, and move a numpy event stream
 onto a device with its dtypes kept (int32 keys, float32 values, bool flags).
 ``probe_table_from_halves`` turns the reference's hash-probe table into the
 port's, so that both packages can probe the same table.
+
+For the model layer, weights are the same nested dicts on both sides:
+``params_to_torch`` moves a tree of numpy arrays (a JAX tree through
+``np.asarray``: params, KV/SSM caches or AdamW state) onto a device leaf by
+leaf, and ``params_to_numpy`` brings one back.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional, Sequence
+from typing import Any, Dict, Optional, Sequence
 
 import numpy as np
 import torch
 
+from .ckpt.checkpoint import _flatten, _unflatten
 from .core.types import StateStore
 from .kernels.runtime import resolve_device
 
@@ -64,3 +70,32 @@ def probe_table_from_halves(lo: np.ndarray, hi: np.ndarray) -> np.ndarray:
     lo = np.asarray(lo).astype(np.int64)
     hi = np.asarray(hi).astype(np.int64)
     return ((hi << 16) | lo).astype(np.uint32).view(np.int32)
+
+
+def _leaf_to_torch(x, dev: torch.device) -> torch.Tensor:
+    arr = np.asarray(x)
+    if arr.dtype.name == "bfloat16":
+        # numpy has no bfloat16: take the bits (JAX's ml_dtypes array) as
+        # int16 and view them as torch's bfloat16
+        bits = np.array(arr).view(np.int16)
+        return torch.from_numpy(bits).to(dev).view(torch.bfloat16)
+    return torch.from_numpy(np.array(arr)).to(dev)
+
+
+def params_to_torch(tree: Any, device) -> Any:
+    """A nested dict (or list/tuple) of numpy arrays as the same tree of
+    tensors on ``device`` (None: the CUDA card), dtypes kept: bf16 stays
+    bf16, int32 stays int32."""
+    dev = resolve_device(device)
+    return _unflatten(tree, iter(_leaf_to_torch(x, dev)
+                                 for _, x in _flatten(tree)))
+
+
+def params_to_numpy(tree: Any) -> Any:
+    """A tree of tensors as the same tree of numpy arrays on the host.
+    numpy has no bfloat16, so a bf16 leaf comes back as float32 holding the
+    same values (exact)."""
+    def leaf(t):
+        t = t.detach().cpu()
+        return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+    return _unflatten(tree, iter(leaf(x) for _, x in _flatten(tree)))

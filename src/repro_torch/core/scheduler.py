@@ -118,9 +118,16 @@ class DualModeEngine:
 
     def step(self, values: torch.Tensor, events: Dict, ts_base: int
              ) -> Tuple[Dict, torch.Tensor, EngineStats]:
-        """Process one punctuation interval. Returns (outputs, values', stats)."""
+        """Process one punctuation interval. Returns (outputs, values', stats).
+        Records the interval's restructure backbone in ``last_rung`` (None
+        for a scheme that restructures nothing)."""
         values = torch.as_tensor(values, dtype=torch.float32).to(self.device)
         store = dataclasses.replace(self.init_store, values=values)
+        n_rows = len(next(iter(events.values()))) * self.app.max_ops
+        self.last_rung = (restructure_path(
+            n_rows, store.pad_uid, rowmajor_ts=True,
+            method=self.cfg.restructure_method)
+            if self.cfg.scheme in CHAIN_SCHEMES else None)
         res, ebs, values, stats = _step_impl(
             store, convert.events_to_torch(events, self.device), ts_base,
             app=self.app, cfg=self.cfg)

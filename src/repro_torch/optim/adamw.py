@@ -1,0 +1,84 @@
+"""AdamW over a parameter tree (reference: ``repro/optim/adamw.py``).
+
+The optimizer state mirrors the parameter tree (``m``, ``v`` leaf for leaf,
+and an int32 ``step``), so it checkpoints like the params.  ``state_dtype``
+sets the moments' dtype (float32 by default; bfloat16 halves their memory).
+The update is the reference's: global-norm clip, bias correction, decoupled
+weight decay, all in float32, the new params cast back to their dtype.
+Leaves are visited in the reference's order (dict keys sorted), so the
+global norm sums them in the same order.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Tuple
+
+import torch
+
+from ..ckpt.checkpoint import _flatten, _unflatten
+
+Tree = Any
+
+
+@dataclasses.dataclass(frozen=True)
+class AdamWConfig:
+    lr: float = 3e-4
+    b1: float = 0.9
+    b2: float = 0.95
+    eps: float = 1e-8
+    weight_decay: float = 0.1
+    grad_clip: float = 1.0
+    state_dtype: Any = torch.float32
+
+
+def _leaves(tree: Tree):
+    return [leaf for _, leaf in _flatten(tree)]
+
+
+def adamw_init(params: Tree, cfg: AdamWConfig) -> Tree:
+    leaves = _leaves(params)
+
+    def zeros():
+        return _unflatten(params, iter(
+            torch.zeros(p.shape, dtype=cfg.state_dtype, device=p.device)
+            for p in leaves))
+    dev = leaves[0].device if leaves else None
+    return dict(m=zeros(), v=zeros(),
+                step=torch.zeros((), dtype=torch.int32, device=dev))
+
+
+def _global_norm(leaves) -> torch.Tensor:
+    return torch.sqrt(sum(torch.sum(torch.square(x.float())) for x in leaves))
+
+
+def adamw_update(params: Tree, grads: Tree, state: Tree, cfg: AdamWConfig,
+                 lr_scale=1.0) -> Tuple[Tree, Tree]:
+    """One step.  Returns ``(new_params, new_state)``; neither input is
+    written."""
+    step = state["step"] + 1
+    g_leaves = _leaves(grads)
+    gnorm = _global_norm(g_leaves)
+    clip = torch.clamp(cfg.grad_clip / torch.clamp(gnorm, min=1e-9), max=1.0)
+    step_f = step.to(torch.float32)
+    b1 = torch.tensor(cfg.b1, dtype=torch.float32, device=step.device)
+    b2 = torch.tensor(cfg.b2, dtype=torch.float32, device=step.device)
+    bc1 = 1.0 - b1 ** step_f
+    bc2 = 1.0 - b2 ** step_f
+    lr = cfg.lr * lr_scale
+
+    new_p, new_m, new_v = [], [], []
+    for p, g, m, v in zip(_leaves(params), g_leaves, _leaves(state["m"]),
+                          _leaves(state["v"])):
+        g = g.float() * clip
+        m32 = m.float() * cfg.b1 + (1 - cfg.b1) * g
+        v32 = v.float() * cfg.b2 + (1 - cfg.b2) * g * g
+        mhat = m32 / bc1
+        vhat = v32 / bc2
+        delta = mhat / (torch.sqrt(vhat) + cfg.eps) \
+            + cfg.weight_decay * p.float()
+        new_p.append((p.float() - lr * delta).to(p.dtype))
+        new_m.append(m32.to(m.dtype))
+        new_v.append(v32.to(v.dtype))
+    return (_unflatten(params, iter(new_p)),
+            dict(m=_unflatten(params, iter(new_m)),
+                 v=_unflatten(params, iter(new_v)), step=step))

@@ -844,3 +844,82 @@ def test_evaluate_sharded_on_card_matches_single_device(app_name, layout,
         assert torch.equal(got, want[:-1])
     else:
         torch.testing.assert_close(got, want[:-1], rtol=1e-5, atol=1e-5)
+
+
+def test_pipeline_on_card_matches_cpu():
+    """The data pipeline's TStream stats on the card: 20 intervals of 64
+    documents, one segscan_affine launch each (the packed rung: no radix
+    launch), state and outputs bitwise with the CPU run (the sums are of
+    integers below 2**24, exact in any order)."""
+    from repro_torch.data import PipelineConfig, StreamingPipeline
+    dev = need_card()
+    runs = {}
+    for d in (dev, torch.device("cpu")):
+        reset_launches()
+        pipe = StreamingPipeline(PipelineConfig(), device=d)
+        rng = np.random.default_rng(3)
+        outs = [pipe.ingest(rng, 64) for _ in range(20)]
+        runs[d.type] = (pipe.stats_values.cpu(), outs, dict(LAUNCHES),
+                        pipe.engine.last_rung)
+    (v1, o1, l1, r1), (v0, o0, _, _) = runs["cuda"], runs["cpu"]
+    assert torch.equal(v1, v0) and r1 == "packed"
+    assert l1["segscan_affine"] == 20 and l1["radix_partition"] == 0
+    for a, b in zip(o1, o0):
+        for k in a:
+            np.testing.assert_array_equal(a[k], b[k])
+
+
+@pytest.mark.parametrize("arch", ["minicpm-2b", "moonshot-v1-16b-a3b",
+                                  "zamba2-2.7b", "deepseek-v3-671b"])
+def test_train_step_on_card_is_deterministic(arch):
+    """Three bf16 train steps (the launcher's step: remat "dots", AdamW,
+    WSD) from the same init, run twice on the card: params, optimizer
+    state and losses bitwise equal (the exact-resume contract needs it)."""
+    from repro_torch.configs import get_arch
+    from repro_torch.data import PipelineConfig, StreamingPipeline
+    from repro_torch.launch.train import make_train_step
+    from repro_torch.models import init_params
+    from repro_torch.optim import AdamWConfig, adamw_init
+    dev = need_card()
+    cfg = get_arch(arch).smoke()
+    opt = AdamWConfig(lr=3e-3)
+    step = make_train_step(cfg, opt, 10)
+    pipe = StreamingPipeline(PipelineConfig(vocab=cfg.vocab, seq_len=64,
+                                            batch=4), device=dev)
+    runs = []
+    for _ in range(2):
+        params = init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                             device=dev)
+        state, losses = adamw_init(params, opt), []
+        for i in range(3):
+            params, state, loss = step(params, state, pipe.batch_for_step(i))
+            losses.append(loss)
+        runs.append((params, state, losses))
+    from repro_torch.ckpt.checkpoint import _flatten
+    (p0, s0, l0), (p1, s1, l1) = runs
+    assert all(torch.isfinite(x) for x in l0)
+    for (path, a), (_, b) in zip(_flatten([p0, s0, l0]),
+                                 _flatten([p1, s1, l1])):
+        assert torch.equal(a, b), path
+
+
+@pytest.mark.parametrize("arch,tol", [("granite-34b", 2e-2),
+                                      ("mamba2-2.7b", 5e-2)])
+def test_decode_matches_prefill_on_card(arch, tol):
+    """The serve launcher's decode loop on the card, float32 params: each
+    step's logits against ``forward`` over the same tokens, at the
+    reference's bars (dense 2e-2, SSM 5e-2)."""
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.serve import generate
+    from repro_torch.models import forward, init_params
+    dev = need_card()
+    cfg = get_arch(arch).smoke()
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(1),
+                         dtype=torch.float32, device=dev)
+    prompt = torch.from_numpy(np.random.default_rng(1).integers(
+        0, cfg.vocab, (2, 8)).astype(np.int32)).to(dev)
+    gen, steps = generate(cfg, params, prompt, 8)
+    with torch.no_grad():
+        full = forward(cfg, params, dict(tokens=torch.cat([prompt, gen], 1)),
+                       remat="none")
+    torch.testing.assert_close(steps, full, rtol=tol, atol=tol)

@@ -1,7 +1,8 @@
 """Rules of the port that no parity test states.
 
 * The port and ``chip_smoke.py`` import neither ``jax`` nor the reference
-  package ``repro``.
+  package ``repro``, nor ``ml_dtypes`` (JAX's bfloat16 for numpy), in every
+  sub-package.
 * Entry points default to the CUDA card: without one they raise; only an
   explicit ``device="cpu"`` runs on the CPU.
 * ``run_stream`` leaves the caller's state tensor as it was.
@@ -34,6 +35,8 @@ from repro_torch.kernels.runtime import KERNELS, LAUNCHES, resolve_device
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py"]
+SUB_PACKAGES = ("apps", "ckpt", "configs", "core", "data", "kernels",
+                "launch", "models", "optim", "runtime")
 
 
 def _imported_roots(path: pathlib.Path):
@@ -49,8 +52,17 @@ def _imported_roots(path: pathlib.Path):
 @pytest.mark.parametrize("path", PORT_FILES,
                          ids=lambda p: str(p.relative_to(ROOT)))
 def test_port_imports_no_jax_and_no_reference(path):
-    bad = {r for r in _imported_roots(path)} & {"jax", "jaxlib", "repro"}
+    bad = {r for r in _imported_roots(path)} & {"jax", "jaxlib", "repro",
+                                                "ml_dtypes"}
     assert not bad, f"{path.relative_to(ROOT)} imports {sorted(bad)}"
+
+
+def test_import_rule_covers_every_sub_package():
+    """Every sub-package of the port is among the files the rule reads."""
+    port = ROOT / "src" / "repro_torch"
+    found = {p.relative_to(port).parts[0] for p in PORT_FILES
+             if port in p.parents and len(p.relative_to(port).parts) > 1}
+    assert found == set(SUB_PACKAGES)
 
 
 def test_device_default_is_the_card():
@@ -73,6 +85,25 @@ def test_device_default_is_the_card():
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         DualModeEngine(app, store, device="cuda")
     assert DualModeEngine(app, store, device="cpu").device.type == "cpu"
+
+
+def test_substrate_defaults_to_the_card():
+    """The model, data and launch layer follow the device rule too."""
+    from repro_torch.configs import get_arch
+    from repro_torch.data import PipelineConfig, StreamingPipeline
+    from repro_torch.launch import serve, train
+    from repro_torch.models import init_cache, init_params
+    if torch.cuda.is_available():
+        pytest.skip("the card is present: the defaults resolve to it")
+    cfg = get_arch("minicpm-2b-smoke")
+    calls = (lambda: init_params(cfg, torch.Generator()),
+             lambda: init_cache(cfg, 1, 4),
+             lambda: StreamingPipeline(PipelineConfig()),
+             lambda: train.main(["--steps", "1"]),
+             lambda: serve.main([]))
+    for call in calls:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
 
 
 @pytest.mark.parametrize("method", ["megakernel", "partition"])
