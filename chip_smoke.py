@@ -120,7 +120,24 @@ Run from the repository root:  python3 chip_smoke.py [--seed N]
    granite-34b``: tokens/s in f32 and bf16); mamba2-2.7b, 2 layers, f32:
    256 decode steps against the 256-token ``ssd_chunked`` prefill to 5e-2
    (``e2e serve mamba2-2.7b``).
-13. Every driven run of phases 4 to 11 follows one uncounted warm-up run of
+13. Launch-layer phase, at published widths cut in depth only:
+   moonshot-v1-16b-a3b, 2 layers (one dense, one MoE: 64 experts top-6, 2
+   shared), on a (2, 4) ``make_host_mesh`` on the card (8 EP shards):
+   ``moe_forward_ep`` against ``moe_forward`` at capacity factor 16 (5e-4),
+   and at 1.25 the card's kept mask and dropped-choice count bitwise with
+   the CPU's; then 20 steps of ``build_train_step`` (batch 8 x 512, bf16
+   params and AdamW state) with steps/s, tokens/s, the model FLOP share and
+   one profiled step (``e2e ep`` lines).  minicpm-2b, 2 layers, float32:
+   ``build_decode_step`` on ``MeshSpec({"data": 1, "model": 16})`` pads 36
+   heads to 48, each step's logits within 2e-4 of the unpadded decode, with
+   tokens/s of both and decode_32k's per-device KV-cache bytes from
+   ``cache_specs`` (``e2e serve padded``).  The dry run on the host:
+   minicpm-2b x train_4k and deepseek-v3-671b x decode_32k (multi pod)
+   (``dryrun`` lines).  The GS service (K = 8, megakernel) over 40
+   intervals with ``hlo_attribution=True``: bitwise with the run without,
+   every execute span carrying its cost fields, no fraction of the peak
+   above 1.05 (``e2e service attribution``).
+14. Every driven run of phases 4 to 11 follows one uncounted warm-up run of
    the same engine and stream, sets the launch counters to 0 just before it
    and reads them just after; every kernel must have launched, and each
    run must take the rung its plan names (``DualModeEngine.last_rung``).
@@ -132,7 +149,7 @@ Run from the repository root:  python3 chip_smoke.py [--seed N]
    radix_partition calls (every path the kernel picks by shape) is held
    bitwise against its twin and at 64, 512 and 1024 threads per block
    (``hold`` lines).
-14. Prints one JSON line of kernel numbers, the card line again, and last
+15. Prints one JSON line of kernel numbers, the card line again, and last
    ``{"ok": true, "device": {...}}``.
 
 Any failure raises and exits non-zero.  Without a CUDA card it exits 1 and
@@ -302,15 +319,13 @@ def shard_inputs(gs, dev):
 
 def work(kernel, x, k=None):
     """(bytes, operations) of a radix_partition or segscan call on ``x``
-    (keys [bn, n] over k buckets, or coefficient rows [n, W]): each input
-    read once, each output written once."""
-    if kernel == "radix_partition":     # keys in; ranks and counts out
-        bn, n = x.shape
-        return 4.0 * (2 * bn * n + bn * k), float(bn * n)
-    n, w = x.shape                      # flags and coefficients in; scans out
-    if kernel == "segscan_affine":
-        return n + 16.0 * n * w, 3.0 * n * w
-    return n + 8.0 * n * w, 1.0 * n * w
+    (keys [bn, n] over k buckets, or coefficient rows [n, W]): the
+    kernels' own ``cost()``, the formula the cost attribution reads too."""
+    if kernel == "radix_partition":
+        from repro_torch.kernels.radix_partition.ops import cost
+        return cost(x, k)
+    from repro_torch.kernels.segscan.ops import cost
+    return cost(x, kernel[len("segscan_"):])
 
 
 def kernel_phase(p) -> dict:
@@ -419,35 +434,6 @@ def kernel_phase(p) -> dict:
     return rows
 
 
-def mega_work(values, sops, ch, pad_uid, n_luts):
-    """(bytes, operations) of one megakernel call on this data.
-
-    Bytes: each input of the function read once and each output written
-    once: per row its chain-start flag, valid, fun, uid and flat position
-    (14 B) and its success flag (1 B); per row and lane its operand, pre
-    and post (12 B); the state in and out (8 B a slot and lane); the LUTs.
-    The slot histograms are left out: the function finds each chain's end
-    from the flags, and only this design reads them.  Operations: the
-    scan's 3 per row, lane and step for the ceil(log2 L) steps this data
-    needs (L each interval's longest chain other than the pad chain, or
-    the pad chain where a row of it is valid), 8 per row and lane to
-    compose and apply, 2 per touched slot and lane for the carry."""
-    w = values.shape[-1]
-    rows = sops.uid.numel()
-    pad_valid = (sops.valid & (sops.uid == pad_uid)).any(dim=-1)
-    longest = torch.maximum(
-        ch.counts[..., :pad_uid].amax(dim=-1),
-        torch.where(pad_valid, ch.counts[..., pad_uid], 0)).double()
-    steps = torch.ceil(torch.log2(torch.clamp(longest, min=1)))
-    n = sops.uid.shape[-1]
-    touched = int((ch.counts[..., :pad_uid] > 0).sum())
-    nbytes = (15.0 * rows + 12.0 * rows * w + 8.0 * values.numel()
-              + 5.0 * n_luts)
-    n_ops = (3.0 * float(steps.sum()) * n * w + 8.0 * rows * w
-             + 2.0 * touched * w)
-    return nbytes, n_ops
-
-
 def phase_ms(fn, iters, names) -> dict:
     """Device ms per call of each named kernel over ``iters`` calls of
     ``fn``, from torch.profiler ("not measured" if it sees none)."""
@@ -471,6 +457,7 @@ def stream_megakernel(label, values, sops, ch, pad_uid, a_lut, b_lut) -> dict:
     stream twin and a loop of its per-interval twin; timed per call."""
     from repro_torch import LAUNCHES
     from repro_torch.core.types import tree_index
+    from repro_torch.kernels.megakernel.ops import cost as mega_cost
     from repro_torch.kernels.megakernel.ops import fused_chain_eval
     from repro_torch.kernels.megakernel.ref import (fused_chain_eval_ref,
                                                     fused_chain_stream_ref)
@@ -501,7 +488,7 @@ def stream_megakernel(label, values, sops, ch, pad_uid, a_lut, b_lut) -> dict:
         scratch, sops, ch, pad_uid, a_lut=a_lut, b_lut=b_lut), 20)
     plain, _ = cuda_ms(lambda: fused_chain_stream_ref(
         values, sops, ch, pad_uid, a_lut=a_lut, b_lut=b_lut), 3)
-    nbytes, n_ops = mega_work(values, sops, ch, pad_uid, a_lut.numel())
+    nbytes, n_ops = mega_cost(values, sops, ch, pad_uid, a_lut.numel())
     bnd = bound(nbytes, n_ops)
     phases = phase_ms(lambda: fused_chain_eval(
         scratch, sops, ch, pad_uid, a_lut=a_lut, b_lut=b_lut), 10,
@@ -522,6 +509,7 @@ def interval_megakernel(label, values, sops, ch, pad_uid, a_lut,
     """The megakernel on one interval (K = 1), as the merging sharded
     layouts call it: bitwise against the per-interval twin; timed."""
     from repro_torch.core.types import tree_index
+    from repro_torch.kernels.megakernel.ops import cost as mega_cost
     from repro_torch.kernels.megakernel.ops import fused_chain_eval
     from repro_torch.kernels.megakernel.ref import fused_chain_eval_ref
 
@@ -539,7 +527,7 @@ def interval_megakernel(label, values, sops, ch, pad_uid, a_lut,
         scratch, sops, ch, pad_uid, a_lut=a_lut, b_lut=b_lut), 50)
     plain, _ = cuda_ms(lambda: fused_chain_eval_ref(
         values, s0, c0, pad_uid, a_lut=a_lut, b_lut=b_lut), 10)
-    bnd = bound(*mega_work(values, sops, ch, pad_uid, a_lut.numel()))
+    bnd = bound(*mega_cost(values, sops, ch, pad_uid, a_lut.numel()))
     print(f"kernel megakernel[{label}] problems x rows = "
           f"{list(sops.uid.shape[1:])} W={values.shape[-1]}: max_abs_err=0 "
           f"ms={ms} plain_ms={plain} host_ms={host} bound_ms={bnd[0]}")
@@ -549,9 +537,8 @@ def interval_megakernel(label, values, sops, ch, pad_uid, a_lut,
 def hash_probe_row(sh) -> dict:
     """hash_probe at GS's probe shape: every op's uid of the 200 x 500 event
     stream (1,000,000 queries) against the 2,500 x 8 table; bitwise."""
-    from repro_torch.kernels.hash_probe.ops import hash_probe
-    from repro_torch.kernels.hash_probe.ref import (ASSOC, MAX_PROBES,
-                                                    bucket_of, hash_probe_ref)
+    from repro_torch.kernels.hash_probe.ops import cost, hash_probe
+    from repro_torch.kernels.hash_probe.ref import hash_probe_ref
 
     table, q = sh["table"], sh["queries"]
     s1 = hash_probe(q, table)
@@ -562,21 +549,15 @@ def hash_probe_row(sh) -> dict:
         raise AssertionError("hash_probe: a uid of the store was not found")
     ms, host = cuda_ms(lambda: hash_probe(q, table), 50)
     plain, _ = cuda_ms(lambda: hash_probe_ref(q, table), 5)
-    n, n_buckets = q.shape[0], table.shape[0]
-    # Operations this data needs: per query the hash (multiply, shift,
-    # modulo), per probe made a bucket index (add, modulo), and the compares
-    # up to the matching way; counted against the f32 rate.
-    hit = s0.long()
-    probes = (hit // ASSOC - bucket_of(q, n_buckets).long()) % n_buckets + 1
-    compares = (probes - 1) * ASSOC + hit % ASSOC + 1
-    n_ops = float((3 + 2 * probes + compares).sum())
-    assert int(probes.max()) <= MAX_PROBES
-    nbytes = 8.0 * n + 4.0 * table.numel()
+    n = q.shape[0]
+    # the operations this data needs (the kernel's cost(): the hash, each
+    # probe's bucket index, the compares), counted against the f32 rate
+    nbytes, n_ops = cost(q, table, s0)
     bnd = bound(nbytes, n_ops)
     print(f"kernel hash_probe queries={n} table={list(table.shape)}: "
           f"max_abs_err=0 ms={ms} plain_ms={plain} host_ms={host} "
           f"bytes={nbytes} ops={n_ops} bound_ms={bnd[0]} share_of_bound="
-          f"{bnd[0] / ms} probes_mean={float(probes.double().mean())}")
+          f"{bnd[0] / ms}")
     return dict(replaces="src/repro/kernels/hash_probe/kernel.py:62",
                 source="src/repro_torch/csrc/hash_probe.cu", ms=ms,
                 plain_ms=plain, err=0.0, bound=bnd)
@@ -1379,6 +1360,7 @@ def service_shapes(label, run, card) -> None:
     stream twin and timed beside its bound."""
     import repro_torch.core.scheduler as sched
     import repro_torch.core.sharded_stream as sharded
+    from repro_torch.kernels.megakernel.ops import cost as mega_cost
     from repro_torch.kernels.megakernel.ref import fused_chain_stream_ref
     mega = []
     real = sched.fused_chain_eval
@@ -1416,7 +1398,7 @@ def service_shapes(label, run, card) -> None:
     scratch = values.clone()
     ms, _ = cuda_ms(lambda: real(scratch, sops, ch, pad_uid, **kw), 20)
     n_luts = kw["a_lut"].numel()
-    bnd = bound(*mega_work(values, sops, ch, pad_uid, n_luts))
+    bnd = bound(*mega_cost(values, sops, ch, pad_uid, n_luts))
     print(f"shape megakernel[{label}] intervals x rows = "
           f"{list(sops.uid.shape)} W={values.shape[-1]} slots="
           f"{values.shape[-2]}" + (f" per shard x {values.shape[0]}"
@@ -2095,6 +2077,287 @@ def mamba_phase(card, cuda, seed) -> None:
     print(f"mamba phase: {time.perf_counter() - t0:.1f} s")
 
 
+# -- the launch layer (ROADMAP A10.3, A10.4, A8.2) -------------------------
+EP_BATCH, EP_SEQ, EP_STEPS = 8, 512, 20
+EP_CHECK_BATCH, EP_CHECK_SEQ = 8, 128
+SERVE_BATCH, SERVE_CACHE, SERVE_GEN = 4, 64, 16
+ATTR_INTERVALS = 40
+
+
+def ep_phase(card, cuda, seed) -> None:
+    """moonshot-v1-16b-a3b at its published widths, 2 layers (one dense,
+    one MoE), on a (2, 4) ``make_host_mesh`` on the card: 8 EP shards of 8
+    experts.  ``moe_forward_ep`` against ``moe_forward`` at capacity factor
+    16 (5e-4); at the default 1.25, on a skewed batch, the card's kept mask
+    and dropped-choice count against the CPU's (bitwise) and its output
+    within 1e-4 of the largest magnitude; then 20 steps of ``build_train_step`` (batch 8 x
+    512, bf16 params, bf16 AdamW state) and the busy share of one profiled
+    step."""
+    from repro_torch.ckpt.checkpoint import _flatten
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.steps import StepConfig, build_train_step
+    from repro_torch.models import ShapeCfg, init_params, layers, moe_ep
+    t0 = time.perf_counter()
+    cfg = cut("moonshot-v1-16b-a3b", 2)
+    mesh = make_host_mesh(model=4, data=2, device=cuda)
+    params = init_params(cfg, torch.Generator(device=cuda).manual_seed(seed),
+                         device=cuda)
+    n_params = sum(p.numel() for _, p in _flatten(params))
+    moe = {k: v[0].float() for k, v in params["stacks"]["moe"]["ffn"].items()}
+    rng = np.random.default_rng(seed)
+    # tokens that share an offset (a skewed batch): the router then favours
+    # some experts for every token, and capacity 1.25 drops choices
+    x = torch.from_numpy((rng.normal(size=(EP_CHECK_BATCH, EP_CHECK_SEQ,
+                                           cfg.d_model)) + 1.0
+                          ).astype(np.float32))
+    ep_shards = 8
+    try:
+        moe_ep.set_ep_mesh(mesh, ("data",))
+        saved, moe_ep.CAPACITY_FACTOR = moe_ep.CAPACITY_FACTOR, 16.0
+        try:
+            with torch.no_grad():
+                got = moe_ep.moe_forward_ep(cfg, moe, x.to(cuda))
+                want = layers.moe_forward(cfg, moe, x.to(cuda))
+        finally:
+            moe_ep.CAPACITY_FACTOR = saved
+        err16 = max_err(got, want)
+        torch.testing.assert_close(got, want, rtol=5e-4, atol=5e-4)
+        kept, outs = [], []                 # the CPU's, then the card's
+        for d in ("cpu", cuda):
+            m = make_host_mesh(model=4, data=2, device=d)
+            moe_ep.set_ep_mesh(m, ("data",))
+            pd = {k: v.to(d) for k, v in moe.items()}
+            lay = moe_ep.TokenLayout.of(m, EP_CHECK_BATCH, EP_CHECK_SEQ,
+                                        ("data",), "model")
+            st = lay.split(x.to(d))
+            r = moe_ep.route(cfg, st.reshape(st.shape[0], -1, cfg.d_model),
+                             pd["router"], ep_shards,
+                             cfg.n_experts // ep_shards)
+            with torch.no_grad():
+                outs.append(moe_ep.moe_forward_ep(cfg, pd, x.to(d)).cpu())
+            kept.append(r.keep.cpu())
+        assert_equal(kept[1], kept[0], "EP kept mask, card vs CPU")
+        dropped = int((~kept[0]).sum())
+        if not dropped:
+            raise AssertionError("EP at capacity factor 1.25 dropped no "
+                                 "choice: the check needs drops")
+        err125 = max_err(outs[1], outs[0])
+        if err125 > 1e-4 * float(outs[0].abs().max()):
+            raise AssertionError(f"EP card vs CPU: max abs err {err125}")
+        print(f"e2e ep check moonshot-v1-16b-a3b MoE layer (64 experts, "
+              f"top-6, 2 shared, moe_d_ff {cfg.moe_d_ff}, f32) x "
+              f"[{EP_CHECK_BATCH}, {EP_CHECK_SEQ}, {cfg.d_model}] on a (2, 4) "
+              f"mesh, {ep_shards} EP shards: CF 16 vs moe_forward max abs err "
+              f"{err16}; CF 1.25 kept mask bitwise card vs CPU, dropped "
+              f"{dropped} of {kept[0].numel()} choices on both, output "
+              f"max abs err {err125}")
+
+        fn, _ = build_train_step(cfg, ShapeCfg("ep", EP_SEQ, EP_BATCH,
+                                               "train"), mesh, StepConfig())
+        if moe_ep.get_ep_mesh() is not mesh:
+            raise AssertionError("build_train_step did not engage EP")
+        from repro_torch.optim import adamw_init
+        state = adamw_init(params, StepConfig().optimizer)
+        tokens = torch.from_numpy(rng.integers(
+            0, cfg.vocab, (EP_BATCH, EP_SEQ + 1)).astype(np.int32)).to(cuda)
+        batch = dict(tokens=tokens[:, :-1].contiguous(),
+                     labels=tokens[:, 1:].contiguous())
+        losses, step_s = [], []
+        p, st_ = params, state
+        for _ in range(EP_STEPS):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            p, st_, loss = fn(p, st_, batch)
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t1)
+            losses.append(float(loss))
+        if not all(np.isfinite(losses)) or int(st_["step"]) != EP_STEPS:
+            raise AssertionError(f"EP train: losses {losses}, step "
+                                 f"{int(st_['step'])}")
+        profile_call("ep train moonshot step", lambda: fn(p, st_, batch))
+    finally:
+        moe_ep.set_ep_mesh(None, ("data",))
+    sps = (EP_STEPS - 1) / sum(step_s[1:])
+    tok = EP_BATCH * EP_SEQ
+    active = cfg.active_param_count()
+    share = 6.0 * active * tok * sps / BF16_PEAK_FLOPS
+    print(f"e2e ep train moonshot-v1-16b-a3b (d_model {cfg.d_model}, "
+          f"{cfg.n_experts} experts top-{cfg.experts_per_token}, "
+          f"{cfg.n_shared_experts} shared, moe_d_ff {cfg.moe_d_ff}, vocab "
+          f"{cfg.vocab}, {depth(cfg)}, {n_params} params bf16, {active} "
+          f"active, AdamW bf16 state, batch {EP_BATCH} x seq {EP_SEQ}, remat "
+          f"full, (2, 4) mesh, {ep_shards} EP shards): step0_s={step_s[0]} "
+          f"steps_per_s={sps} (steps 1-{EP_STEPS - 1}) tokens_per_s="
+          f"{sps * tok} model_flop_share={share} (6*active*tokens/s over "
+          f"{BF16_PEAK_FLOPS:.3g}) loss {losses[0]:.4f} -> {losses[-1]:.4f} "
+          f"card={card}")
+    print(f"ep phase: {time.perf_counter() - t0:.1f} s")
+
+
+def serve_padded_phase(card, cuda, seed) -> None:
+    """minicpm-2b at its published widths, 2 layers, float32:
+    ``build_decode_step`` on ``MeshSpec({"data": 1, "model": 16})`` pads
+    its 36 MHA heads to 48; every step's logits against the unpadded
+    ``decode_step`` within 2e-4; tokens/s of both; the per-device KV-cache
+    bytes of decode_32k (40 layers) from ``cache_specs`` on the (16, 16)
+    mesh, unpadded (36 heads replicated) and padded (3 local)."""
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.mesh import MeshSpec, make_production_mesh
+    from repro_torch.launch.sharding import cache_specs, per_device_bytes
+    from repro_torch.launch.steps import (StepConfig, abstract_cache,
+                                          build_decode_step)
+    from repro_torch.models import (SHAPE_BY_NAME, ShapeCfg, decode_step,
+                                    init_cache, init_params)
+    from repro_torch.models.serving import (pad_params_for_serving,
+                                            serving_padded)
+    t0 = time.perf_counter()
+    cfg = cut("minicpm-2b", 2)
+    padded = serving_padded(cfg, 16)
+    if (cfg.n_heads, padded.n_heads) != (36, 48):
+        raise AssertionError(f"heads {cfg.n_heads} -> {padded.n_heads}")
+    params = init_params(cfg, torch.Generator(device=cuda).manual_seed(seed),
+                         dtype=torch.float32, device=cuda)
+    fn, _ = build_decode_step(cfg, ShapeCfg("serve", SERVE_CACHE,
+                                            SERVE_BATCH, "decode"),
+                              MeshSpec({"data": 1, "model": 16}),
+                              StepConfig())
+    pp = pad_params_for_serving(cfg, padded, params)
+    tokens = torch.from_numpy(np.random.default_rng(seed).integers(
+        0, cfg.vocab, (SERVE_BATCH, SERVE_GEN)).astype(np.int32)).to(cuda)
+
+    def run(step):
+        caches = None
+        outs, wall = [], []
+        for pos in range(SERVE_GEN):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            logits, caches = step(caches, tokens[:, pos:pos + 1], pos)
+            torch.cuda.synchronize()
+            wall.append(time.perf_counter() - t1)
+            outs.append(logits)
+        return outs, SERVE_BATCH * (SERVE_GEN - 1) / sum(wall[1:])
+
+    def plain(caches, tok, pos):
+        caches = caches or init_cache(cfg, SERVE_BATCH, SERVE_CACHE,
+                                      dtype=torch.float32, device=cuda)
+        with torch.no_grad():
+            return decode_step(cfg, params, caches, tok, pos)
+
+    def pad(caches, tok, pos):
+        caches = caches or init_cache(padded, SERVE_BATCH, SERVE_CACHE,
+                                      dtype=torch.float32, device=cuda)
+        return fn(pp, caches, tok, pos)
+
+    run(plain)                                          # warm-up
+    want, tps0 = run(plain)
+    got, tps1 = run(pad)
+    err = max(max_err(a, b) for a, b in zip(got, want))
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, rtol=2e-4, atol=2e-4)
+    mesh = make_production_mesh()
+    shape = SHAPE_BY_NAME["decode_32k"]
+    full = get_arch("minicpm-2b")
+    kv = {}
+    for c in (full, serving_padded(full, 16)):
+        cache = abstract_cache(c, shape)
+        kv[c.n_heads] = per_device_bytes(
+            cache, cache_specs(cache, mesh, shape.global_batch), mesh)
+    print(f"e2e serve padded minicpm-2b (d_model {cfg.d_model}, {depth(cfg)},"
+          f" f32, batch {SERVE_BATCH}, cache {SERVE_CACHE}, {SERVE_GEN} "
+          f"steps) on MeshSpec(data 1, model 16): heads 36 -> 48, logits vs "
+          f"unpadded max abs err {err} (bar 2e-4); tokens_per_s unpadded "
+          f"{tps0} padded {tps1}; decode_32k KV cache per device on (16, 16) "
+          f"(40 layers, cache_specs): 36 heads replicated {kv[36]} B, 48 "
+          f"heads 3 local {kv[48]} B ({kv[36] / kv[48]:.1f}x) card={card}")
+    print(f"serve padded phase: {time.perf_counter() - t0:.1f} s")
+
+
+def dryrun_phase() -> None:
+    """The dry run (host only, meta tensors): minicpm-2b x train_4k on the
+    single pod and deepseek-v3-671b x decode_32k on the multi pod."""
+    from repro_torch.launch.dryrun import run_cell
+    from repro_torch.models import moe_ep
+    t0 = time.perf_counter()
+    try:
+        for arch, shape, mp in (("minicpm-2b", "train_4k", False),
+                                ("deepseek-v3-671b", "decode_32k", True)):
+            r = run_cell(arch, shape, mp, verbose=False)
+            if r["skipped"] or not r["hlo_flops"] > 0:
+                raise AssertionError(f"dryrun {arch} x {shape}: {r}")
+            print(f"dryrun {arch} x {shape} x "
+                  f"{'multi-pod' if mp else 'single-pod'} ({r['n_devices']} "
+                  f"devices, host only): trace_s={r['trace_s']} hlo_flops="
+                  f"{r['hlo_flops']} (global) argument_bytes_per_device="
+                  f"{r['mem']['argument_bytes']} output_bytes_per_device="
+                  f"{r['mem']['output_bytes']} wire_bytes_per_device="
+                  f"{r['wire_bytes_per_device']} model_params="
+                  f"{r['model_params']}")
+    finally:
+        moe_ep.set_ep_mesh(None, ("data",))
+    print(f"dryrun phase: {time.perf_counter() - t0:.1f} s")
+
+
+def service_attribution_phase(stream, card, cuda, launches) -> None:
+    """The GS service phase's configuration (K = 8, megakernel) over 40
+    intervals with ``TelemetryConfig(trace_path=..., hlo_attribution=
+    True)``: its final state and outputs bitwise with the same run without
+    attribution; every execute span carries the cost fields, and no
+    fraction of the card's peak reads above 1.05."""
+    import tempfile
+    from repro_torch import LAUNCHES, reset_launches
+    from repro_torch.core.intervals import ReplaySource, WatermarkPolicy
+    from repro_torch.runtime import telemetry as tt
+    from repro_torch.runtime.service import ServiceConfig, StreamService
+    t0 = time.perf_counter()
+    n = ATTR_INTERVALS * INTERVAL
+    head = {k: np.asarray(v)[:n] for k, v in stream["gs"].items()}
+    eng = engine("gs", "megakernel", cuda)
+    source = lambda: ReplaySource(lambda rng, _n: head, n, seed=7,
+                                  arrival_batch=INTERVAL,
+                                  jitter=SERVICE_JITTER)
+    cfg = lambda tcfg: ServiceConfig(
+        punct_interval=INTERVAL, chunk_intervals=SERVICE_CHUNK,
+        watermark=WatermarkPolicy(allowed_lateness=SERVICE_JITTER),
+        telemetry=tcfg)
+    ref = StreamService(eng, cfg(None)).run(source())     # also the warm-up
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "trace.json")
+        reset_launches()
+        rec = StreamService(eng, cfg(tt.TelemetryConfig(
+            trace_path=path, hlo_attribution=True))).run(source())
+        got = dict(LAUNCHES)
+        spans = [e for e in tt._parse_trace(path)
+                 if e.get("ph") == "X" and e["name"] == "chunk.execute"]
+    for k, v in got.items():
+        launches[k] += v
+    n_chunks = ATTR_INTERVALS // SERVICE_CHUNK
+    if got["megakernel"] != 3 * n_chunks or \
+            got["radix_partition"] != n_chunks:
+        raise AssertionError(f"attributed service launches {got}")
+    assert_equal(torch.from_numpy(rec.final_values),
+                 torch.from_numpy(ref.final_values),
+                 "attributed service state vs the run without")
+    check_outputs(rec.outputs, ref.outputs, "attributed service",
+                  ATTR_INTERVALS, bitwise=True)
+    fields = {"flops", "bytes_written", "wire_bytes_per_device", "gflops_s",
+              "gbytes_s", "bound", "frac_compute", "frac_memory", "frac_link"}
+    if len(spans) != n_chunks or not all(fields <= set(e["args"])
+                                         for e in spans):
+        raise AssertionError(f"execute spans without the cost fields: "
+                             f"{[e['args'] for e in spans]}")
+    fm = [e["args"]["frac_memory"] for e in spans]
+    if max(fm) > 1.05 or max(e["args"]["frac_compute"] for e in spans) > 1.05:
+        raise AssertionError(f"a fraction of the peak above 1.05: {fm}")
+    a = spans[0]["args"]
+    print(f"e2e service attribution gs rung=megakernel chunk={SERVICE_CHUNK}"
+          f" intervals={ATTR_INTERVALS}x{INTERVAL}: bitwise with the run "
+          f"without attribution; bytes_per_chunk={a['bytes_written']} "
+          f"flops_per_chunk={a['flops']} gbytes_s="
+          f"{[e['args']['gbytes_s'] for e in spans]} frac_memory={fm} "
+          f"bound={a['bound']} launches={got} card={card}")
+    print(f"service attribution phase: {time.perf_counter() - t0:.1f} s")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2136,6 +2399,10 @@ def main() -> int:
     train_phase(card, cuda, launches, args.seed)
     serve_phase(card, cuda, launches, args.seed)
     mamba_phase(card, cuda, args.seed)
+    ep_phase(card, cuda, args.seed)
+    serve_padded_phase(card, cuda, args.seed)
+    dryrun_phase()
+    service_attribution_phase(stream, card, cuda, launches)
     missing = sorted(k for k in LAUNCHES if launches[k] <= 0)
     if missing:
         raise AssertionError(f"kernels never launched on the driven paths: "

@@ -11,7 +11,9 @@ port's, so that both packages can probe the same table.
 For the model layer, weights are the same nested dicts on both sides:
 ``params_to_torch`` moves a tree of numpy arrays (a JAX tree through
 ``np.asarray``: params, KV/SSM caches or AdamW state) onto a device leaf by
-leaf, and ``params_to_numpy`` brings one back.
+leaf, and ``params_to_numpy`` brings one back.  ``opt_state_to_torch``
+carries an AdamW state (``m``, ``v``, ``step``), so that a train step of
+both packages starts from the same state.
 """
 from __future__ import annotations
 
@@ -99,3 +101,16 @@ def params_to_numpy(tree: Any) -> Any:
         t = t.detach().cpu()
         return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
     return _unflatten(tree, iter(leaf(x) for _, x in _flatten(tree)))
+
+
+def opt_state_to_torch(state: Any, device) -> Dict[str, Any]:
+    """An AdamW state of numpy arrays (``m`` and ``v`` mirroring the params,
+    ``step`` a 0-d int32) as the port's ``adamw_init`` tree on ``device``
+    (None: the CUDA card), dtypes kept (a bf16 state stays bf16)."""
+    if set(state) != {"m", "v", "step"}:
+        raise ValueError(f"an AdamW state has m, v and step, not "
+                         f"{sorted(state)}")
+    dev = resolve_device(device)
+    return dict(m=params_to_torch(state["m"], dev),
+                v=params_to_torch(state["v"], dev),
+                step=_leaf_to_torch(state["step"], dev).to(torch.int32))

@@ -15,17 +15,32 @@ the stacked result of every shard at once.
 
 Every exchange of the sharded driver goes through these five functions, so a
 transport across cards (``torch.distributed``) replaces only this module.
+Under a program trace (``launch/hlo_analysis.ProgramTrace``) each call
+counts once, as the collective it stands for (all-to-all, all-gather or
+all-reduce) over its group, with one shard's result bytes; the tensor ops
+that carry it out on one device are not recorded.  ``all_to_all`` is its
+own inverse, so its gradient is an ``all_to_all`` of the output's
+gradient: a traced backward pass counts its exchanges too.
 """
 from __future__ import annotations
 
 import math
-from typing import Sequence, Tuple, Union
+from typing import Dict, Sequence, Tuple, Union
 
 import torch
 
-from ..kernels.runtime import resolve_device
+from ..kernels.runtime import active_trace, resolve_device
 
 Axes = Union[str, Sequence[str]]
+
+
+def axis_sizes(mesh) -> Dict[str, int]:
+    """Axis name -> size, for a ``ShardMesh`` (a shape tuple) and for a
+    mesh whose ``shape`` is already that dict (``launch.mesh.MeshSpec``, a
+    JAX mesh)."""
+    if isinstance(mesh.shape, dict):
+        return dict(mesh.shape)
+    return dict(zip(mesh.axis_names, mesh.shape))
 
 
 class ShardMesh:
@@ -42,6 +57,16 @@ class ShardMesh:
                 self.axis_names):
             raise ValueError(f"bad mesh {self.shape} {self.axis_names}")
         self.device = resolve_device(device)
+
+    @classmethod
+    def meta(cls, shape: Sequence[int], axis_names: Sequence[str]
+             ) -> "ShardMesh":
+        """A mesh over shape-only ``meta`` tensors, for the dry run
+        (``launch/dryrun.py``).  No entry point takes the meta device: this
+        is the only way to a mesh on it."""
+        mesh = cls(shape, axis_names, device="cpu")
+        mesh.device = torch.device("meta")
+        return mesh
 
     @property
     def size(self) -> int:
@@ -66,6 +91,21 @@ class ShardMesh:
         """Position, in the unflattened tensor, of a shard's own axis."""
         return ax if ax < dim else ax + len(self.shape)
 
+    def group_size(self, axes: Axes) -> int:
+        """Shards in one group of ``axes``."""
+        return math.prod(self.shape[i] for i in self._axes(axes))
+
+    def _traced(self, kind: str, axes: Axes, fn):
+        """Run ``fn()`` (one collective) and, under an active trace, record
+        it in place of the tensor ops that carry it out."""
+        trace = active_trace()
+        if trace is None:
+            return fn()
+        with trace.opaque():
+            out = fn()
+        trace.collective(kind, out, self.size, self.group_size(axes))
+        return out
+
     # -- collectives ---------------------------------------------------------
     def all_to_all(self, x: torch.Tensor, axes: Axes, split_axis: int,
                    concat_axis: int, *, dim: int) -> torch.Tensor:
@@ -78,6 +118,12 @@ class ShardMesh:
         split axis."""
         if split_axis != concat_axis:
             raise ValueError("all_to_all takes split_axis == concat_axis")
+        if torch.is_grad_enabled() and x.requires_grad:
+            return _AllToAll.apply(self, x, axes, split_axis, dim)
+        return self._traced("all-to-all", axes, lambda: self._all_to_all(
+            x, axes, split_axis, dim))
+
+    def _all_to_all(self, x, axes, split_axis, dim):
         group = self._axes(axes)
         sizes = [self.shape[i] for i in group]
         xu = self._unflatten(x, dim)
@@ -97,6 +143,10 @@ class ShardMesh:
         """``jax.lax.all_gather(x, axis, axis=gather_axis)`` (not tiled):
         each shard gets a new axis at ``gather_axis`` holding the values of
         every shard along ``axis`` that agrees with it on the other axes."""
+        return self._traced("all-gather", axis, lambda: self._all_gather(
+            x, axis, gather_axis, dim))
+
+    def _all_gather(self, x, axis, gather_axis, dim):
         (m,) = self._axes(axis)
         k = len(self.shape)
         xu = self._unflatten(x, dim)
@@ -124,7 +174,27 @@ class ShardMesh:
         return self._reduce(x, axes, dim, torch.amin)
 
     def _reduce(self, x, axes, dim, op):
+        return self._traced("all-reduce", axes, lambda: self._reduce_now(
+            x, axes, dim, op))
+
+    def _reduce_now(self, x, axes, dim, op):
         xu = self._unflatten(x, dim)
         pos = [dim + m for m in self._axes(axes)]
         r = op(xu, dim=pos, keepdim=True).expand(xu.shape)
         return r.flatten(dim, dim + len(self.shape) - 1).contiguous()
+
+
+class _AllToAll(torch.autograd.Function):
+    """``ShardMesh.all_to_all`` with its gradient: the exchange swaps chunk
+    g of shard d with chunk d of shard g, so it is its own inverse."""
+
+    @staticmethod
+    def forward(ctx, mesh, x, axes, split_axis, dim):
+        ctx.args = (mesh, axes, split_axis, dim)
+        return mesh.all_to_all(x, axes, split_axis, split_axis, dim=dim)
+
+    @staticmethod
+    def backward(ctx, grad):
+        mesh, axes, split_axis, dim = ctx.args
+        return (None, mesh.all_to_all(grad, axes, split_axis, split_axis,
+                                      dim=dim), None, None, None)

@@ -269,7 +269,19 @@ class DualModeEngine:
         its cost attribution; eager PyTorch has no such program text."""
         raise NotImplementedError(
             "chunk_lowered_text reads compiled XLA HLO, which eager PyTorch "
-            "does not have; what replaces it is open (ROADMAP A8.2)")
+            "does not have; the port's cost attribution is chunk_cost, a "
+            "trace of the chunk's own execution")
+
+    def chunk_cost(self, values, batched, ts0: int, variant=None):
+        """``run_stream_chunk`` run once under a program trace
+        (``launch/hlo_analysis.ProgramTrace``, on this thread): returns
+        ``((res_all, ebs_all, values, stats), trace)``.  The run is the
+        real one, its results and launch counts as without the trace; read
+        the cost with ``hlo_analysis.analyze(trace, n_devices)``."""
+        from ..launch.hlo_analysis import ProgramTrace
+        with ProgramTrace() as trace:
+            out = self.run_stream_chunk(values, batched, ts0, variant=variant)
+        return out, trace
 
     # -- carry and ownership (reference: scheduler.py, elastic carry API) --
     def carry_in(self, values):

@@ -13,14 +13,32 @@ import ctypes
 import torch
 
 from .. import _build
-from ..runtime import LAUNCHES, check, check_tensor, on_card
-from .ref import ASSOC, hash_probe_ref
+from ..runtime import LAUNCHES, check, check_tensor, costed, on_card
+from .ref import ASSOC, MAX_PROBES, bucket_of, hash_probe_ref
 
 NAME = "hash_probe"
 _P, _I = ctypes.c_void_p, ctypes.c_int
 SIGNATURES = {"hash_probe": [_P, _P, _P, _I, _I, _I, _P]}
 
 
+def cost(keys: torch.Tensor, table: torch.Tensor, slots: torch.Tensor):
+    """(bytes, operations) of one call that found ``slots`` (it reads them,
+    so it waits for the device): the keys in and the slots out (4 B each)
+    and the table once; per key the hash (multiply, shift, modulo), per
+    bucket probed an index (add, modulo), and the compares up to the
+    matching way, or every way of every probe for a key not found."""
+    n_buckets = table.shape[0]
+    hit = slots.long()
+    probes = (hit // ASSOC - bucket_of(keys, n_buckets).long()) % n_buckets + 1
+    compares = (probes - 1) * ASSOC + hit % ASSOC + 1
+    found = hit >= 0
+    probes = torch.where(found, probes, MAX_PROBES)
+    compares = torch.where(found, compares, MAX_PROBES * ASSOC)
+    n_ops = float((3 + 2 * probes + compares).sum())
+    return 8.0 * keys.shape[0] + 4.0 * table.numel(), n_ops
+
+
+@costed(NAME, lambda out, keys, table, **_: cost(keys, table, out))
 def hash_probe(keys: torch.Tensor, table: torch.Tensor, *,
                threads: int | None = None) -> torch.Tensor:
     """keys i32[N], table i32[n_buckets, ASSOC] -> slot i32[N], -1 if absent.

@@ -21,7 +21,8 @@ import ctypes
 import torch
 
 from .. import _build
-from ..runtime import LAUNCHES, check, check_tensor, on_card, smem_optin
+from ..runtime import (LAUNCHES, check, check_tensor, costed, on_card,
+                       smem_optin)
 from .ref import fused_chain_stream_ref
 
 NAME = "megakernel"
@@ -42,6 +43,38 @@ def megakernel_smem_bytes(n: int, w: int) -> int:
     return min(16 * n * w + 3 * n, 2 ** 31 - 1)
 
 
+def cost(values: torch.Tensor, sops, ch, pad_uid: int, n_luts: int):
+    """(bytes, operations) of one call on this data (it reads ``ch.counts``
+    and the ops' flags, so it waits for the device).
+
+    Bytes: each input of the function read once and each output written
+    once: per row its chain-start flag, valid, fun, uid and flat position
+    (14 B) and its success flag (1 B); per row and lane its operand, pre
+    and post (12 B); the state in and out (8 B a slot and lane); the LUTs.
+    The slot histograms are left out: the function finds each chain's end
+    from the flags, and only this design reads them.  Operations: the
+    scan's 3 per row, lane and step for the ceil(log2 L) steps this data
+    needs (L each interval's longest chain other than the pad chain, or
+    the pad chain where a row of it is valid), 8 per row and lane to
+    compose and apply, 2 per touched slot and lane for the carry."""
+    w = values.shape[-1]
+    rows = sops.uid.numel()
+    pad_valid = (sops.valid & (sops.uid == pad_uid)).any(dim=-1)
+    longest = torch.maximum(
+        ch.counts[..., :pad_uid].amax(dim=-1),
+        torch.where(pad_valid, ch.counts[..., pad_uid], 0)).double()
+    steps = torch.ceil(torch.log2(torch.clamp(longest, min=1)))
+    n = sops.uid.shape[-1]
+    touched = int((ch.counts[..., :pad_uid] > 0).sum())
+    nbytes = (15.0 * rows + 12.0 * rows * w + 8.0 * values.numel()
+              + 5.0 * n_luts)
+    n_ops = (3.0 * float(steps.sum()) * n * w + 8.0 * rows * w
+             + 2.0 * touched * w)
+    return nbytes, n_ops
+
+
+@costed(NAME, lambda out, values, sops, ch, pad_uid, *, a_lut, **_: cost(
+    values, sops, ch, pad_uid, a_lut.numel()))
 def fused_chain_eval(values: torch.Tensor, sops, ch, pad_uid: int, *,
                      a_lut: torch.Tensor, b_lut: torch.Tensor,
                      threads: int | None = None):

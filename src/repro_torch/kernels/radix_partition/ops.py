@@ -15,7 +15,7 @@ import ctypes
 import torch
 
 from .. import _build
-from ..runtime import LAUNCHES, check, check_tensor, on_card
+from ..runtime import LAUNCHES, check, check_tensor, costed, on_card
 from .ref import radix_partition_rank_ref
 
 NAME = "radix_partition"
@@ -31,6 +31,15 @@ def default_threads(n: int) -> int:
     return min(1024, max(32, -(-n // (32 * ITEMS)) * 32))
 
 
+def cost(keys: torch.Tensor, n_buckets: int):
+    """(bytes, operations) of one call on ``keys`` ([N] or [BN, N]) over
+    ``n_buckets``: each input read once and each output written once (keys
+    in, ranks and counts out, 4 B each), one operation a key."""
+    bn, n = (1, keys.shape[0]) if keys.dim() == 1 else tuple(keys.shape)
+    return 4.0 * (2 * bn * n + bn * n_buckets), float(bn * n)
+
+
+@costed(NAME, lambda out, keys, n_buckets, **_: cost(keys, n_buckets))
 def radix_partition_rank(keys: torch.Tensor, n_buckets: int, *,
                          threads: int | None = None):
     """keys: i32[N] or i32[BN, N], values in [0, n_buckets).

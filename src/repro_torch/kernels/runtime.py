@@ -7,10 +7,19 @@ the CPU, where every kernel wrapper takes its plain-PyTorch twin.
 ``LAUNCHES`` counts kernel launches per kernel.  A wrapper adds one where
 it launches its kernel on the card and nowhere else, so a run can show that
 it went through the kernels (``chip_smoke.py`` reads it).
+
+``costed`` is each wrapper's cost hook: while a program trace
+(``launch/hlo_analysis.ProgramTrace``) records on the calling thread, the
+wrapper's call counts once, at the bytes and operations of its kernel's
+``cost()``, and none of the aten ops inside it (the twin's on the CPU, the
+output allocations on the card) is recorded.  With no trace it adds nothing
+but one thread-local read.
 """
 from __future__ import annotations
 
-from typing import Optional, Union
+import functools
+import threading
+from typing import Callable, Optional, Tuple, Union
 
 import torch
 
@@ -75,3 +84,36 @@ def check_tensor(x: torch.Tensor, name: str, what: str, dtype: torch.dtype,
           f"shape {tuple(x.shape)}")
     check(x.device == device, name, f"{what} on {x.device}, expected {device}")
     check(x.is_contiguous(), name, f"{what} must be contiguous")
+
+
+# -- the program trace's hook -------------------------------------------------
+_ACTIVE = threading.local()
+
+
+def active_trace():
+    """The program trace recording on this thread, or None."""
+    return getattr(_ACTIVE, "trace", None)
+
+
+def set_active_trace(trace) -> None:
+    _ACTIVE.trace = trace
+
+
+def costed(name: str, cost_fn: Callable[..., Tuple[float, float]]):
+    """Decorate a kernel wrapper: under an active trace, record one call of
+    kernel ``name`` at ``cost_fn(result, *args, **kwargs)`` (bytes,
+    operations), computed after the call, and hide the call's own aten ops
+    from the trace."""
+    def wrap(fn):
+        @functools.wraps(fn)
+        def wrapper(*args, **kwargs):
+            trace = active_trace()
+            if trace is None:
+                return fn(*args, **kwargs)
+            with trace.opaque():
+                out = fn(*args, **kwargs)
+                nbytes, n_ops = cost_fn(out, *args, **kwargs)
+            trace.kernel(name, nbytes, n_ops)
+            return out
+        return wrapper
+    return wrap

@@ -14,7 +14,7 @@ import ctypes
 import torch
 
 from .. import _build
-from ..runtime import LAUNCHES, check, check_tensor, on_card
+from ..runtime import LAUNCHES, check, check_tensor, costed, on_card
 from .ref import segscan_affine_ref, segscan_max_ref
 
 LIB = "segscan"
@@ -55,6 +55,21 @@ def _scratch(n, w, k, dev):
     return status, carry, slots
 
 
+def cost(x: torch.Tensor, kind: str):
+    """(bytes, operations) of one scan of ``kind`` ("affine" or "max") over
+    the rows ``x`` [N, W]: the flags (1 B a row) and the coefficients in,
+    the scans out, each once (f32: two operands and two results for the
+    affine scan, one each for the max); 3 operations a row and lane to
+    compose an affine pair, 1 for a max."""
+    n, w = x.shape
+    if kind == "affine":
+        return n + 16.0 * n * w, 3.0 * n * w
+    if kind == "max":
+        return n + 8.0 * n * w, 1.0 * n * w
+    raise ValueError(f"kind={kind!r}: 'affine' or 'max'")
+
+
+@costed("segscan_affine", lambda out, a, *_, **__: cost(a, "affine"))
 def segscan_affine(a: torch.Tensor, b: torch.Tensor, seg_start: torch.Tensor,
                    *, threads: int | None = None):
     """Exclusive segmented affine scan.  a, b: f32[N, W]; seg_start: bool[N].
@@ -76,6 +91,7 @@ def segscan_affine(a: torch.Tensor, b: torch.Tensor, seg_start: torch.Tensor,
     return A, B
 
 
+@costed("segscan_max", lambda out, m, *_, **__: cost(m, "max"))
 def segscan_max(m: torch.Tensor, seg_start: torch.Tensor, *,
                 threads: int | None = None):
     """Exclusive segmented max scan.  m: f32[N, W]; seg_start: bool[N]."""

@@ -1,0 +1,187 @@
+"""Step builders and abstract inputs for every (arch x shape) cell
+(reference: ``repro/launch/steps.py``).
+
+``batch_struct``, ``abstract_params``, ``abstract_opt_state`` and
+``abstract_cache`` give the inputs as shape-only ``meta`` tensors (the
+reference's ``ShapeDtypeStruct``s): the dry run (``launch/dryrun.py``)
+traces a step on them.  ``build_train_step``, ``build_prefill_step`` and
+``build_decode_step`` return ``(fn, structs)``; ``fn`` runs eagerly where
+its inputs lie.
+
+Of ``StepConfig``, ``remat``, ``expert_parallel``, ``serving_head_pad``,
+``kv_chunk`` and ``optimizer`` shape the step.  ``seq_shard_acts`` (the
+reference's sequence-sharding constraint on the layer carry) and the jit
+shardings and buffer donation have no counterpart on one device: the field
+is kept, and only the dry run reads it (it reports the setting).
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Dict
+
+import torch
+
+from ..ckpt.checkpoint import _flatten, _unflatten
+from ..core.mesh import axis_sizes
+from ..models import (ArchConfig, ShapeCfg, decode_step, forward, loss_fn,
+                      meta_cache, meta_params)
+from ..models import layers, moe_ep
+from ..models.serving import serving_padded
+from ..optim import AdamWConfig, adamw_init, adamw_update, wsd_schedule
+from .mesh import dp_axes
+
+N_PATCHES = 256  # vision stub: patches per sample in vlm cells
+
+
+@dataclasses.dataclass(frozen=True)
+class StepConfig:
+    remat: str = "full"
+    seq_shard_acts: bool = True       # sequence sharding of the layer carry
+                                      # (read by the dry run only)
+    expert_parallel: bool = True      # EP MoE (vs the dropless path)
+    serving_head_pad: bool = True     # decode: pad/replicate kv heads so
+                                      # the cache shards on the model axis
+    kv_chunk: int = 1024              # flash-attention KV streaming chunk
+    optimizer: AdamWConfig = AdamWConfig(state_dtype=torch.bfloat16)
+
+
+def _configure_ep(cfg: ArchConfig, mesh, step_cfg: StepConfig,
+                  tokens_per_device: int = 1 << 30):
+    """EP pays off only when each device has enough tokens to fill its
+    all-to-all capacity buckets; decode (a handful of tokens a device)
+    stays on the dropless path."""
+    layers.set_kv_chunk(step_cfg.kv_chunk)
+    msize = axis_sizes(mesh)["model"]
+    if step_cfg.expert_parallel and cfg.is_moe \
+            and cfg.n_experts % msize == 0 and tokens_per_device >= msize:
+        moe_ep.set_ep_mesh(mesh, dp_axes(mesh))
+    else:
+        moe_ep.set_ep_mesh(None, dp_axes(mesh))
+
+
+def _meta(shape, dtype) -> torch.Tensor:
+    return torch.empty(shape, dtype=dtype, device="meta")
+
+
+def batch_struct(cfg: ArchConfig, shape: ShapeCfg) -> Dict[str, Any]:
+    b, s = shape.global_batch, shape.seq_len
+    i32, bf16 = torch.int32, torch.bfloat16
+    if shape.kind == "decode":
+        return dict(tokens=_meta((b, 1), i32))
+    if cfg.frontend == "audio":
+        batch = dict(frames=_meta((b, s, cfg.d_model), bf16))
+        if shape.kind == "train":
+            batch["labels"] = _meta((b, s), i32)
+        return batch
+    batch = dict(tokens=_meta((b, s), i32))
+    if shape.kind == "train":
+        batch["labels"] = _meta((b, s), i32)
+    if cfg.frontend == "vision":
+        batch["patch_embeds"] = _meta((b, N_PATCHES, cfg.d_model), bf16)
+        batch["patch_pos"] = _meta((b, N_PATCHES), i32)
+    if cfg.mrope:
+        batch["pos3"] = _meta((b, 3, s), i32)
+    return batch
+
+
+def abstract_params(cfg: ArchConfig, dtype=torch.bfloat16):
+    return meta_params(cfg, dtype)
+
+
+def abstract_opt_state(cfg: ArchConfig, opt: AdamWConfig):
+    return adamw_init(abstract_params(cfg), opt)
+
+
+def abstract_cache(cfg: ArchConfig, shape: ShapeCfg):
+    return meta_cache(cfg, shape.global_batch, shape.seq_len)
+
+
+def _dp_size(mesh) -> int:
+    sizes = axis_sizes(mesh)
+    n = 1
+    for a in dp_axes(mesh):
+        n *= sizes[a]
+    return n
+
+
+def logits_spec(cfg: ArchConfig, shape: ShapeCfg, mesh,
+                decode: bool = False):
+    """Spec of the logits [B, S, V], sanitized for odd batch/vocab sizes
+    (the reference's ``_logits_spec``)."""
+    from .sharding import sanitize_spec
+    s = 1 if decode else shape.seq_len
+    return sanitize_spec((dp_axes(mesh), None, "model"),
+                         (shape.global_batch, s, cfg.vocab), mesh)
+
+
+# ---------------------------------------------------------------------------
+# step functions
+# ---------------------------------------------------------------------------
+def build_train_step(cfg: ArchConfig, shape: ShapeCfg, mesh,
+                     step_cfg: StepConfig = StepConfig()):
+    """Returns ``(step, (params_struct, opt_struct, batch_struct))``;
+    ``step(params, opt_state, batch) -> (params, opt_state, loss)``, its
+    inputs left as they were."""
+    _configure_ep(cfg, mesh, step_cfg)
+    opt = step_cfg.optimizer
+
+    def train_step(params, opt_state, batch):
+        leaves = [p.detach().requires_grad_() for _, p in _flatten(params)]
+        loss = loss_fn(cfg, _unflatten(params, iter(leaves)), batch,
+                       remat=step_cfg.remat)
+        grads = torch.autograd.grad(loss, leaves)
+        lr = wsd_schedule(opt_state["step"], warmup=2000, stable=50_000,
+                          decay=5_000)
+        with torch.no_grad():
+            new_params, new_state = adamw_update(
+                params, _unflatten(params, iter(grads)), opt_state, opt,
+                lr_scale=lr)
+        return new_params, new_state, loss.detach()
+
+    return train_step, (abstract_params(cfg), abstract_opt_state(cfg, opt),
+                        batch_struct(cfg, shape))
+
+
+def build_prefill_step(cfg: ArchConfig, shape: ShapeCfg, mesh,
+                       step_cfg: StepConfig = StepConfig()):
+    """Returns ``(prefill, (params_struct, batch_struct))``;
+    ``prefill(params, batch) -> logits``."""
+    _configure_ep(cfg, mesh, step_cfg)
+
+    def prefill(params, batch):
+        with torch.no_grad():
+            return forward(cfg, params, batch, remat="none")
+
+    return prefill, (abstract_params(cfg), batch_struct(cfg, shape))
+
+
+def build_decode_step(cfg: ArchConfig, shape: ShapeCfg, mesh,
+                      step_cfg: StepConfig = StepConfig()):
+    """serve_step: one new token against a seq_len-deep KV cache.  With
+    ``serving_head_pad`` the config is padded for the model axis
+    (``models.serving``) and ``serve`` takes the padded params
+    (``pad_params_for_serving``).  Returns ``(serve, (params_struct,
+    cache_struct, tokens_struct, pos_struct))``; ``serve(params, caches,
+    tokens, pos) -> (logits, caches)`` with ``pos`` an int."""
+    _configure_ep(cfg, mesh, step_cfg,
+                  tokens_per_device=max(shape.global_batch
+                                        // _dp_size(mesh), 1))
+    if step_cfg.serving_head_pad:
+        cfg = serving_padded(cfg, axis_sizes(mesh)["model"])
+
+    def serve(params, caches, tokens, pos):
+        with torch.no_grad():
+            return decode_step(cfg, params, caches, tokens, int(pos))
+
+    return serve, (abstract_params(cfg), abstract_cache(cfg, shape),
+                   batch_struct(cfg, shape)["tokens"],
+                   _meta((), torch.int32))
+
+
+def build_step(cfg: ArchConfig, shape: ShapeCfg, mesh,
+               step_cfg: StepConfig = StepConfig()):
+    if shape.kind == "train":
+        return build_train_step(cfg, shape, mesh, step_cfg)
+    if shape.kind == "prefill":
+        return build_prefill_step(cfg, shape, mesh, step_cfg)
+    return build_decode_step(cfg, shape, mesh, step_cfg)

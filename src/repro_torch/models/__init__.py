@@ -3,4 +3,4 @@ encoder (reference: ``repro/models``)."""
 from .config import (SHAPE_BY_NAME, SHAPES, ArchConfig, ShapeCfg,
                      cell_is_applicable)
 from .model import (decode_step, forward, init_cache, init_params, layer_plan,
-                    loss_fn)
+                    loss_fn, meta_cache, meta_params)

@@ -300,15 +300,36 @@ def top_k(x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
     return vals[..., :k], idx[..., :k]
 
 
+def group_sizes(ids: torch.Tensor, n: int):
+    """Rows of each group ``0..n-1`` in ``ids`` as host ints (a read that
+    waits for the device); ``None`` for ``meta`` tensors, whose shape-only
+    program (the dry run) has no counts to read: ``grouped_matmul`` then
+    takes equal groups."""
+    if ids.is_meta:
+        return None
+    return torch.bincount(ids.reshape(-1), minlength=n)[:n].tolist()
+
+
 def grouped_matmul(xs: torch.Tensor, w: torch.Tensor, sizes) -> torch.Tensor:
     """``lax.ragged_dot``: rows ``xs`` [T, K] in contiguous groups of
-    ``sizes`` (one per expert, summing to T), each times its expert's
-    ``w[e]`` [K, N]."""
-    outs, start = [], 0
-    for e, n in enumerate(sizes):
-        outs.append(xs[start:start + n] @ w[e])
-        start += n
-    return torch.cat(outs, dim=0)
+    ``sizes`` (one per expert), each times its expert's ``w[e]`` [K, N];
+    rows past the groups' sum give zeros.  ``sizes=None`` (meta tensors
+    only, see ``group_sizes``) takes T // E rows a group, as one batched
+    matmul."""
+    e = w.shape[0]
+    if sizes is None:
+        g = xs.shape[0] // e
+        ys = torch.bmm(xs[:e * g].reshape(e, g, -1), w).reshape(e * g, -1)
+    else:
+        outs, start = [], 0
+        for i, n in enumerate(sizes):
+            outs.append(xs[start:start + n] @ w[i])
+            start += n
+        ys = torch.cat(outs, dim=0)
+    tail = xs.shape[0] - ys.shape[0]
+    if tail:
+        ys = torch.cat([ys, ys.new_zeros((tail, ys.shape[1]))], dim=0)
+    return ys
 
 
 def moe_forward(cfg: ArchConfig, p: dict, x: torch.Tensor) -> torch.Tensor:
@@ -330,7 +351,7 @@ def moe_forward(cfg: ArchConfig, p: dict, x: torch.Tensor) -> torch.Tensor:
     # row r of the expert-sorted layout is token order[r] // k; a broadcast
     # and a permutation, so no backward adds into one row from many
     xs = xt[:, None, :].expand(n_tok, k, d).reshape(t, d)[order]   # [T, D]
-    sizes = torch.bincount(flat_exp, minlength=e).tolist()
+    sizes = group_sizes(flat_exp, e)
 
     f = act_fn(cfg.act)
     if cfg.gated_ffn:

@@ -26,6 +26,7 @@ from .config import ArchConfig
 from .layers import (attn_forward, ffn_forward, mla_forward, moe_forward,
                      rms_norm, weak)
 from .mamba2 import CONV_W, mamba_forward, mamba_param_shapes
+from .moe_ep import get_ep_mesh, moe_forward_ep
 
 Tree = Any
 
@@ -54,6 +55,21 @@ class _Init:
     def const(self, shape, value, dtype=None):
         return torch.full(self.lead + tuple(shape), value,
                           dtype=dtype or self.dtype, device=self.device)
+
+
+class _MetaInit(_Init):
+    """Shape-only leaves on the ``meta`` device (``meta_params``)."""
+
+    def __init__(self, dtype, lead=()):
+        self.gen, self.dtype, self.device = None, dtype, torch.device("meta")
+        self.lead = tuple(lead)
+
+    def dense(self, shape, dtype=None, scale=None):
+        return torch.empty(self.lead + tuple(shape), dtype=dtype or self.dtype,
+                           device=self.device)
+
+    def const(self, shape, value, dtype=None):
+        return self.dense(shape, dtype)
 
 
 def _attn_params(cfg: ArchConfig, ini: _Init):
@@ -148,7 +164,20 @@ def init_params(cfg: ArchConfig, generator: torch.Generator,
     ``device`` (None: the CUDA card).  Its values are not the JAX init's:
     give both packages the same weights with ``convert.params_to_torch``."""
     dev = resolve_device(device)
-    ini = _Init(generator, dtype, dev)
+    return _build_params(cfg, lambda lead=(): _Init(generator, dtype, dev,
+                                                     lead))
+
+
+def meta_params(cfg: ArchConfig, dtype=torch.bfloat16) -> Tree:
+    """The parameter tree as shape-only ``meta`` tensors (the reference's
+    ``jax.eval_shape`` of ``init_params``): no memory, no device."""
+    return _build_params(cfg, lambda lead=(): _MetaInit(dtype, lead))
+
+
+def _build_params(cfg: ArchConfig, make_init) -> Tree:
+    """The tree, each leaf from ``make_init(lead)``'s initializer in the
+    order ``init_params`` draws them."""
+    ini = make_init()
     params: Dict[str, Tree] = {}
     if cfg.frontend != "audio":
         params["embed"] = ini.dense((cfg.vocab, cfg.d_model), scale=0.02)
@@ -161,11 +190,9 @@ def init_params(cfg: ArchConfig, generator: torch.Generator,
             continue
         if kind == "hybrid_group":
             stacks[kind] = _block_params(
-                cfg, _Init(generator, dtype, dev, (count, cfg.attn_every)),
-                "ssm")
+                cfg, make_init((count, cfg.attn_every)), "ssm")
         else:
-            stacks[kind] = _block_params(
-                cfg, _Init(generator, dtype, dev, (count,)), kind)
+            stacks[kind] = _block_params(cfg, make_init((count,)), kind)
     params["stacks"] = stacks
     if cfg.family == "hybrid":
         params["shared_attn"] = _block_params(cfg, ini, "shared_attn")
@@ -225,8 +252,10 @@ def _block_forward(cfg: ArchConfig, p, x, pos, kind, cache=None,
     x = x + weak(cfg.residual_scale, a.dtype) * a
     h = rms_norm(x, p["ln2"], cfg.norm_eps)
     if kind == "moe":
-        # the expert-parallel path (the reference's moe_ep) is not ported
-        f = moe_forward(cfg, p["ffn"], h)
+        if get_ep_mesh() is not None:
+            f = moe_forward_ep(cfg, p["ffn"], h)   # expert-parallel path
+        else:
+            f = moe_forward(cfg, p["ffn"], h)      # one-device path
     else:
         f = ffn_forward(cfg, p["ffn"], h)
     return x + weak(cfg.residual_scale, f.dtype) * f, new_cache
@@ -377,7 +406,17 @@ def init_cache(cfg: ArchConfig, batch: int, max_seq: int,
                dtype=torch.bfloat16, device=None) -> Tree:
     """Layer-stacked cache tree matching layer_plan, on ``device`` (None:
     the CUDA card)."""
-    dev = resolve_device(device)
+    return _cache_tree(cfg, batch, max_seq, dtype, resolve_device(device))
+
+
+def meta_cache(cfg: ArchConfig, batch: int, max_seq: int,
+               dtype=torch.bfloat16) -> Tree:
+    """``init_cache``'s tree as shape-only ``meta`` tensors."""
+    return _cache_tree(cfg, batch, max_seq, dtype, torch.device("meta"))
+
+
+def _cache_tree(cfg: ArchConfig, batch: int, max_seq: int, dtype,
+                dev: torch.device) -> Tree:
     z = functools.partial(torch.zeros, device=dev)
     f32 = torch.float32
     # each shape is built only for the kinds the plan holds: an SSM-only

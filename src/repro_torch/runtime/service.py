@@ -15,7 +15,10 @@ policy, controller and drop accounting.  What differs:
 * on the card the kernels are built before the first chunk (nvcc takes
   longer than ``watchdog_grace_s`` is meant to cover);
 * ``ChunkProfiler`` windows are ``torch.profiler``'s, opened and closed on
-  the executor thread; HLO cost attribution is not ported (ROADMAP A8.2).
+  the executor thread; the cost attribution (``hlo_attribution``) traces
+  the first chunk of each shape as it runs on the executor thread
+  (``CostAttributor``), where the reference lowers and compiles it once
+  more.
 
 ``StreamService`` turns the batch-replay drivers into a steady-state
 pipeline over an unbounded arrival source:
@@ -151,8 +154,8 @@ from ..kernels._build import build_all
 from .controller import (AdvisoryTiming, ControllerConfig, Plan,
                          PlanController, replay_plan)
 from .faults import FaultPlane, TransientSourceError
-from .telemetry import (ChunkProfiler, Telemetry, TelemetryConfig,
-                        empty_stats, make_tracer, stats_view)
+from .telemetry import (ChunkProfiler, CostAttributor, Telemetry,
+                        TelemetryConfig, empty_stats, make_tracer, stats_view)
 
 log = logging.getLogger(__name__)
 
@@ -383,6 +386,13 @@ class StreamService:
         rec.telemetry = tele
         tracer = make_tracer(tcfg, tele)
         profiler = ChunkProfiler(tcfg.profile_dir if tcfg else "")
+        cost_attr = None
+        if tcfg is not None and tcfg.hlo_attribution:
+            cost_attr = CostAttributor(
+                n_devices=(eng._sharded.n_dev
+                           if eng._sharded is not None else 1),
+                device=eng.device)
+        costs: Dict = {}     # shape key -> analyze dict (or None)
         if eng.device.type == "cuda" and eng.cfg.use_kernels:
             build_all()     # before the first chunk, off the watchdog's clock
         init = eng.init_store.values if values is None else values
@@ -513,7 +523,7 @@ class StreamService:
 
         def commit_oldest(check_crash: bool = True):
             (g0, kk, res, ebs, infos, xst, item_plan, qfill,
-             t_disp) = in_flight.popleft()
+             t_disp, cost) = in_flight.popleft()
             commit_span = tracer.span("chunk.commit", g0=g0, k=kk)
             commit_span.__enter__()
             outs = eng.post_outputs(res, ebs, kk)
@@ -522,10 +532,13 @@ class StreamService:
             now = time.monotonic()
             # the device-execute span: the dispatch->commit wall window,
             # reconstructed from stamps the accounting already takes (no
-            # extra clock reads on the replay path)
+            # extra clock reads on the replay path); cost attribution
+            # and roofline fractions ride on its args
             if tracer.enabled:
-                tracer.complete_at("chunk.execute", t_disp, now, g0=g0,
-                                   k=kk)
+                xargs = dict(g0=g0, k=kk)
+                if cost is not None and cost_attr is not None:
+                    xargs.update(cost_attr.annotate(cost, now - t_disp))
+                tracer.complete_at("chunk.execute", t_disp, now, **xargs)
             if progress["last_commit"] is not None:
                 progress["lat"].append(now - progress["last_commit"])
             progress["last_commit"] = now
@@ -710,16 +723,23 @@ class StreamService:
                 progress["lat"].clear()
             vals_ok["safe"] = False     # the carry is being replaced
             t_disp = time.monotonic()
+            ts0 = ts_base_for(g_next, interval)
             with tracer.span("chunk.dispatch", g0=g_next, k=kk):
                 with profiler.chunk(g_next):
-                    res, ebs, new_vals, xst = eng.run_stream_chunk(
-                        vals, batched, ts_base_for(g_next, interval),
-                        variant=variant)
+                    if cost_attr is not None and shape not in costs:
+                        # opt-in per-chunk-shape attribution: this chunk
+                        # runs once, under the trace, on this thread
+                        (res, ebs, new_vals, xst), costs[shape] = \
+                            cost_attr.run_chunk(eng, vals, batched, ts0,
+                                                variant=variant)
+                    else:
+                        res, ebs, new_vals, xst = eng.run_stream_chunk(
+                            vals, batched, ts0, variant=variant)
             vals = new_vals
             vals_ok["safe"] = True
             progress["t"] = time.monotonic()
             in_flight.append((g_next, kk, res, ebs, infos, xst, plan,
-                              qfill, t_disp))
+                              qfill, t_disp, costs.get(shape)))
             g_next += kk
             if faults is not None:
                 faults.on_executor_chunk()

@@ -3,10 +3,11 @@
 The reference's ``repro/runtime/telemetry.py``, with the same counter, gauge,
 histogram, record and span names, so the two packages emit the same keys.
 Two parts differ: ``ChunkProfiler`` opens ``torch.profiler`` windows, not
-``jax.profiler`` ones, and the per-chunk HLO cost attribution
-(``CostAttributor``) is not ported: it reads compiled XLA HLO, which eager
-PyTorch does not have, and what replaces it is open (ROADMAP A8.2), so
-``TelemetryConfig(hlo_attribution=True)`` raises ``NotImplementedError``.
+``jax.profiler`` ones, and the per-chunk cost attribution
+(``CostAttributor``, ``TelemetryConfig(hlo_attribution=True)``) reads a
+recorded trace of the chunk's own execution (``launch/hlo_analysis.py``),
+not compiled XLA HLO, which eager PyTorch does not have: the service runs
+the first chunk of each shape under the trace, and nothing runs twice.
 
 One registry for every observability surface the runtime grew piecemeal:
 
@@ -660,15 +661,8 @@ class TelemetryConfig:
 
     trace_path: str = ""        # Perfetto/Chrome JSONL sink; "" = no tracing
     profile_dir: str = ""       # torch.profiler per-chunk windows; "" = off
-    hlo_attribution: bool = False  # not ported (ROADMAP A8.2)
+    hlo_attribution: bool = False  # per-chunk cost on execute spans
     record_cap: int = 4096      # bound on every structured record log
-
-    def __post_init__(self):
-        if self.hlo_attribution:
-            raise NotImplementedError(
-                "hlo_attribution: the per-chunk cost attribution reads "
-                "compiled XLA HLO, which eager PyTorch does not have; what "
-                "replaces it is open (ROADMAP A8.2)")
 
 
 def make_tracer(tcfg: Optional[TelemetryConfig],
@@ -755,6 +749,94 @@ class _ProfiledChunk:
         self._rf.__exit__(*exc)
         self._prof.step()
         return False
+
+
+# Peak rates by device, for the achieved-vs-peak fractions.  The H100 row
+# is NVIDIA's data sheet for the SXM part at its 700 W limit: HBM3 at 3.35
+# TB/s, 67 TFLOP/s float32 outside the tensor cores (the engine's kernels
+# and ops are float32 and integer), NVLink 4 at 450 GB/s each direction.
+# The "cpu" row is a modest host, for runs on the CPU.
+DEVICE_PEAKS = {
+    "H100": dict(peak_flops=67e12, hbm_bw=3.35e12, link_bw=450e9),
+    "cpu": dict(peak_flops=1e12, hbm_bw=40e9, link_bw=20e9),
+}
+
+
+def device_peaks(device) -> Dict[str, float]:
+    """The ``DEVICE_PEAKS`` row of ``device``: "cpu", or the card whose
+    ``torch.cuda.get_device_name`` names a row; KeyError for another
+    card."""
+    import torch
+    dev = torch.device(device)
+    if dev.type == "cpu":
+        return dict(DEVICE_PEAKS["cpu"])
+    name = torch.cuda.get_device_name(dev)
+    for key, row in DEVICE_PEAKS.items():
+        if key != "cpu" and key in name:
+            return dict(row)
+    raise KeyError(f"no peak rates for {name!r}")
+
+
+class CostAttributor:
+    """Opt-in per-chunk cost attribution (``hlo_attribution=True``): the
+    first chunk of each shape key (variant, slack, owners, K) runs under a
+    program trace (``DualModeEngine.chunk_cost``), and its flops, bytes and
+    wire bytes annotate every execute span of that shape with
+    achieved-vs-peak fractions.  The traced chunk is the real one: nothing
+    runs twice and no state is copied.  Attribution never breaks a run: a
+    failure is logged once and the spans carry no cost."""
+
+    def __init__(self, n_devices: int = 1, device="cpu"):
+        self.n_devices = max(int(n_devices), 1)
+        self.device = device
+        self._peaks: Optional[Dict[str, float]] = None
+        self._warned = False
+
+    def _warn(self, what: str, e: Exception) -> None:
+        if not self._warned:
+            self._warned = True
+            log.warning("per-chunk cost attribution failed in %s (%s: %s) — "
+                        "execute spans will carry no cost args", what,
+                        type(e).__name__, e)
+
+    def run_chunk(self, engine, values, batched, ts0, variant=None):
+        """``engine.run_stream_chunk`` run once under a program trace:
+        ``(its four results, cost)``; cost is the trace's ``analyze``
+        dict, or None where the trace or the analysis failed."""
+        from ..launch.hlo_analysis import analyze
+        out, trace = engine.chunk_cost(values, batched, ts0, variant=variant)
+        try:
+            return out, analyze(trace, self.n_devices)
+        except Exception as e:       # attribution never breaks a run
+            self._warn("the analysis", e)
+            return out, None
+
+    def peaks(self) -> Dict[str, float]:
+        if self._peaks is None:
+            self._peaks = device_peaks(self.device)
+        return self._peaks
+
+    def annotate(self, cost: Dict, dur_s: float) -> Dict:
+        """Achieved-vs-peak annotation for one executed chunk window ({}
+        where the device has no peak rates)."""
+        try:
+            pk = self.peaks()
+        except KeyError as e:
+            self._warn("the peak table", e)
+            return {}
+        dur = max(float(dur_s), 1e-12)
+        flops = float(cost.get("dot_flops", 0.0))
+        byts = float(cost.get("bytes_written", 0.0))
+        wire = float(cost.get("wire_bytes_per_device", 0.0))
+        fracs = dict(
+            frac_compute=flops / dur / pk["peak_flops"],
+            frac_memory=byts / dur / pk["hbm_bw"],
+            frac_link=wire / dur / pk["link_bw"])
+        bound = max(fracs, key=fracs.get)
+        return dict(
+            flops=flops, bytes_written=byts, wire_bytes_per_device=wire,
+            gflops_s=flops / dur / 1e9, gbytes_s=byts / dur / 1e9,
+            bound=bound.replace("frac_", ""), **fracs)
 
 
 # ---------------------------------------------------------------------------

@@ -21,7 +21,10 @@ and the chunked service with ``run_stream`` on the card (TP to 1e-5).  The
 service on a sharded engine migrates live under a skew storm, bitwise with
 the single-device card run, and the replicate-everything baseline
 (``evaluate_sharded``) matches the single-device card evaluation (GS
-bitwise, TP to 1e-5).
+bitwise, TP to 1e-5).  The launch layer: expert-parallel MoE on the card
+keeps the CPU's choices bit for bit at the default capacity, the padded
+decode matches the unpadded one, and a chunk's traced cost
+(``chunk_cost``) on the card equals the CPU's.
 """
 import numpy as np
 import pytest
@@ -923,3 +926,101 @@ def test_decode_matches_prefill_on_card(arch, tol):
         full = forward(cfg, params, dict(tokens=torch.cat([prompt, gen], 1)),
                        remat="none")
     torch.testing.assert_close(steps, full, rtol=tol, atol=tol)
+
+
+def test_ep_on_card_matches_cpu_kept_mask_bitwise():
+    """Expert-parallel MoE on a (2, 4) mesh at the default capacity factor
+    1.25, where choices are dropped: the card's kept mask equals the CPU's
+    bit for bit and the output agrees within 1e-4 of its largest
+    magnitude (float32)."""
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import model, moe_ep
+    dev = need_card()
+    cfg = get_arch("moonshot-v1-16b-a3b").smoke()
+    p = model._moe_params(cfg, model._Init(torch.Generator().manual_seed(1),
+                                           torch.float32, torch.device("cpu")))
+    x = torch.from_numpy(np.random.default_rng(1).normal(
+        size=(8, 64, cfg.d_model)).astype(np.float32))
+    runs = {}
+    try:
+        for d in ("cpu", dev):
+            mesh = make_host_mesh(model=4, data=2, device=d)
+            moe_ep.set_ep_mesh(mesh, ("data",))
+            pd = {k: v.to(d) for k, v in p.items()}
+            lay = moe_ep.TokenLayout.of(mesh, 8, 64, ("data",), "model")
+            st = lay.split(x.to(d))
+            r = moe_ep.route(cfg, st.reshape(8, -1, cfg.d_model),
+                             pd["router"], 8, cfg.n_experts // 8)
+            with torch.no_grad():
+                out = moe_ep.moe_forward_ep(cfg, pd, x.to(d))
+            runs[torch.device(d).type] = (r.keep.cpu(), out.cpu())
+    finally:
+        moe_ep.set_ep_mesh(None, ("data",))
+    (k1, o1), (k0, o0) = runs["cuda"], runs["cpu"]
+    assert torch.equal(k1, k0) and not bool(k0.all())
+    assert float((o1 - o0).abs().max()) <= 1e-4 * float(o0.abs().max())
+
+
+def test_padded_decode_on_card_matches_unpadded():
+    """``build_decode_step`` on a 16-way model axis pads a 36-head MHA
+    config to 48 heads; its logits on the card match the unpadded decode
+    on the card within rtol = atol = 2e-4 (float32)."""
+    import dataclasses
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.mesh import MeshSpec
+    from repro_torch.launch.steps import StepConfig, build_decode_step
+    from repro_torch.models import ShapeCfg, decode_step, init_cache, \
+        init_params
+    from repro_torch.models.serving import pad_params_for_serving, \
+        serving_padded
+    dev = need_card()
+    cfg = dataclasses.replace(get_arch("minicpm-2b").smoke(), n_heads=36,
+                              n_kv_heads=36)
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(2),
+                         dtype=torch.float32, device=dev)
+    fn, _ = build_decode_step(cfg, ShapeCfg("d", 16, 2, "decode"),
+                              MeshSpec({"data": 1, "model": 16}),
+                              StepConfig())
+    padded = serving_padded(cfg, 16)
+    assert padded.n_heads == 48
+    pp = pad_params_for_serving(cfg, padded, params)
+    tokens = torch.from_numpy(np.random.default_rng(2).integers(
+        0, cfg.vocab, (2, 1)).astype(np.int32)).to(dev)
+    c0 = init_cache(cfg, 2, 16, dtype=torch.float32, device=dev)
+    c1 = init_cache(padded, 2, 16, dtype=torch.float32, device=dev)
+    for pos in range(3):
+        with torch.no_grad():
+            l0, c0 = decode_step(cfg, params, c0, tokens, pos)
+        l1, c1 = fn(pp, c1, tokens, pos)
+        torch.testing.assert_close(l1, l0, rtol=2e-4, atol=2e-4)
+
+
+@pytest.mark.parametrize("app_name,method", [("gs", "megakernel"),
+                                             ("gs", "partition"),
+                                             ("tp", "partition")])
+def test_chunk_cost_on_card_equals_cpu(app_name, method):
+    """``chunk_cost`` of the same chunk on the card and on the CPU: the same
+    kernel calls at the same ``cost()``, the same FLOPs and bytes written
+    (a kernel call's own aten ops are not recorded on either side, and a
+    copy between host and card is a transfer)."""
+    from repro_torch.convert import events_to_torch
+    from repro_torch.launch.hlo_analysis import analyze
+    dev = need_card()
+    app = ALL_APPS[app_name]
+    ev = app.gen_events(np.random.default_rng(4), 4 * 256)
+    costs = {}
+    for d in ("cpu", dev):
+        store = app.make_store(device=d)
+        batched = events_to_torch({k: v.reshape((4, 256) + v.shape[1:])
+                                   for k, v in ev.items()}, d)
+        eng = DualModeEngine(app, store,
+                             EngineConfig(restructure_method=method), device=d)
+        reset_launches()
+        _, trace = eng.chunk_cost(store.values, batched, 0)
+        c = analyze(trace)
+        costs[torch.device(d).type] = (trace.kernels, c["dot_flops"],
+                                       c["bytes_written"], dict(LAUNCHES))
+    (k1, f1, b1, l1), (k0, f0, b0, _) = costs["cuda"], costs["cpu"]
+    assert k1 == k0 and f1 == f0 and b1 == b0
+    assert l1["radix_partition"] == 1

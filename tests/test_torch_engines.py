@@ -92,7 +92,8 @@ def test_scan_plan_and_coefs_bitwise(app_name):
 def test_later_schemes_raise_not_ported():
     """What still raises: the lockstep schedule (SL, OB) on a 2-D mesh or
     under a layout other than shared_nothing, a scheme or rung override on
-    a sharded engine, the compiled-HLO text of a chunk (ROADMAP A8.2), and
+    a sharded engine, the compiled-HLO text of a chunk (eager PyTorch has
+    none: the cost attribution is ``chunk_cost``), and
     ``evaluate`` on a scheme it does not know.  (The chunk API and the
     service on a sharded engine, which raised here until ROADMAP A9.2 was
     ported, are held in ``test_torch_service_sharded.py``.)"""
@@ -115,7 +116,7 @@ def test_later_schemes_raise_not_ported():
             eng.ensure_variant(scheme="lock")
         with pytest.raises(ValueError, match="plan variants"):
             eng.ensure_variant(restructure_method="partition")
-        with pytest.raises(NotImplementedError, match="A8.2"):
+        with pytest.raises(NotImplementedError, match="chunk_cost"):
             eng.chunk_lowered_text(eng.init_store.values, {})
     _, _, jops, tapp, tstore = _interval("gs", n_events=8)
     with pytest.raises(ValueError, match="unknown scheme"):

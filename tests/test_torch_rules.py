@@ -1,10 +1,11 @@
 """Rules of the port that no parity test states.
 
 * The port and ``chip_smoke.py`` import neither ``jax`` nor the reference
-  package ``repro``, nor ``ml_dtypes`` (JAX's bfloat16 for numpy), in every
-  sub-package.
+  package ``repro``, nor ``ml_dtypes`` (JAX's bfloat16 for numpy), nor the
+  reference's ``benchmarks``, in every sub-package.
 * Entry points default to the CUDA card: without one they raise; only an
-  explicit ``device="cpu"`` runs on the CPU.
+  explicit ``device="cpu"`` runs on the CPU.  No entry point takes the
+  ``meta`` device: the dry run builds its shape-only tensors itself.
 * ``run_stream`` leaves the caller's state tensor as it was.
 * ``EngineConfig.kernel_block_params`` reaches every kernel wrapper of the
   path as its ``threads`` argument.
@@ -53,7 +54,7 @@ def _imported_roots(path: pathlib.Path):
                          ids=lambda p: str(p.relative_to(ROOT)))
 def test_port_imports_no_jax_and_no_reference(path):
     bad = {r for r in _imported_roots(path)} & {"jax", "jaxlib", "repro",
-                                                "ml_dtypes"}
+                                                "ml_dtypes", "benchmarks"}
     assert not bad, f"{path.relative_to(ROOT)} imports {sorted(bad)}"
 
 
@@ -104,6 +105,35 @@ def test_substrate_defaults_to_the_card():
     for call in calls:
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()
+
+
+def test_launch_layer_defaults_to_the_card():
+    """The launch layer's meshes and EP follow the device rule; the dry
+    run needs no device at all."""
+    from repro_torch.launch.dryrun import run_cell
+    from repro_torch.launch.mesh import make_host_mesh
+    if torch.cuda.is_available():
+        pytest.skip("the card is present: the defaults resolve to it")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        make_host_mesh()
+    res = run_cell("hubert-xlarge", "decode_32k", False, verbose=False)
+    assert res["skipped"] and "encoder-only" in res["reason"]
+
+
+def test_no_entry_point_takes_meta():
+    from repro_torch.configs import get_arch
+    from repro_torch.core.mesh import ShardMesh
+    from repro_torch.models import init_cache, init_params
+    cfg = get_arch("minicpm-2b-smoke")
+    calls = (lambda: resolve_device("meta"),
+             lambda: ShardMesh((2,), ("d",), device="meta"),
+             lambda: init_params(cfg, torch.Generator(), device="meta"),
+             lambda: init_cache(cfg, 1, 4, device="meta"),
+             lambda: ALL_APPS["gs"].make_store(device="meta"))
+    for call in calls:
+        with pytest.raises(ValueError, match="unsupported device"):
+            call()
+    assert ShardMesh.meta((2,), ("d",)).device.type == "meta"
 
 
 @pytest.mark.parametrize("method", ["megakernel", "partition"])

@@ -253,7 +253,7 @@ def test_plan_variants():
     assert torch.equal(vals, want)
     assert_outputs_identical(eng.post_outputs(res, ebs, 3), outs)
     assert not eng.reshardable
-    with pytest.raises(NotImplementedError, match="A8.2"):
+    with pytest.raises(NotImplementedError, match="chunk_cost"):
         eng.chunk_lowered_text(vals, batched)
 
 

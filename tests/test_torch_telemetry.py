@@ -4,8 +4,8 @@ Held here: one service run in each package, with tracing and snapshots on,
 emits the same counter, gauge, histogram, record and span names, and the
 same deterministic counter values; tracing changes no bit of the run;
 ``ChunkProfiler`` writes a ``torch.profiler`` trace with one
-``service_chunk`` range per chunk on the CPU; and HLO cost attribution,
-which is not ported, raises.
+``service_chunk`` range per chunk on the CPU.  The cost attribution
+(``hlo_attribution=True``) is held in ``tests/test_torch_cost.py``.
 """
 import glob
 import json
@@ -116,11 +116,6 @@ def test_chunk_profiler_writes_a_torch_trace(tmp_path):
         events = json.load(f)["traceEvents"]
     chunks = [e for e in events if e.get("name") == "service_chunk"]
     assert len(chunks) == 3     # one window per chunk of K = 2
-
-
-def test_hlo_attribution_is_not_ported():
-    with pytest.raises(NotImplementedError, match="A8.2"):
-        tt.TelemetryConfig(hlo_attribution=True)
 
 
 def test_histogram_and_registry_merge_exactly():
