@@ -9,8 +9,9 @@ Run from the repository root:  python3 chip_smoke.py [--seed N]
    plain-PyTorch twin on the card (radix_partition, the megakernel,
    hash_probe and segscan_max bitwise; segscan_affine to rtol = atol =
    1e-5; a second segscan call equal to the first) and times both
-   with CUDA events; runs each kernel at 64, 512 and 1024 threads per
-   block, which must change no bit; and prints the rung that
+   with CUDA events; runs each kernel at 64 threads per block and at every
+   block size the search can return (``kernels/autotune.candidates``),
+   which must change no bit; and prints the rung that
    ``restructure_method="auto"`` resolves to at these shapes.  The
    megakernel is timed on the whole stream in one call (GS: 200 intervals;
    sharded GS: 200 intervals of 4 shards), held against its stream twin
@@ -147,9 +148,25 @@ Run from the repository root:  python3 chip_smoke.py [--seed N]
    launch shapes of radix_partition and the segscans, each timed alone in
    a ``shape`` line with its bound and share of the bound; each of their
    radix_partition calls (every path the kernel picks by shape) is held
-   bitwise against its twin and at 64, 512 and 1024 threads per block
-   (``hold`` lines).
-15. Prints one JSON line of kernel numbers, the card line again, and last
+   bitwise against its twin and at 64, 512, 1024 and every candidate of
+   the search's threads per block (``hold`` lines).
+15. Examples phase: the five programs of ``examples/torch`` on the card at
+   their reference defaults (quickstart, toll_processing, ledger_serving,
+   streaming_service, train_100m at 300 steps of the 8-layer d = 768
+   model), the service also with ``--inject-restart --corrupt-latest``,
+   ``--storm --inject-restart``, ``--storm --devices 4 --inject-restart``
+   and ``--perfetto-out --profile-dir --hlo-cost``: each prints its ✓
+   lines, and an ``example`` line gives its wall time.
+16. Autotune phase: the wrappers of segscan_affine, segscan_max,
+   radix_partition and hash_probe ask ``kernels/autotune`` for their
+   threads per block on every unforced call; each key's first call
+   benches its candidates.  For every key the runs above decided, an
+   ``autotune`` line gives the kernel, bucket, candidates, timings_us,
+   winner and source (a microbench), and the winner and the default timed
+   alone on the inputs of that call, held bit for bit to each other and to
+   the twin (segscan_affine to the twin within 1e-5); then the
+   ``--dump`` profile and the total bench time.
+17. Prints one JSON line of kernel numbers, the card line again, and last
    ``{"ok": true, "device": {...}}``.
 
 Any failure raises and exits non-zero.  Without a CUDA card it exits 1 and
@@ -564,10 +581,13 @@ def hash_probe_row(sh) -> dict:
 
 
 def block_size_check(p, plan, mega) -> None:
-    """Each kernel at block sizes other than its default, as
-    ``EngineConfig.kernel_block_params`` sets them: no bit may change.
-    radix_partition here at GS's shape (the block sort); every driven
-    run's radix calls, at every path, go through ``hold_radix`` too."""
+    """Each kernel at block sizes other than the one it launched with, as
+    ``EngineConfig.kernel_block_params`` or the search set them: 64 and
+    every candidate the search can return (``kernels/autotune.candidates``)
+    at these shapes; no bit may change.  radix_partition here at GS's shape
+    (the block sort); every driven run's radix calls, at every path, go
+    through ``hold_radix`` too."""
+    from repro_torch.kernels import autotune
     from repro_torch.kernels.hash_probe.ops import hash_probe
     from repro_torch.kernels.megakernel.ops import fused_chain_eval
     from repro_torch.kernels.radix_partition.ops import radix_partition_rank
@@ -591,7 +611,12 @@ def block_size_check(p, plan, mega) -> None:
                     sh["values"].clone(), sh["sops"], sh["ch"], sh["lpad"],
                     a_lut=a_lut, b_lut=b_lut)[:2],
                 probe=(hash_probe(sh["queries"], sh["table"]),))
-    for threads in (64, 512, 1024):
+    sizes = {64}
+    for kernel in autotune.KERNELS:
+        sizes |= set(autotune.candidates(kernel, n=keys.shape[-1]))
+        sizes |= set(autotune.candidates(kernel, n=keys.shape[-1],
+                                         staged=False))
+    for threads in sorted(sizes):
         got = dict(radix=radix_partition_rank(keys, k, threads=threads),
                    affine=segscan_affine(a, b, flags, threads=threads),
                    max=(segscan_max(m, flags, threads=threads),),
@@ -612,8 +637,9 @@ def block_size_check(p, plan, mega) -> None:
                     assert_equal(u, v, f"{name} output {i} at {threads} "
                                  "threads per block")
     print("block sizes: radix_partition, segscan_affine, segscan_max, the "
-          "megakernel (GS's stream and sharded GS's) and hash_probe at 64, 512 "
-          "and 1024 threads per block equal their default runs bit for bit")
+          "megakernel (GS's stream and sharded GS's) and hash_probe at "
+          f"{sorted(sizes)} threads per block equal their first runs bit "
+          "for bit")
 
 
 # The sharded runs: label, app, rung, layout, mesh shape, axis names,
@@ -725,9 +751,11 @@ def shape_times(label, calls, card) -> None:
 def hold_radix(label, calls) -> None:
     """Every radix_partition call of a run, at the shape the run launched
     it with: its result bitwise against the twin on the same keys, and the
-    kernel at 64, 512 and 1024 threads per block equal to it.  The shape
-    picks the kernel's path (a warp per row, one counter pass, or the block
-    sort), so the driven runs hold each path they take."""
+    kernel at 64, 512 and 1024 threads per block and at every candidate the
+    search can return for the call equal to it.  The shape picks the
+    kernel's path (a warp per row, one counter pass, or the block sort), so
+    the driven runs hold each path they take."""
+    from repro_torch.kernels import autotune
     from repro_torch.kernels.radix_partition.ref import radix_partition_rank_ref
     shapes = []
     for kernel, fn, args, kw, out in calls:
@@ -739,14 +767,16 @@ def hold_radix(label, calls) -> None:
         what = f"radix_partition[{label}] keys={list(keys.shape)} K={k}"
         assert_equal(rank, r0, f"{what}: rank vs twin")
         assert_equal(counts, c0, f"{what}: counts vs twin")
-        for threads in (64, 512, 1024):
+        for threads in sorted({64, 512, 1024} | set(autotune.candidates(
+                "radix_partition", n=keys.shape[-1]))):
             r1, c1 = fn(keys, k, **{**kw, "threads": threads})
             assert_equal(r1, rank, f"{what}: rank at {threads} threads")
             assert_equal(c1, counts, f"{what}: counts at {threads} threads")
         shapes.append(f"{list(keys.shape)} K={k}")
     if shapes:
         print(f"hold radix_partition[{label}]: {'; '.join(shapes)} bitwise "
-              "with the twin, and at 64, 512 and 1024 threads per block")
+              "with the twin, and at 64, 512, 1024 and every candidate of "
+              "the search's threads per block")
 
 
 def counted(eng, stream, launches, label=None, card="", interval=INTERVAL):
@@ -2358,6 +2388,177 @@ def service_attribution_phase(stream, card, cuda, launches) -> None:
     print(f"service attribution phase: {time.perf_counter() - t0:.1f} s")
 
 
+class SearchLog:
+    """Wraps ``kernels/autotune.block_rows`` (the wrappers' one lookup) for
+    the whole script: per decision key, the launch of the call that first
+    asked for it, a partial of the wrapper's launch over that call's own
+    tensors, so the autotune phase can hold the winner on the inputs that
+    chose it.  Records only; the decision is the search's."""
+
+    def __init__(self):
+        self.launches = {}
+
+    def install(self) -> None:
+        from repro_torch.kernels import autotune
+        real = autotune.block_rows
+
+        def block_rows(kernel, n, **kw):
+            param = real(kernel, n, **kw)
+            key = (kernel, autotune.shape_bucket(n, kw.get("variant", "")),
+                   kw.get("dtype", "float32"), autotune.kind_of(
+                       kw.get("device")))
+            if kw.get("launch") is not None:
+                self.launches.setdefault(key, kw["launch"])
+            return param
+        autotune.block_rows = block_rows
+
+
+SEARCHED = ("segscan_affine", "segscan_max", "radix_partition", "hash_probe")
+
+
+def search_call(kernel, launch):
+    """(call(threads), twin(), exact) on the recorded call's inputs."""
+    from repro_torch.kernels.hash_probe.ops import hash_probe
+    from repro_torch.kernels.hash_probe.ref import hash_probe_ref
+    from repro_torch.kernels.radix_partition.ops import radix_partition_rank
+    from repro_torch.kernels.radix_partition.ref import radix_partition_rank_ref
+    from repro_torch.kernels.segscan.ops import segscan_affine, segscan_max
+    from repro_torch.kernels.segscan.ref import (segscan_affine_ref,
+                                                 segscan_max_ref)
+    args = launch.args
+    if kernel == "segscan_affine":
+        flags, a, b = args[:3]
+        return (lambda t: segscan_affine(a, b, flags, threads=t),
+                lambda: segscan_affine_ref(flags, a, b), False)
+    if kernel == "segscan_max":
+        flags, m = args[:2]
+        return (lambda t: (segscan_max(m, flags, threads=t),),
+                lambda: (segscan_max_ref(flags, m),), True)
+    if kernel == "radix_partition":
+        keys, k = args[0], args[3]
+        return (lambda t: radix_partition_rank(keys, k, threads=t),
+                lambda: radix_partition_rank_ref(keys, k), True)
+    keys, table = args[:2]
+    return (lambda t: (hash_probe(keys, table, threads=t),),
+            lambda: (hash_probe_ref(keys, table),), True)
+
+
+def autotune_phase(search, card) -> None:
+    """Every decision the driven runs made: a microbenchmark on the card for
+    each key, one line each (kernel, bucket, candidates, timings_us, winner,
+    source); the winner and the default timed alone (CUDA events) on the
+    inputs of the call that made the decision, and held bit for bit to each
+    other and to the twin (segscan_affine to the twin within 1e-5, its
+    standing bar).  Every searched kernel must have a decision."""
+    import contextlib
+    import io
+    import tempfile
+    from repro_torch.kernels import autotune
+    t0 = time.perf_counter()
+    decisions = autotune.decisions_log()
+    seen = set()
+    for d in decisions:
+        key = (d["kernel"], d["shape_bucket"], d["dtype"], d["device_kind"])
+        if d["source"] != "microbench":
+            raise AssertionError(f"autotune {key}: source {d['source']!r}, "
+                                 "expected a microbench on the card")
+        if d["param"] not in d["candidates"]:
+            raise AssertionError(f"autotune {key}: winner {d['param']} not "
+                                 f"among {d['candidates']}")
+        launch = search.launches.get(key)
+        if launch is None:
+            raise AssertionError(f"autotune {key}: no call recorded")
+        call, twin, exact = search_call(d["kernel"], launch)
+        winner, default = d["param"], d["candidates"][0]
+        got, base, ref = call(winner), call(default), twin()
+        torch.cuda.synchronize()
+        what = f"autotune {d['kernel']}[{d['shape_bucket']}]"
+        got, base, ref = (x if isinstance(x, tuple) else (x,)
+                          for x in (got, base, ref))
+        for i, (x, y, z) in enumerate(zip(got, base, ref)):
+            assert_equal(x, y, f"{what} output {i}: winner vs default")
+            if exact:
+                assert_equal(x, z, f"{what} output {i}: winner vs twin")
+            else:
+                assert_close(x.cpu().numpy(), z.cpu().numpy(),
+                             f"{what} output {i}: winner vs twin")
+        ms_w, _ = cuda_ms(lambda: call(winner), 20)
+        ms_d, _ = cuda_ms(lambda: call(default), 20)
+        shape = [list(t.shape) for t in launch.args
+                 if isinstance(t, torch.Tensor)][:2]
+        print(f"autotune {d['kernel']} bucket={d['shape_bucket']} "
+              f"dtype={d['dtype']} shape={shape} candidates={d['candidates']}"
+              f" timings_us={d['timings_us']} winner={winner} default="
+              f"{default} source={d['source']} winner_ms={ms_w} default_ms="
+              f"{ms_d} bitwise winner=default" + ("=twin" if exact else
+                                                  ", twin within 1e-5")
+              + f" | {card}")
+        seen.add(d["kernel"])
+    missing = [k for k in SEARCHED if k not in seen]
+    if missing:
+        raise AssertionError(f"no search decision for {missing}")
+    with tempfile.TemporaryDirectory() as tmp, \
+            contextlib.redirect_stdout(io.StringIO()):
+        dump = autotune.main(["--dump", os.path.join(tmp, "autotune.json")])
+    print(f"autotune dump: profile={json.dumps(dump['profile'])} "
+          f"ladder_bounds={dump['ladder_bounds']} mega_bounds="
+          f"{dump['mega_bounds']} decisions={len(dump['decisions'])}")
+    print(f"autotune: {len(decisions)} decisions, bench_s="
+          f"{autotune.bench_seconds()} (inside the runs that first met each "
+          f"key); phase {time.perf_counter() - t0:.1f} s")
+
+
+EXAMPLES = (
+    ("quickstart", []),
+    ("toll_processing", []),
+    ("ledger_serving", []),
+    ("streaming_service", []),
+    ("streaming_service", ["--inject-restart", "--corrupt-latest"]),
+    ("streaming_service", ["--storm", "--inject-restart"]),
+    ("streaming_service", ["--storm", "--devices", "4", "--inject-restart"]),
+    ("streaming_service", ["--perfetto-out", "{tmp}/trace.json",
+                           "--profile-dir", "{tmp}/prof", "--hlo-cost"]),
+    ("train_100m", ["--ckpt-dir", "{tmp}/ckpt_100m"]),
+)
+
+
+def examples_phase(card) -> None:
+    """The five programs of ``examples/torch`` on the card at their
+    reference defaults (train_100m: 300 steps of the 8-layer d = 768 model,
+    checkpoints in a temporary directory), the service also under its
+    drills: each must print its ✓ line(s); their wall times."""
+    import contextlib
+    import importlib.util
+    import io
+    import tempfile
+    t0 = time.perf_counter()
+    for name, flags in EXAMPLES:
+        path = os.path.join(ROOT, "examples", "torch", f"{name}.py")
+        spec = importlib.util.spec_from_file_location(f"example_{name}", path)
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        buf = io.StringIO()
+        with tempfile.TemporaryDirectory() as tmp:
+            argv = [f.format(tmp=tmp) for f in flags]
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            with contextlib.redirect_stdout(buf):
+                mod.main(argv)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t1
+        out = buf.getvalue()
+        ticks = [ln.strip() for ln in out.splitlines() if "✓" in ln]
+        if not ticks:
+            raise AssertionError(f"example {name} {flags}: no ✓ line:\n{out}")
+        tail = [ln.strip() for ln in out.splitlines()
+                if ln.startswith(("[100m]", "service:", "  latency",
+                                  "[tp]", "[sl]"))]
+        print(f"example {name} {' '.join(flags) or '(defaults)'}: "
+              f"wall_s={wall} | " + " | ".join(
+                  tail + [t for t in ticks if t not in tail]) + f" | {card}")
+    print(f"examples phase: {time.perf_counter() - t0:.1f} s")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2373,6 +2574,8 @@ def main() -> int:
           f"cuda {torch.version.cuda}")
     cuda = torch.device("cuda", 0)
 
+    search = SearchLog()
+    search.install()
     t0 = time.perf_counter()
     libs = _build.build_all()
     print(f"build: {sorted(libs)} in {time.perf_counter() - t0:.1f} s "
@@ -2403,6 +2606,8 @@ def main() -> int:
     serve_padded_phase(card, cuda, args.seed)
     dryrun_phase()
     service_attribution_phase(stream, card, cuda, launches)
+    examples_phase(card)
+    autotune_phase(search, card)
     missing = sorted(k for k in LAUNCHES if launches[k] <= 0)
     if missing:
         raise AssertionError(f"kernels never launched on the driven paths: "

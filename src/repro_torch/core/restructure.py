@@ -28,6 +28,9 @@ from .types import OpBatch
 
 log = logging.getLogger(__name__)
 
+# the reference's module constants: the bounds of the "cpu" row
+PARTITION_MAX_BUCKETS, PARTITION_MIN_ROWS = autotune.ladder_bounds("cpu")
+
 I32 = torch.int32
 
 
@@ -82,9 +85,11 @@ RESTRUCTURE_METHODS = ("auto", "partition", "packed", "lexsort",
                        "megakernel")
 
 
-def partition_fits(n_rows: int, n_buckets: int) -> bool:
-    """Whether "auto" picks the one-pass counting partition backbone."""
-    max_buckets, min_rows = autotune.LADDER_BOUNDS
+def partition_fits(n_rows: int, n_buckets: int, *,
+                   device_kind: str = "cpu") -> bool:
+    """Whether "auto" picks the one-pass counting partition backbone, by the
+    bounds of ``device_kind``'s row of ``kernels/autotune.LADDER_BOUNDS``."""
+    max_buckets, min_rows = autotune.ladder_bounds(device_kind)
     return n_buckets <= max_buckets and int(n_rows) >= min_rows
 
 
@@ -105,15 +110,18 @@ def megakernel_fits(n_rows: int, lanes: int,
 def megakernel_engaged(n_rows: int, n_slots_incl_pad: int, *,
                        method: str, has_max: bool, funs_simple: bool,
                        lanes: int = 1,
-                       smem_limit: Optional[int] = None) -> bool:
+                       smem_limit: Optional[int] = None,
+                       device_kind: str = "cpu") -> bool:
     """Whether the fused driver evaluates chains through the megakernel.
 
     Structural eligibility first (simple-affine funs, no max-typed table),
     then either an explicit ``method="megakernel"`` or, under "auto", the
-    band of ``kernels/autotune.MEGA_BOUNDS``; in both cases the interval must
-    fit the kernel's block (``megakernel_fits``).  An ineligible or
-    oversized force takes the staged partition path (the same results),
-    logged once: a plan decision from shapes, made before any launch.
+    band of ``device_kind``'s row of ``kernels/autotune.MEGA_BOUNDS`` (the
+    kind of the device that launches, beside its ``smem_limit``); in both
+    cases the interval must fit the kernel's block (``megakernel_fits``).
+    An ineligible or oversized force takes the staged partition path (the
+    same results), logged once: a plan decision from shapes, made before
+    any launch.
     """
     eligible = (not has_max) and funs_simple
     fits = megakernel_fits(n_rows, lanes, smem_limit)
@@ -131,7 +139,7 @@ def megakernel_engaged(n_rows: int, n_slots_incl_pad: int, *,
         return eligible and fits
     if method != "auto" or not eligible:
         return False
-    band = autotune.MEGA_BOUNDS
+    band = autotune.mega_bounds(device_kind)
     return (int(n_rows) >= band["min_rows"]
             and n_slots_incl_pad <= band["max_buckets"] and fits)
 
@@ -164,13 +172,16 @@ def packed_sort_fits(n_rows: int, max_major: int, bits: int = 32) -> bool:
 
 
 def restructure_path(n: int, pad_uid: int, *, rowmajor_ts: bool,
-                     method: str = "auto", x64: bool = False) -> str:
+                     method: str = "auto", x64: bool = False,
+                     device_kind: str = "cpu") -> str:
     """Resolve the restructure backbone for an (n, pad_uid) batch.
 
     The reference's ladder, rung for rung.  ``x64`` mirrors JAX's
     ``jax_enable_x64`` (off by default): without it a packed key wider than
     32 bits falls back to the lexsort, as in the reference, although torch
-    sorts int64 keys natively.
+    sorts int64 keys natively.  ``device_kind`` is the kind of the device
+    that runs the batch (``kernels/autotune.kind_of``), whose row of the
+    ladder's bounds "auto" reads.
     """
     if method not in RESTRUCTURE_METHODS:
         raise ValueError(f"method={method!r}; choose from "
@@ -184,7 +195,7 @@ def restructure_path(n: int, pad_uid: int, *, rowmajor_ts: bool,
         path = "partition" if method == "megakernel" else method
     elif not rowmajor_ts:
         path = "lexsort"
-    elif partition_fits(n, pad_uid + 1):
+    elif partition_fits(n, pad_uid + 1, device_kind=device_kind):
         path = "partition"
     elif packed_sort_fits(n, pad_uid, bits=32):
         path = "packed"
@@ -357,7 +368,8 @@ def restructure(ops: OpBatch, pad_uid: int, *,
     uid = torch.where(ops.valid, ops.uid, torch.full_like(ops.uid, pad_uid))
     n = uid.shape[-1]
     path = restructure_path(n, pad_uid, rowmajor_ts=rowmajor_ts,
-                            method=method, x64=x64)
+                            method=method, x64=x64,
+                            device_kind=autotune.kind_of(uid.device))
 
     if path == "partition":
         order, uid_s, chains = _partition_chains(

@@ -42,6 +42,7 @@ import numpy as np
 import torch
 
 from .. import convert
+from ..kernels import autotune
 from ..kernels.megakernel.ops import fused_chain_eval
 from ..kernels.megakernel.ref import fused_chain_stream_ref
 from ..kernels.runtime import resolve_device, smem_optin
@@ -126,7 +127,8 @@ class DualModeEngine:
         n_rows = len(next(iter(events.values()))) * self.app.max_ops
         self.last_rung = (restructure_path(
             n_rows, store.pad_uid, rowmajor_ts=True,
-            method=self.cfg.restructure_method)
+            method=self.cfg.restructure_method,
+            device_kind=autotune.kind_of(self.device))
             if self.cfg.scheme in CHAIN_SCHEMES else None)
         res, ebs, values, stats = _step_impl(
             store, convert.events_to_torch(events, self.device), ts_base,
@@ -449,7 +451,8 @@ def _fused_impl(values, events_b, ts0: int, *, app: AppSpec,
     if cfg.scheme in CHAIN_SCHEMES:
         n_rows = ops_all.uid.shape[-1]
         rung = restructure_path(n_rows, store.pad_uid, rowmajor_ts=True,
-                                method=cfg.restructure_method)
+                                method=cfg.restructure_method,
+                                device_kind=autotune.kind_of(store.device))
         pres_all = restructure(ops_all, store.pad_uid, rowmajor_ts=True,
                                method=cfg.restructure_method,
                                use_kernels=cfg.use_kernels,
@@ -481,10 +484,12 @@ def fused_rung(store: StateStore, n_rows: int, *, app: AppSpec,
             has_max=any(store.table_is_max),
             funs_simple=simple_affine_luts(app.funs, dev) is not None,
             lanes=store.values.shape[-1],
-            smem_limit=smem_optin(dev) if cfg.use_kernels else None):
+            smem_limit=smem_optin(dev) if cfg.use_kernels else None,
+            device_kind=autotune.kind_of(dev)):
         return "megakernel"
     return restructure_path(n_rows, store.pad_uid, rowmajor_ts=True,
-                            method=cfg.restructure_method)
+                            method=cfg.restructure_method,
+                            device_kind=autotune.kind_of(dev))
 
 
 def _fused_assoc(store: StateStore, ops_all, *, app: AppSpec,

@@ -78,6 +78,7 @@ import numpy as np
 import torch
 
 from .. import convert
+from ..kernels import autotune
 from ..kernels.megakernel.ops import fused_chain_eval
 from ..kernels.megakernel.ref import fused_chain_stream_ref
 from ..kernels.runtime import smem_optin
@@ -578,7 +579,8 @@ class ShardedStream:
                 rows, lpad + 1, method=cfg.restructure_method,
                 has_max=sim_d is not None, funs_simple=luts is not None,
                 lanes=vals0.shape[-1],
-                smem_limit=smem_optin(dev) if cfg.use_kernels else None):
+                smem_limit=smem_optin(dev) if cfg.use_kernels else None,
+                device_kind=autotune.kind_of(dev)):
             self.last_rung = "megakernel"
             # megakernel rung: a geometry-free partition plan, then ONE call
             # for the whole stream evaluates every shard's chains; a layout
@@ -605,8 +607,9 @@ class ShardedStream:
                 vals = merge(vals)
                 res_l.append({k: v[0] for k, v in res.items()})
         else:
-            self.last_rung = restructure_path(rows, lpad, rowmajor_ts=True,
-                                              method=cfg.restructure_method)
+            self.last_rung = restructure_path(
+                rows, lpad, rowmajor_ts=True, method=cfg.restructure_method,
+                device_kind=autotune.kind_of(dev))
             pres_all = restructure_stream(
                 rops, lpad, rowmajor_ts=True, light=True,
                 method=cfg.restructure_method, use_kernels=cfg.use_kernels,
@@ -640,8 +643,9 @@ class ShardedStream:
         cfg = self.cfg
         lpad = vals0.shape[1] - 1
         n_intervals, _, rows = rops.uid.shape
-        self.last_rung = restructure_path(rows, lpad, rowmajor_ts=True,
-                                          method=cfg.restructure_method)
+        self.last_rung = restructure_path(
+            rows, lpad, rowmajor_ts=True, method=cfg.restructure_method,
+            device_kind=autotune.kind_of(vals0.device))
         sops_all, ch_all = restructure_stream(
             rops, lpad, rowmajor_ts=True, method=cfg.restructure_method,
             use_kernels=cfg.use_kernels,

@@ -3,22 +3,41 @@
 A CUDA tensor launches the kernel: where the table fits a block's shared
 memory, blocks stage it there and loop over the queries; a larger table is
 probed from L2, one query a thread.  No padding of the query count, and a
-key view at any 4-byte offset.  A CPU tensor takes the plain twin in
+key view at any 4-byte offset.  With no ``threads`` given, the block size
+is the search's (``kernels/autotune.block_rows``, keyed by the query count
+and whether the table is staged).  A CPU tensor takes the plain twin in
 ``ref.py``.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
-from .. import _build
+from .. import _build, autotune
 from ..runtime import LAUNCHES, check, check_tensor, costed, on_card
 from .ref import ASSOC, MAX_PROBES, bucket_of, hash_probe_ref
 
 NAME = "hash_probe"
 _P, _I = ctypes.c_void_p, ctypes.c_int
 SIGNATURES = {"hash_probe": [_P, _P, _P, _I, _I, _I, _P]}
+STAGED_BLOCKS_PER_SM = 2   # csrc/hash_probe.cu: kStagedBlocksPerSm
+
+
+def staged(n_buckets: int, smem_optin: int) -> bool:
+    """Whether the kernel stages a table of ``n_buckets`` in shared memory
+    (two blocks of it must fit an SM's opt-in limit per block)."""
+    return n_buckets * ASSOC * 4 * STAGED_BLOCKS_PER_SM <= smem_optin
+
+
+def _launch(keys, table, out, threads):
+    """One launch over keys into out."""
+    lib = _build.library(NAME, SIGNATURES)
+    err = lib.hash_probe(keys.data_ptr(), table.data_ptr(), out.data_ptr(),
+                         keys.shape[0], table.shape[0], threads,
+                         torch.cuda.current_stream(keys.device).cuda_stream)
+    _build.check_launch(lib, err, NAME)
 
 
 def cost(keys: torch.Tensor, table: torch.Tensor, slots: torch.Tensor):
@@ -42,8 +61,9 @@ def cost(keys: torch.Tensor, table: torch.Tensor, slots: torch.Tensor):
 def hash_probe(keys: torch.Tensor, table: torch.Tensor, *,
                threads: int | None = None) -> torch.Tensor:
     """keys i32[N], table i32[n_buckets, ASSOC] -> slot i32[N], -1 if absent.
-    ``threads`` overrides the block size (1,024 threads where the table is
-    staged, else 256); it changes no bit."""
+    ``threads`` overrides the block size (the search's, whose default is
+    1,024 threads where the table is staged, else 256); it changes no
+    bit."""
     if not on_card(keys, NAME):
         return hash_probe_ref(keys, table)
     dev = keys.device
@@ -61,10 +81,12 @@ def hash_probe(keys: torch.Tensor, table: torch.Tensor, *,
               f"threads={threads} must be a multiple of 32 in [32, 1024]")
     out = torch.empty_like(keys)
     if n:
-        lib = _build.library(NAME, SIGNATURES)
-        err = lib.hash_probe(keys.data_ptr(), table.data_ptr(),
-                             out.data_ptr(), n, n_buckets, threads or 0,
-                             torch.cuda.current_stream(dev).cuda_stream)
-        _build.check_launch(lib, err, NAME)
+        launch = functools.partial(_launch, keys, table, out)
+        if threads is None:
+            st = staged(n_buckets, autotune.device_profile(dev)["smem_optin"])
+            threads = autotune.block_rows(
+                NAME, n, dtype="int32", device=dev, launch=launch,
+                variant="staged" if st else "global", staged=st)
+        launch(threads)
         LAUNCHES[NAME] += 1
     return out

@@ -5,20 +5,22 @@ padding.  Flags go in as one byte per row (a bool tensor).  A CUDA tensor
 launches the kernel: one launch per scan, whose tiles hand their carries on
 in a fixed order through status and carry words.  The wrapper allocates the
 outputs and that scratch (the status words zeroed, one memset), sized for
-the kernel's smallest tile.  A CPU tensor takes the plain twin.
+the kernel's smallest tile.  With no ``threads`` given, the block size
+is the search's (``kernels/autotune.block_rows``, keyed by the rows and the
+lane width).  A CPU tensor takes the plain twin.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
-from .. import _build
+from .. import _build, autotune
 from ..runtime import LAUNCHES, check, check_tensor, costed, on_card
 from .ref import segscan_affine_ref, segscan_max_ref
 
 LIB = "segscan"
-THREADS = 256
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
 SIGNATURES = {
     "segscan_affine": [_P] * 7 + [_L, _L, _I, _I, _P],
@@ -40,10 +42,10 @@ def _check(name, seg_start, xs, threads):
     check(seg_start.shape[0] == n, name, f"seg_start has {seg_start.shape[0]}"
           f" rows, operands {n}")
     check(w < 2 ** 31, name, f"width {w} too large")
-    threads = threads or THREADS
-    check(threads % 32 == 0 and 32 <= threads <= 1024, name,
-          f"threads={threads} must be a multiple of 32 in [32, 1024]")
-    return n, w, threads
+    if threads is not None:
+        check(threads % 32 == 0 and 32 <= threads <= 1024, name,
+              f"threads={threads} must be a multiple of 32 in [32, 1024]")
+    return n, w
 
 
 def _scratch(n, w, k, dev):
@@ -53,6 +55,36 @@ def _scratch(n, w, k, dev):
     status = torch.zeros((1 + slots,), dtype=torch.int32, device=dev)
     carry = torch.empty((slots, k, 32), dtype=torch.float32, device=dev)
     return status, carry, slots
+
+
+def _affine(seg_start, a, b, A, B, threads):
+    """One launch of the affine scan into A, B (fresh scratch each call)."""
+    n, w = a.shape
+    lib = _build.library(LIB, SIGNATURES)
+    status, carry, slots = _scratch(n, w, 2, a.device)
+    err = lib.segscan_affine(
+        seg_start.data_ptr(), a.data_ptr(), b.data_ptr(), A.data_ptr(),
+        B.data_ptr(), status.data_ptr(), carry.data_ptr(), slots, n, w,
+        threads, torch.cuda.current_stream(a.device).cuda_stream)
+    _build.check_launch(lib, err, "segscan_affine")
+
+
+def _max(seg_start, m, M, threads):
+    """One launch of the max scan into M (fresh scratch each call)."""
+    n, w = m.shape
+    lib = _build.library(LIB, SIGNATURES)
+    status, carry, slots = _scratch(n, w, 1, m.device)
+    err = lib.segscan_max(
+        seg_start.data_ptr(), m.data_ptr(), M.data_ptr(),
+        status.data_ptr(), carry.data_ptr(), slots, n, w, threads,
+        torch.cuda.current_stream(m.device).cuda_stream)
+    _build.check_launch(lib, err, "segscan_max")
+
+
+def _threads(name, launch, n, w, dev):
+    """The search's block size for a scan of n rows x w lanes."""
+    return autotune.block_rows(name, n, device=dev, variant=f"w{w}",
+                               launch=launch)
 
 
 def cost(x: torch.Tensor, kind: str):
@@ -77,16 +109,11 @@ def segscan_affine(a: torch.Tensor, b: torch.Tensor, seg_start: torch.Tensor,
     name = "segscan_affine"
     if not on_card(a, name):
         return segscan_affine_ref(seg_start, a, b)
-    n, w, threads = _check(name, seg_start, (a, b), threads)
+    n, w = _check(name, seg_start, (a, b), threads)
     A, B = torch.empty_like(a), torch.empty_like(b)
     if n and w:
-        lib = _build.library(LIB, SIGNATURES)
-        status, carry, slots = _scratch(n, w, 2, a.device)
-        err = lib.segscan_affine(
-            seg_start.data_ptr(), a.data_ptr(), b.data_ptr(), A.data_ptr(),
-            B.data_ptr(), status.data_ptr(), carry.data_ptr(), slots, n, w,
-            threads, torch.cuda.current_stream(a.device).cuda_stream)
-        _build.check_launch(lib, err, name)
+        launch = functools.partial(_affine, seg_start, a, b, A, B)
+        launch(threads or _threads(name, launch, n, w, a.device))
         LAUNCHES[name] += 1
     return A, B
 
@@ -98,15 +125,10 @@ def segscan_max(m: torch.Tensor, seg_start: torch.Tensor, *,
     name = "segscan_max"
     if not on_card(m, name):
         return segscan_max_ref(seg_start, m)
-    n, w, threads = _check(name, seg_start, (m,), threads)
+    n, w = _check(name, seg_start, (m,), threads)
     M = torch.empty_like(m)
     if n and w:
-        lib = _build.library(LIB, SIGNATURES)
-        status, carry, slots = _scratch(n, w, 1, m.device)
-        err = lib.segscan_max(
-            seg_start.data_ptr(), m.data_ptr(), M.data_ptr(),
-            status.data_ptr(), carry.data_ptr(), slots, n, w, threads,
-            torch.cuda.current_stream(m.device).cuda_stream)
-        _build.check_launch(lib, err, name)
+        launch = functools.partial(_max, seg_start, m, M)
+        launch(threads or _threads(name, launch, n, w, m.device))
         LAUNCHES[name] += 1
     return M

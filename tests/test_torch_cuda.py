@@ -24,8 +24,13 @@ the single-device card run, and the replicate-everything baseline
 bitwise, TP to 1e-5).  The launch layer: expert-parallel MoE on the card
 keeps the CPU's choices bit for bit at the default capacity, the padded
 decode matches the unpadded one, and a chunk's traced cost
-(``chunk_cost``) on the card equals the CPU's.
+(``chunk_cost``) on the card equals the CPU's.  The kernel-dispatch search
+(``kernels/autotune``) benches every candidate on a key's first call,
+counts and traces nothing of it, reuses the decision, and reads it back
+from the disk cache; its winner equals the default bit for bit.
 """
+import json
+
 import numpy as np
 import pytest
 import torch
@@ -1024,3 +1029,113 @@ def test_chunk_cost_on_card_equals_cpu(app_name, method):
     (k1, f1, b1, l1), (k0, f0, b0, _) = costs["cuda"], costs["cpu"]
     assert k1 == k0 and f1 == f0 and b1 == b0
     assert l1["radix_partition"] == 1
+
+
+# -- the kernel-dispatch search (kernels/autotune) on the card ----------------
+def _search_call(kernel, dev):
+    """(call(threads), twin(), exact): one wrapper call of ``kernel`` at a
+    main-path shape and its plain twin; ``exact`` whether the twin's bar is
+    bitwise."""
+    g = torch.Generator().manual_seed(11)
+    if kernel in ("segscan_affine", "segscan_max"):
+        n, w = 60_000, 32
+        flags = (torch.rand(n, generator=g) < 0.2).to(dev)
+        a = torch.rand((n, w), generator=g).to(dev)
+        b = torch.randn((n, w), generator=g).to(dev)
+        if kernel == "segscan_affine":
+            return (lambda t=None: segscan_affine(a, b, flags, threads=t),
+                    lambda: segscan_affine_ref(flags, a, b), False)
+        return (lambda t=None: (segscan_max(b, flags, threads=t),),
+                lambda: (segscan_max_ref(flags, b),), True)
+    if kernel == "radix_partition":
+        keys = torch.randint(0, 10_001, (20, 5000), generator=g,
+                             dtype=torch.int32).to(dev)
+        return (lambda t=None: radix_partition_rank(keys, 10_001, threads=t),
+                lambda: radix_partition_rank_ref(keys, 10_001), True)
+    keys = np.arange(10_000, dtype=np.int32)
+    table = torch.from_numpy(build_table(keys, 2500)).to(dev)
+    q = torch.from_numpy(np.random.default_rng(11).choice(keys, 100_000)
+                         .astype(np.int32)).to(dev)
+    return (lambda t=None: (hash_probe(q, table, threads=t),),
+            lambda: (hash_probe_ref(q, table),), True)
+
+
+def _outs(x):
+    return x if isinstance(x, tuple) else (x,)
+
+
+@pytest.mark.parametrize("kernel", ["segscan_affine", "segscan_max",
+                                    "radix_partition", "hash_probe"])
+def test_autotune_benches_every_candidate_on_card(kernel):
+    """The first unforced call of a key benches every candidate, takes one
+    of them (a timing each), counts one launch and agrees with the twin; a
+    second call does not bench; the winner equals the default bit for bit."""
+    from repro_torch.kernels import autotune
+    dev = need_card()
+    call, twin, exact = _search_call(kernel, dev)
+    autotune.clear_cache()
+    reset_launches()
+    got = call()
+    assert LAUNCHES[kernel] == 1
+    (d,) = [d for d in autotune.decisions_log() if d["kernel"] == kernel]
+    assert d["source"] == "microbench" and d["device_kind"] == \
+        torch.cuda.get_device_name(dev).lower()
+    assert d["param"] in d["candidates"]
+    assert sorted(map(int, d["timings_us"])) == sorted(d["candidates"])
+    assert all(np.isfinite(t) and t > 0 for t in d["timings_us"].values())
+    spent = autotune.bench_seconds()
+    assert spent > 0
+    again = call()
+    assert autotune.bench_seconds() == spent and LAUNCHES[kernel] == 2
+    default = call(d["candidates"][0])
+    for x, y, z, r in zip(_outs(got), _outs(again), _outs(default),
+                          _outs(twin())):
+        assert torch.equal(x, y) and torch.equal(x, z)
+        if exact:
+            assert torch.equal(x, r)
+        else:
+            torch.testing.assert_close(x, r, rtol=1e-5, atol=1e-5)
+
+
+def test_autotune_bench_leaves_launches_and_trace():
+    """A bench inside a traced call records nothing in the program trace and
+    counts no launch: the traced program is the same with and without it."""
+    from repro_torch.kernels import autotune
+    from repro_torch.launch.hlo_analysis import ProgramTrace
+    dev = need_card()
+    call, _, _ = _search_call("segscan_affine", dev)
+    traces = []
+    for fresh in (True, False):
+        if fresh:
+            autotune.clear_cache()
+        reset_launches()
+        with ProgramTrace() as trace:
+            call()
+        assert LAUNCHES["segscan_affine"] == 1
+        traces.append(([(r.name, r.bytes_written, r.flops)
+                        for r in trace.ops], trace.kernels))
+    assert autotune.bench_seconds() > 0
+    assert traces[0] == traces[1]
+    assert [k[0] for k in traces[0][1]] == ["segscan_affine"]
+
+
+def test_autotune_disk_round_trip_on_card(tmp_path, monkeypatch):
+    """Decisions benched on the card come back from the disk cache in a
+    fresh cache without a bench, and the next call launches with them."""
+    from repro_torch.kernels import autotune
+    dev = need_card()
+    path = str(tmp_path / "tune.json")
+    monkeypatch.setenv("REPRO_AUTOTUNE_CACHE", path)
+    call, _, _ = _search_call("radix_partition", dev)
+    autotune.clear_cache()
+    first = call()
+    (d,) = autotune.decisions_log()
+    with open(path) as f:
+        assert [r["param"] for r in json.load(f)["decisions"]] == [d["param"]]
+    autotune.clear_cache()
+    second = call()
+    (d2,) = autotune.decisions_log()
+    assert d2["source"] == "disk" and d2["param"] == d["param"]
+    assert autotune.bench_seconds() == 0.0
+    for x, y in zip(first, second):
+        assert torch.equal(x, y)

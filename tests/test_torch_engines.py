@@ -157,7 +157,7 @@ def test_megakernel_fits_at_its_capacity(lanes):
 def test_megakernel_engaged_honours_the_capacity(lanes, caplog):
     """Under "auto" the band AND the capacity; a forced megakernel that does
     not fit takes the staged rung and logs why, once."""
-    band = restructure_mod.autotune.MEGA_BOUNDS
+    band = restructure_mod.autotune.mega_bounds("cpu")
     cap = H100_SMEM // (16 * lanes + 3)
     kw = dict(has_max=False, funs_simple=True, lanes=lanes)
     lo, slots = band["min_rows"], band["max_buckets"]

@@ -1,8 +1,9 @@
 """Rules of the port that no parity test states.
 
-* The port and ``chip_smoke.py`` import neither ``jax`` nor the reference
-  package ``repro``, nor ``ml_dtypes`` (JAX's bfloat16 for numpy), nor the
-  reference's ``benchmarks``, in every sub-package.
+* The port, ``chip_smoke.py`` and ``examples/torch/*.py`` import neither
+  ``jax`` nor the reference package ``repro``, nor ``ml_dtypes`` (JAX's
+  bfloat16 for numpy), nor the reference's ``benchmarks``, in every
+  sub-package.
 * Entry points default to the CUDA card: without one they raise; only an
   explicit ``device="cpu"`` runs on the CPU.  No entry point takes the
   ``meta`` device: the dry run builds its shape-only tensors itself.
@@ -35,7 +36,7 @@ from repro_torch.kernels.runtime import KERNELS, LAUNCHES, resolve_device
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py"]
+    ROOT / "chip_smoke.py"] + sorted((ROOT / "examples" / "torch").glob("*.py"))
 SUB_PACKAGES = ("apps", "ckpt", "configs", "core", "data", "kernels",
                 "launch", "models", "optim", "runtime")
 
