@@ -95,7 +95,21 @@ Run from the repository root:  python3 chip_smoke.py [--seed N]
    replay must be bitwise with the uninterrupted elastic run, on its plan.
    Its ``e2e sharded service`` line gives sustained events/s, latency
    p50/p99, migrations, moved rows and launches a chunk.
-11. Baseline phase: the replicate-everything ``evaluate_sharded`` on one GS
+11. Cards phase, the sharded driver over device groups
+   (``ShardMesh(..., devices=[...])``): on one card, sharded GS (4 x
+   ``shared_nothing``, megakernel rung) and SL (lockstep, "partition"),
+   200 x 500 events, with two groups on the card; with two or more cards
+   also OB, TP on a (2, 2) ``shared_per_socket`` mesh, GS
+   ``shared_everything`` (20 intervals) and the elastic GS service storm of
+   phase 10, each with one group a card.  Each run is held to the same run
+   with one group on the first card (GS, SL and OB bitwise, TP to rtol =
+   atol = 1e-5), drops no op, takes the same rung and launches each kernel
+   G times where the one-group run launches it once; its ``e2e cards``
+   line gives G, the device of each group, events/s, the drops, the
+   launches per group and each card's busy share in one more, profiled run
+   of its first intervals, beside the one-group run's.  A machine with one
+   card says on its own line that the card-a-group runs did not run.
+12. Baseline phase: the replicate-everything ``evaluate_sharded`` on one GS
    interval (500 events, 5,000 ops, 10,000 records) under each layout on 4
    shards, forced "partition" (one radix_partition and one segscan_affine
    launch), bitwise with the single-device staged evaluation on the card;
@@ -103,7 +117,7 @@ Run from the repository root:  python3 chip_smoke.py [--seed N]
    the interval's events beside the fused sharded driver's chunk time
    (``run_stream_chunk``: state and per-op results on the device, no output
    copy) for the same interval and layout.
-12. Substrate phase, the training and serving layer on the card:
+13. Substrate phase, the training and serving layer on the card:
    ``StreamingPipeline(PipelineConfig())`` ingests 200 intervals of 64
    documents (one segscan_affine launch each, timed alone at its shape),
    its stats state and outputs bitwise with the port's CPU run and the
@@ -121,7 +135,7 @@ Run from the repository root:  python3 chip_smoke.py [--seed N]
    granite-34b``: tokens/s in f32 and bf16); mamba2-2.7b, 2 layers, f32:
    256 decode steps against the 256-token ``ssd_chunked`` prefill to 5e-2
    (``e2e serve mamba2-2.7b``).
-13. Launch-layer phase, at published widths cut in depth only:
+14. Launch-layer phase, at published widths cut in depth only:
    moonshot-v1-16b-a3b, 2 layers (one dense, one MoE: 64 experts top-6, 2
    shared), on a (2, 4) ``make_host_mesh`` on the card (8 EP shards):
    ``moe_forward_ep`` against ``moe_forward`` at capacity factor 16 (5e-4),
@@ -138,7 +152,7 @@ Run from the repository root:  python3 chip_smoke.py [--seed N]
    intervals with ``hlo_attribution=True``: bitwise with the run without,
    every execute span carrying its cost fields, no fraction of the peak
    above 1.05 (``e2e service attribution``).
-14. Every driven run of phases 4 to 11 follows one uncounted warm-up run of
+15. Every driven run of phases 4 to 12 follows one uncounted warm-up run of
    the same engine and stream, sets the launch counters to 0 just before it
    and reads them just after; every kernel must have launched, and each
    run must take the rung its plan names (``DualModeEngine.last_rung``).
@@ -150,14 +164,14 @@ Run from the repository root:  python3 chip_smoke.py [--seed N]
    radix_partition calls (every path the kernel picks by shape) is held
    bitwise against its twin and at 64, 512, 1024 and every candidate of
    the search's threads per block (``hold`` lines).
-15. Examples phase: the five programs of ``examples/torch`` on the card at
+16. Examples phase: the five programs of ``examples/torch`` on the card at
    their reference defaults (quickstart, toll_processing, ledger_serving,
    streaming_service, train_100m at 300 steps of the 8-layer d = 768
    model), the service also with ``--inject-restart --corrupt-latest``,
    ``--storm --inject-restart``, ``--storm --devices 4 --inject-restart``
    and ``--perfetto-out --profile-dir --hlo-cost``: each prints its ✓
    lines, and an ``example`` line gives its wall time.
-16. Autotune phase: the wrappers of segscan_affine, segscan_max,
+17. Autotune phase: the wrappers of segscan_affine, segscan_max,
    radix_partition and hash_probe ask ``kernels/autotune`` for their
    threads per block on every unforced call; each key's first call
    benches its candidates.  For every key the runs above decided, an
@@ -166,7 +180,7 @@ Run from the repository root:  python3 chip_smoke.py [--seed N]
    alone on the inputs of that call, held bit for bit to each other and to
    the twin (segscan_affine to the twin within 1e-5); then the
    ``--dump`` profile and the total bench time.
-17. Prints one JSON line of kernel numbers, the card line again, and last
+18. Prints one JSON line of kernel numbers, the card line again, and last
    ``{"ok": true, "device": {...}}``.
 
 Any failure raises and exits non-zero.  Without a CUDA card it exits 1 and
@@ -196,12 +210,17 @@ N_INTERVALS = 200
 INTERVAL = 500
 
 
-def card_line() -> str:
+def card_lines() -> list:
+    """Every card's name and power limit, as nvidia-smi gives them."""
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60, check=True)
-    return out.stdout.strip().splitlines()[0]
+    return out.stdout.strip().splitlines()
+
+
+def card_line() -> str:
+    return card_lines()[0]
 
 
 def cuda_ms(fn, iters: int, warmup: int = 3) -> float:
@@ -320,12 +339,13 @@ def shard_inputs(gs, dev):
     eng = DualModeEngine(gs["app"], gs["store"], cfg, device=dev,
                          mesh=ShardMesh((4,), ("dev",), device=dev))
     sh = eng._sharded
-    rops, _, _, cap, _ = sh.route(events_to_torch(gs["events"], dev))
+    (rops,), _, _, cap, _ = sh.route(events_to_torch(gs["events"], dev))
     lpad = sh.own.per
     sops, ch = restructure(rops, lpad, rowmajor_ts=True, light=True,
                            method="partition", use_kernels=False,
                            geometry=False)
-    values = sh.carry_in(gs["store"].values).reshape(4, lpad + 1, -1)
+    (values,) = sh.carry_in(gs["store"].values)
+    values = values.reshape(4, lpad + 1, -1)
     print(f"sharded gs: 4 shards x {rops.uid.shape[-1]} received rows per "
           f"interval (capacity {cap} per bucket), {lpad + 1} slots per block; "
           f"probe table {list(sh.probe.table.shape)}")
@@ -672,17 +692,23 @@ def engine(app_name, method, dev, *, mesh=None, layout="shared_nothing",
                           layout=layout, exchange_slack=slack)
 
 
+def sync() -> None:
+    """Wait for every visible card (a grouped mesh works on several)."""
+    for i in range(torch.cuda.device_count()):
+        torch.cuda.synchronize(i)
+
+
 def timed(eng, stream, interval=INTERVAL):
     """One ``run_stream`` on the engine's device: host clock around it, with
-    a synchronize before and after on the card."""
+    a synchronize of every card before and after."""
     cuda = eng.device.type == "cuda"
     if cuda:
-        torch.cuda.synchronize()
+        sync()
     t0 = time.perf_counter()
     outs, values = eng.run_stream(eng.init_store.values, stream, interval,
                                   fused=True)
     if cuda:
-        torch.cuda.synchronize()
+        sync()
     return outs, values.cpu(), time.perf_counter() - t0
 
 
@@ -1239,18 +1265,24 @@ def lockstep_run(app_name, method, st, card, cuda, launches, rung, **cfg_kw):
     return eng, outs, values, aborted
 
 
+def lockstep_streams(seed: int) -> dict:
+    """SL's and OB's streams of the lockstep phases."""
+    from repro_torch.apps import ALL_APPS
+    n = N_INTERVALS * INTERVAL
+    return {a: ALL_APPS[a].gen_events(np.random.default_rng(seed + 3 + i), n)
+            for i, a in enumerate(LOCKSTEP_APPS)}
+
+
 def lockstep_phase(card, cuda, launches, seed) -> dict:
     """SL and OB through the lockstep path on the card, forced "partition"
     and "auto", and SL's abort repass on an overdrawn stream: each bitwise
     with the port's CPU run of the same stream (state, outputs, per-op
     pre/post/success).  Returns the streams and, by label, each forced
     run's (state, outputs, per-op results) for the sharded phase."""
-    from repro_torch.apps import ALL_APPS
     cpu = torch.device("cpu")
     n = N_INTERVALS * INTERVAL
     t0 = time.perf_counter()
-    data = {a: ALL_APPS[a].gen_events(np.random.default_rng(seed + 3 + i), n)
-            for i, a in enumerate(LOCKSTEP_APPS)}
+    data = lockstep_streams(seed)
     over = dict(data["sl"])
     over["amount"] = (over["amount"] * 100).astype(np.float32)
     print(f"data lockstep: seed {seed}, {n} events each of SL and OB, in "
@@ -1709,6 +1741,187 @@ def sharded_service_phase(card, cuda, launches, seed) -> None:
               f"{snap} -> replay: bitwise with the uninterrupted elastic "
               "run, on its plan")
     print(f"sharded service phase: {time.perf_counter() - t0:.1f} s")
+
+
+# The sharded driver over device groups (ROADMAP A9.4): label, app, rung,
+# layout, mesh shape, axis names, intervals, and whether the run also goes
+# on one card in two groups.  With two or more cards every run goes with one
+# group a card.
+CARD_RUNS = (
+    ("gs/shared_nothing", "gs", "megakernel", "shared_nothing", (N_SHARDS,),
+     ("dev",), N_INTERVALS, True),
+    ("sl/shared_nothing", "sl", "partition", "shared_nothing", (N_SHARDS,),
+     ("dev",), N_INTERVALS, True),
+    ("ob/shared_nothing", "ob", "partition", "shared_nothing", (N_SHARDS,),
+     ("dev",), N_INTERVALS, False),
+    ("tp/shared_per_socket", "tp", "partition", "shared_per_socket",
+     (2, N_SHARDS // 2), ("socket", "core"), N_INTERVALS, False),
+    ("gs/shared_everything", "gs", "partition", "shared_everything",
+     (N_SHARDS,), ("dev",), 20, False),
+)
+
+
+def card_busy(fn) -> tuple:
+    """``fn()`` once under torch.profiler: (wall s, {card index: busy s}),
+    each card's busy time the sum of its kernels' and copies' device time
+    (busy None where the profiler saw no CUDA activity)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        sync()
+        t0 = time.perf_counter()
+        fn()
+        sync()
+        wall = time.perf_counter() - t0
+    busy = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            busy[e.device_index] = (busy.get(e.device_index, 0.0)
+                                    + e.time_range.elapsed_us() / 1e6)
+    return wall, (busy or None)
+
+
+def cards_phase(streams_all, cards, cuda, launches, seed) -> None:
+    """The sharded driver over device groups: each run with G groups held
+    to the same run with one group on the first card (GS, SL and OB
+    bitwise, TP to rtol = atol = 1e-5), no op dropped, each kernel launched
+    G times where the one-group run launches it once; on one card GS and
+    SL with two groups on it, and with two or more cards every run of
+    CARD_RUNS and the elastic GS service storm with one group a card.  Each
+    ``e2e cards`` line gives G, the device of each group, events/s, the
+    drops, the rung, the launches per group and the busy share of each
+    card (one more, profiled run)."""
+    from repro_torch.core.mesh import ShardMesh, card_groups
+    t0 = time.perf_counter()
+    n_cards = torch.cuda.device_count()
+    setups = [("one card", [cuda, cuda], [r for r in CARD_RUNS if r[7]])]
+    if n_cards >= 2:
+        setups.append(("a card a group", card_groups(N_SHARDS, cuda),
+                       list(CARD_RUNS)))
+    else:
+        print(f"cards: {n_cards} card visible: the runs with one group a "
+              "card need two or more and did not run")
+    ones = {}
+    for what, devs, runs in setups:
+        g = len(devs)
+        for label, app_name, method, layout, shape, names, n_i, _ in runs:
+            st = {k: np.asarray(v)[: n_i * INTERVAL]
+                  for k, v in streams_all[app_name].items()}
+            mk = lambda ds: engine(app_name, method, cuda, layout=layout,
+                                   mesh=ShardMesh(shape, names, devices=ds))
+            if label not in ones:
+                eng1 = mk([cuda])
+                ones[label] = (eng1, counted(eng1, st, launches))
+            eng1, (o1, v1, w1, l1) = ones[label]
+            eng = mk(devs)
+            outs, values, wall, got = counted(eng, st, launches)
+            ex = eng.last_exchange_stats
+            dropped = int(np.sum(ex["dropped"]))
+            if dropped:
+                raise AssertionError(f"cards {label} G={g}: {dropped} ops "
+                                     "dropped")
+            check_rung(eng, method, f"cards {label} G={g}")
+            want = {k: g * v for k, v in l1.items()}
+            if got != want:
+                raise AssertionError(f"cards {label} G={g}: launches {got}, "
+                                     f"expected {want} (G x the one-group "
+                                     f"run's {l1})")
+            bitwise = app_name != "tp"
+            if bitwise:
+                assert_equal(values, v1, f"cards {label} G={g}: state")
+            else:
+                assert_close(values, v1, f"cards {label} G={g}: state")
+            check_outputs(outs, o1, f"cards {label} G={g}", n_i,
+                          bitwise=bitwise)
+            head = {k: v[: PROFILE_INTERVALS * INTERVAL]
+                    for k, v in st.items()}
+            w_p, busy = card_busy(lambda: timed(eng, head))
+            share = ("not measured" if busy is None else
+                     {str(d): busy.get(d.index, 0.0) / w_p
+                      for d in dict.fromkeys(devs)})
+            w1_p, busy1 = card_busy(lambda: timed(eng1, head))
+            share1 = ("not measured" if busy1 is None else
+                      busy1.get(cuda.index, 0.0) / w1_p)
+            per_group = {k: v // g for k, v in got.items() if v}
+            print(f"e2e cards {label} G={g} ({what}) devices="
+                  f"{[str(d) for d in devs]} rung={method} intervals={n_i}x"
+                  f"{INTERVAL}: wall_s={wall} events_per_s="
+                  f"{n_i * INTERVAL / wall} dropped={dropped} shipped="
+                  f"{int(np.sum(ex['shipped']))} launches={got} "
+                  f"launches_per_group={per_group} "
+                  f"busy_share_per_card={share} (first {PROFILE_INTERVALS} "
+                  f"intervals, profiled wall_s={w_p}) | G=1 on {cuda}: "
+                  f"wall_s={w1} events_per_s={n_i * INTERVAL / w1} "
+                  f"busy_share={share1} | "
+                  + ("bitwise" if bitwise else
+                     f"rtol = atol = 1e-5, state max abs err "
+                     f"{max_err(values, v1)}") + f" | {cards}")
+        if n_cards >= 2 and what == "a card a group":
+            cards_service(devs, cards, cuda, launches, seed)
+    print(f"cards phase: {time.perf_counter() - t0:.1f} s")
+
+
+def cards_service(devs, cards, cuda, launches, seed) -> None:
+    """The elastic GS service storm (the sharded service phase's) with one
+    group a card: at least one live migration, no op dropped, state and
+    outputs bitwise with the one-group service and the single-device
+    ``run_stream``."""
+    from repro_torch import LAUNCHES, reset_launches
+    from repro_torch.apps import ALL_APPS
+    from repro_torch.core.intervals import PhasedReplaySource, WatermarkPolicy
+    from repro_torch.core.mesh import ShardMesh
+    from repro_torch.runtime.service import ServiceConfig, StreamService
+    g, storm = len(devs), STORMS["gs"]
+    n_i = sum(k for k, _ in storm)
+    label = "cards service gs rung=megakernel"
+    src = PhasedReplaySource(
+        ALL_APPS["gs"].gen_events, [(k * INTERVAL, kw) for k, kw in storm],
+        seed=seed + 21, arrival_batch=INTERVAL, jitter=SERVICE_JITTER)
+    cfg = ServiceConfig(
+        punct_interval=INTERVAL, chunk_intervals=SERVICE_CHUNK,
+        watermark=WatermarkPolicy(allowed_lateness=SERVICE_JITTER),
+        controller=storm_controller())
+    ref_outs, ref_values, _ = timed(engine("gs", "megakernel", cuda),
+                                    src.in_order_events)
+    recs = {}
+    for ds in ([cuda], devs):
+        fresh = lambda: engine("gs", "megakernel", cuda, slack=STORM_SLACK,
+                               mesh=ShardMesh((N_SHARDS,), ("dev",),
+                                              devices=ds))
+        StreamService(fresh(), cfg).run(src)             # warm-up
+        reset_launches()
+        rec = StreamService(fresh(), cfg).run(src)
+        got = dict(LAUNCHES)
+        for k, v in got.items():
+            launches[k] += v
+        place = rec.stats["placement"]
+        if not place["migrations"] or any(rec.stats["drops"].values()):
+            raise AssertionError(f"{label} G={len(ds)}: migrations "
+                                 f"{place['migrations']}, drops "
+                                 f"{rec.stats['drops']}")
+        values = torch.from_numpy(rec.final_values)
+        assert_equal(values, ref_values, f"{label} G={len(ds)}: state vs "
+                     "single device")
+        check_outputs(rec.outputs, ref_outs, f"{label} G={len(ds)}", n_i,
+                      bitwise=True)
+        recs[len(ds)] = (rec, got)
+    (r1, l1), (rg, lg) = recs[1], recs[g]
+    if lg != {k: g * v for k, v in l1.items()}:
+        raise AssertionError(f"{label} G={g}: launches {lg}, expected G x "
+                             f"the one-group service's {l1}")
+    pct, pct1 = (r.latency_percentiles((50, 99)) for r in (rg, r1))
+    print(f"e2e {label} G={g} devices={[str(d) for d in devs]} storm="
+          f"{[k for k, _ in storm]} chunk={SERVICE_CHUNK}: "
+          f"sustained_events_per_s={rg.sustained_events_per_s()} "
+          f"latency_p50_s={pct['p50']} latency_p99_s={pct['p99']} "
+          f"dropped={rg.stats['drops']['exchange']} migrations="
+          f"{len(rg.stats['placement']['migrations'])} moved_rows="
+          f"{rg.stats['placement']['moved_rows']} launches={lg} | G=1: "
+          f"sustained_events_per_s={r1.sustained_events_per_s()} "
+          f"latency_p50_s={pct1['p50']} latency_p99_s={pct1['p99']} "
+          f"launches={l1} | bitwise with the single-device run_stream | "
+          f"{cards}")
 
 
 BASELINE_LAYOUTS = (("shared_nothing", (N_SHARDS,), ("dev",)),
@@ -2585,7 +2798,7 @@ def main() -> int:
     stream = streams(args.seed)
     print(f"data: seed {args.seed}, {N_INTERVALS * INTERVAL} events per app "
           f"in {time.perf_counter() - t0:.1f} s")
-
+    cards = "; ".join(card_lines())
     rows = kernel_phase(plans(stream, cuda))
     oracle_check(cuda)
     from repro_torch import LAUNCHES
@@ -2597,6 +2810,7 @@ def main() -> int:
     sharded_lockstep_phase(lock, card, cuda, launches)
     service_phase(stream, lock, single, card, cuda, launches)
     sharded_service_phase(card, cuda, launches, args.seed)
+    cards_phase({**stream, **lock["data"]}, cards, cuda, launches, args.seed)
     baseline_phase(stream, card, cuda, launches)
     pipeline_phase(card, cuda, launches, args.seed)
     train_phase(card, cuda, launches, args.seed)

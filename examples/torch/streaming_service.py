@@ -22,18 +22,21 @@ back (single-device), or ramps the exchange slack from a starved start
 ``--inject-restart`` the drill additionally asserts the recovered run's
 decision trace equals the uninterrupted one.
 
-``--devices N`` runs the sharded driver on an N-shard ``ShardMesh``, all
-shards on the one device.  ``--perfetto-out`` writes the pipeline's span
-trace (schema-checked after the run), ``--profile-dir`` adds
-``torch.profiler`` per-chunk windows, and ``--hlo-cost`` annotates the
-execute spans with each chunk's cost (``CostAttributor``).
+``--devices N`` runs the sharded driver on an N-shard ``ShardMesh`` whose
+shards sit on the visible cards, as the reference's ``--devices N`` puts
+them on N devices: one shard a card where N cards are present, else in the
+largest number G of groups, G at most the card count and dividing N, one
+group a card; on the CPU, one group.  ``--perfetto-out`` writes the
+pipeline's span trace (schema-checked after the run), ``--profile-dir``
+adds ``torch.profiler`` per-chunk windows, and ``--hlo-cost`` annotates
+the execute spans with each chunk's cost (``CostAttributor``).
 
     PYTHONPATH=src python examples/torch/streaming_service.py
     PYTHONPATH=src python examples/torch/streaming_service.py --inject-restart
     PYTHONPATH=src python examples/torch/streaming_service.py \\
         --inject-restart --corrupt-latest  # recovery past a corrupted snapshot
-    PYTHONPATH=src python examples/torch/streaming_service.py --devices 8 \\
-        --inject-restart        # sharded service on 8 shards of one device
+    PYTHONPATH=src python examples/torch/streaming_service.py --devices 4 \\
+        --inject-restart        # sharded service, a shard on each of 4 cards
     PYTHONPATH=src python examples/torch/streaming_service.py --storm \\
         --inject-restart --trace-out trace.jsonl   # adaptive storm drill
     ... --device cpu            # on the CPU
@@ -44,11 +47,12 @@ import os
 import tempfile
 
 import numpy as np
+import torch
 
 from repro_torch.apps import ALL_APPS
 from repro_torch.core.intervals import (PhasedReplaySource, ReplaySource,
                                         WatermarkPolicy)
-from repro_torch.core.mesh import ShardMesh
+from repro_torch.core.mesh import ShardMesh, card_groups
 from repro_torch.core.scheduler import DualModeEngine, EngineConfig
 from repro_torch.kernels.runtime import resolve_device
 from repro_torch.runtime.controller import ControllerConfig
@@ -76,7 +80,8 @@ def parse(argv=None):
                          "before resuming — recovery must fall back to the "
                          "previous valid one")
     ap.add_argument("--devices", type=int, default=0,
-                    help="run the sharded driver on N shards of the device")
+                    help="run the sharded driver on N shards, spread over "
+                         "the visible cards")
     ap.add_argument("--storm", action="store_true",
                     help="multi-phase workload storm + adaptive control "
                          "plane")
@@ -110,6 +115,8 @@ def main(argv=None):
     None without ``--inject-restart``)."""
     args = parse(argv)
     dev = resolve_device(args.device)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
     app = ALL_APPS["gs"]
     store = app.make_store(device=dev)
     iv = args.interval
@@ -138,8 +145,13 @@ def main(argv=None):
             return ReplaySource(app.gen_events, n_events, seed=42,
                                 arrival_batch=max(1, iv // 4),
                                 jitter=args.jitter)
-    mesh = (ShardMesh((args.devices,), ("dev",), device=dev)
-            if args.devices else None)
+    mesh = None
+    if args.devices:
+        mesh = ShardMesh((args.devices,), ("dev",),
+                         devices=card_groups(args.devices, dev))
+        print(f"mesh: {args.devices} shards in {mesh.n_groups} group(s): "
+              + ", ".join(f"group {g} on {d}"
+                          for g, d in enumerate(mesh.devices)))
     # storm: start the sharded exchange starved (slack 1.5) so the
     # controller's widening decisions actually have work to do
     eng = DualModeEngine(app, store, EngineConfig(scheme="tstream"),

@@ -25,10 +25,11 @@ manifest records each leaf's byte size and CRC32, so
 
 ``reshard`` loads a snapshot for another mesh.  The reference's
 ``spec_fn(target, mesh)`` gives each leaf a JAX sharding; the port's mesh
-(``core/mesh.ShardMesh``) keeps every shard on one device, so here it gives
-each leaf the device to load onto.  The service's snapshots hold canonical
-uid-order values, so a snapshot cut on any mesh restores onto any other
-through ``DualModeEngine.carry_in``.
+(``core/mesh.ShardMesh``) keeps its shards in device groups, one device a
+group, so here it gives each leaf the device to load onto, which may differ
+from leaf to leaf.  The service's snapshots hold canonical uid-order
+values, so a snapshot cut on any mesh restores onto any other through
+``DualModeEngine.carry_in``, which cuts them into the groups' blocks.
 """
 from __future__ import annotations
 
@@ -309,9 +310,11 @@ def load_checkpoint(ckpt_dir: str, step: int, target: Tree,
 
 def reshard(ckpt_dir: str, step: int, target: Tree, mesh, spec_fn) -> Tree:
     """Load a checkpoint for another mesh: ``spec_fn(target, mesh)``
-    returns a tree like ``target`` holding the device of each leaf (on a
-    ``ShardMesh``, whose shards share one device, ``mesh.device``).  Every
-    leaf comes back as a tensor on its device."""
+    returns a tree like ``target`` holding the device of each leaf, and
+    leaves may go to different devices (on a ``ShardMesh``, any of
+    ``mesh.devices``: a shard's leaves on its group's device, the
+    canonical values on ``mesh.device``).  Every leaf comes back as a
+    tensor on its device."""
     flat = _flatten(target)
     places = [d for _, d in _flatten(spec_fn(target, mesh))]
     if len(places) != len(flat):

@@ -1,26 +1,38 @@
-"""A device mesh of shards on one card, and the collectives over it.
+"""A device mesh of shards, in groups on one or more cards, and the
+collectives over it.
 
 Reference: ``jax.make_mesh((8,), ("dev",))`` / ``jax.make_mesh((2, 4),
 ("socket", "core"))`` and the ``jax.lax`` collectives that the sharded
 driver's ``shard_map`` body calls (``repro/core/sharded_stream.py``).
 
-The port keeps every shard on one device, with the shards as a **tensor
-axis**: a stacked tensor holds one shard's value per index of a flat shard
-axis of ``mesh.size`` entries, in row-major order over the mesh axes (shard
-``(s, c)`` of a ``(socket, core)`` mesh is index ``s * n_core + c``).  The
-collectives take that tensor and the position ``dim`` of its shard axis;
-every other axis number is the one a shard's own array would have, as in
-JAX, so the driver's body reads like the reference's.  A collective returns
-the stacked result of every shard at once.
+The shards of a mesh are numbered along a flat shard axis of ``mesh.size``
+entries, in row-major order over the mesh axes (shard ``(s, c)`` of a
+``(socket, core)`` mesh is index ``s * n_core + c``).  That axis is cut into
+G contiguous **device groups** of ``mesh.size // G`` shards, and group g
+lives on ``mesh.devices[g]``; a device may repeat.  Within a group the
+shards are a **tensor axis**: a value per shard is a tuple of G stacked
+tensors, group g's holding one entry per shard of the group.  With one
+group (``device=``, G = 1) it is a one-tuple of the whole stack.
 
-Every exchange of the sharded driver goes through these five functions, so a
-transport across cards (``torch.distributed``) replaces only this module.
+The collectives take such a tuple and the position ``dim`` of its shard
+axis; every other axis number is the one a shard's own array would have,
+as in JAX, so the driver's body reads like the reference's.  A collective
+returns the result of every shard at once, as a tuple of the same groups.
+With one group it runs as tensor ops on the stack.  Across groups every
+collective joins the groups' operands onto the first device in shard order
+by peer copies (``Tensor.to``, which PyTorch orders after the work queued
+on both devices' current streams), runs there as the one-group stack does
+(so a sum associates as it does with G = 1, bit for bit) and sends each
+group its part.  No process group is involved: the reference's
+``shard_map`` spans the devices of one process, and so does this mesh.
+``card_groups`` places a mesh's shards on the visible cards.
+
 Under a program trace (``launch/hlo_analysis.ProgramTrace``) each call
 counts once, as the collective it stands for (all-to-all, all-gather or
 all-reduce) over its group, with one shard's result bytes; the tensor ops
-that carry it out on one device are not recorded.  ``all_to_all`` is its
-own inverse, so its gradient is an ``all_to_all`` of the output's
-gradient: a traced backward pass counts its exchanges too.
+and copies that carry it out are not recorded.  ``all_to_all`` is its own
+inverse, so its gradient is an ``all_to_all`` of the output's gradient: a
+traced backward pass counts its exchanges too.
 """
 from __future__ import annotations
 
@@ -32,6 +44,7 @@ import torch
 from ..kernels.runtime import active_trace, resolve_device
 
 Axes = Union[str, Sequence[str]]
+Groups = Tuple[torch.Tensor, ...]
 
 
 def axis_sizes(mesh) -> Dict[str, int]:
@@ -43,11 +56,28 @@ def axis_sizes(mesh) -> Dict[str, int]:
     return dict(zip(mesh.axis_names, mesh.shape))
 
 
+def card_groups(n_shards: int, device) -> list:
+    """The device of each group of ``n_shards`` shards spread over the
+    visible cards: one group a card, as many groups as the largest G that
+    is at most the card count and divides ``n_shards``, from ``device``'s
+    card on (wrapping round); off CUDA, one group on ``device``."""
+    dev = resolve_device(device)
+    if dev.type != "cuda":
+        return [dev]
+    cards = torch.cuda.device_count()
+    first = torch.cuda.current_device() if dev.index is None else dev.index
+    g = max(k for k in range(1, min(cards, n_shards) + 1)
+            if n_shards % k == 0)
+    return [torch.device("cuda", (first + i) % cards) for i in range(g)]
+
+
 class ShardMesh:
-    """Named mesh axes over stacked shards on ``device`` (None: the card)."""
+    """Named mesh axes over shards in device groups: ``devices`` (G
+    devices, G dividing the mesh size) or ``device`` alone (one group; None:
+    the card)."""
 
     def __init__(self, shape: Sequence[int], axis_names: Sequence[str],
-                 device=None):
+                 device=None, devices=None):
         self.shape = tuple(int(s) for s in shape)
         self.axis_names = tuple(axis_names)
         if len(self.shape) != len(self.axis_names) or not self.shape:
@@ -56,7 +86,15 @@ class ShardMesh:
         if min(self.shape) < 1 or len(set(self.axis_names)) != len(
                 self.axis_names):
             raise ValueError(f"bad mesh {self.shape} {self.axis_names}")
-        self.device = resolve_device(device)
+        if devices is None:
+            self.devices = (resolve_device(device),)
+        else:
+            if device is not None:
+                raise ValueError("give device= or devices=, not both")
+            self.devices = tuple(resolve_device(d) for d in devices)
+            if not self.devices or self.size % len(self.devices):
+                raise ValueError(f"{len(self.devices)} device groups do not "
+                                 f"divide the mesh size {self.size}")
 
     @classmethod
     def meta(cls, shape: Sequence[int], axis_names: Sequence[str]
@@ -65,12 +103,64 @@ class ShardMesh:
         (``launch/dryrun.py``).  No entry point takes the meta device: this
         is the only way to a mesh on it."""
         mesh = cls(shape, axis_names, device="cpu")
-        mesh.device = torch.device("meta")
+        mesh.devices = (torch.device("meta"),)
         return mesh
 
     @property
     def size(self) -> int:
         return math.prod(self.shape)
+
+    @property
+    def device(self) -> torch.device:
+        """The first group's device: where the driver keeps what is not
+        per shard (canonical values, outputs)."""
+        return self.devices[0]
+
+    @property
+    def n_groups(self) -> int:
+        return len(self.devices)
+
+    @property
+    def per_group(self) -> int:
+        """Shards in one device group."""
+        return self.size // len(self.devices)
+
+    def shards(self, g: int) -> range:
+        """The flat shard indices of device group ``g``."""
+        return range(g * self.per_group, (g + 1) * self.per_group)
+
+    def split(self, x: torch.Tensor, dim: int = 0) -> Groups:
+        """A stacked tensor of every shard (shard axis ``dim``, on any
+        device) -> the per-group tuple on the groups' devices."""
+        return tuple(c.to(d).contiguous() for c, d in zip(
+            x.split(self.per_group, dim=dim), self.devices))
+
+    def join(self, xs: Groups, dim: int = 0) -> torch.Tensor:
+        """The per-group tuple -> one stacked tensor on ``device`` (with
+        one group, the group's own tensor: no copy)."""
+        if len(xs) == 1:
+            return xs[0].to(self.device)
+        return torch.cat([x.to(self.device) for x in xs], dim=dim)
+
+    def _stacked(self, xs: Groups, dim: int, fn, out_dim=None) -> Groups:
+        """A collective's one-group form ``fn`` run on the joined stack and
+        split back to the groups along its result's shard axis ``out_dim``
+        (default ``dim``); with one group, on the stack itself."""
+        if len(xs) == 1:
+            return (fn(xs[0]),)
+        return self.split(fn(self.join(xs, dim)),
+                          dim if out_dim is None else out_dim)
+
+    def _groups(self, xs, dim: int) -> Groups:
+        if not isinstance(xs, (tuple, list)) or len(xs) != self.n_groups:
+            raise ValueError(f"a collective takes a tuple of {self.n_groups} "
+                             f"group tensors, got {type(xs).__name__}")
+        for x in xs:
+            if x.shape[dim] != self.per_group:
+                raise ValueError(f"shard axis {dim} of shape "
+                                 f"{tuple(x.shape)} is not the group size "
+                                 f"{self.per_group}")
+        return tuple(xs)
 
     # -- layout helpers ----------------------------------------------------
     def _axes(self, axes: Axes) -> Tuple[int, ...]:
@@ -107,8 +197,8 @@ class ShardMesh:
         return out
 
     # -- collectives ---------------------------------------------------------
-    def all_to_all(self, x: torch.Tensor, axes: Axes, split_axis: int,
-                   concat_axis: int, *, dim: int) -> torch.Tensor:
+    def all_to_all(self, xs: Groups, axes: Axes, split_axis: int,
+                   concat_axis: int, *, dim: int) -> Groups:
         """``jax.lax.all_to_all`` over ``axes``: shard d's chunk g of its
         ``split_axis`` goes to shard g of d's group, which stores it as
         chunk d.  The group's shards are numbered row-major over ``axes``;
@@ -118,12 +208,14 @@ class ShardMesh:
         split axis."""
         if split_axis != concat_axis:
             raise ValueError("all_to_all takes split_axis == concat_axis")
-        if torch.is_grad_enabled() and x.requires_grad:
-            return _AllToAll.apply(self, x, axes, split_axis, dim)
-        return self._traced("all-to-all", axes, lambda: self._all_to_all(
-            x, axes, split_axis, dim))
+        xs = self._groups(xs, dim)
+        if torch.is_grad_enabled() and any(x.requires_grad for x in xs):
+            return _AllToAll.apply(self, axes, split_axis, dim, *xs)
+        return self._traced("all-to-all", axes, lambda: self._stacked(
+            xs, dim, lambda x: self._all_to_all_stack(x, axes, split_axis,
+                                                      dim)))
 
-    def _all_to_all(self, x, axes, split_axis, dim):
+    def _all_to_all_stack(self, x, axes, split_axis, dim):
         group = self._axes(axes)
         sizes = [self.shape[i] for i in group]
         xu = self._unflatten(x, dim)
@@ -138,15 +230,18 @@ class ShardMesh:
         xu = xu.flatten(b, b + len(sizes) - 1)
         return xu.flatten(dim, dim + len(self.shape) - 1).contiguous()
 
-    def all_gather(self, x: torch.Tensor, axis: str, gather_axis: int, *,
-                   dim: int) -> torch.Tensor:
+    def all_gather(self, xs: Groups, axis: str, gather_axis: int, *,
+                   dim: int) -> Groups:
         """``jax.lax.all_gather(x, axis, axis=gather_axis)`` (not tiled):
         each shard gets a new axis at ``gather_axis`` holding the values of
         every shard along ``axis`` that agrees with it on the other axes."""
-        return self._traced("all-gather", axis, lambda: self._all_gather(
-            x, axis, gather_axis, dim))
+        xs = self._groups(xs, dim)
+        return self._traced("all-gather", axis, lambda: self._stacked(
+            xs, dim, lambda x: self._all_gather_stack(x, axis, gather_axis,
+                                                      dim),
+            out_dim=dim + 1 if gather_axis < dim else dim))
 
-    def _all_gather(self, x, axis, gather_axis, dim):
+    def _all_gather_stack(self, x, axis, gather_axis, dim):
         (m,) = self._axes(axis)
         k = len(self.shape)
         xu = self._unflatten(x, dim)
@@ -158,26 +253,27 @@ class ShardMesh:
         start = dim + 1 if gather_axis < dim else dim
         return g.flatten(start, start + k - 1).contiguous()
 
-    def psum(self, x: torch.Tensor, axes: Axes, *, dim: int) -> torch.Tensor:
+    def psum(self, xs: Groups, axes: Axes, *, dim: int) -> Groups:
         """``jax.lax.psum`` over ``axes``: every shard gets its group's sum."""
-        return self._reduce(x, axes, dim, torch.sum)
+        return self._reduce(xs, axes, dim, torch.sum)
 
-    def pmax(self, x: torch.Tensor, axes: Axes, *, dim: int) -> torch.Tensor:
+    def pmax(self, xs: Groups, axes: Axes, *, dim: int) -> Groups:
         """``jax.lax.pmax`` over ``axes``: every shard gets its group's max.
         With every value but one owner's masked to -inf it is the sharded
         driver's ownership-masked select (exact, unlike a sum of deltas)."""
-        return self._reduce(x, axes, dim, torch.amax)
+        return self._reduce(xs, axes, dim, torch.amax)
 
-    def pmin(self, x: torch.Tensor, axes: Axes, *, dim: int) -> torch.Tensor:
+    def pmin(self, xs: Groups, axes: Axes, *, dim: int) -> Groups:
         """``jax.lax.pmin`` over ``axes``: every shard gets its group's min
         (the sharded lockstep walk's level fixpoint)."""
-        return self._reduce(x, axes, dim, torch.amin)
+        return self._reduce(xs, axes, dim, torch.amin)
 
-    def _reduce(self, x, axes, dim, op):
-        return self._traced("all-reduce", axes, lambda: self._reduce_now(
-            x, axes, dim, op))
+    def _reduce(self, xs, axes, dim, op):
+        xs = self._groups(xs, dim)
+        return self._traced("all-reduce", axes, lambda: self._stacked(
+            xs, dim, lambda x: self._reduce_stack(x, axes, dim, op)))
 
-    def _reduce_now(self, x, axes, dim, op):
+    def _reduce_stack(self, x, axes, dim, op):
         xu = self._unflatten(x, dim)
         pos = [dim + m for m in self._axes(axes)]
         r = op(xu, dim=pos, keepdim=True).expand(xu.shape)
@@ -189,12 +285,12 @@ class _AllToAll(torch.autograd.Function):
     g of shard d with chunk d of shard g, so it is its own inverse."""
 
     @staticmethod
-    def forward(ctx, mesh, x, axes, split_axis, dim):
+    def forward(ctx, mesh, axes, split_axis, dim, *xs):
         ctx.args = (mesh, axes, split_axis, dim)
-        return mesh.all_to_all(x, axes, split_axis, split_axis, dim=dim)
+        return mesh.all_to_all(xs, axes, split_axis, split_axis, dim=dim)
 
     @staticmethod
-    def backward(ctx, grad):
+    def backward(ctx, *grads):
         mesh, axes, split_axis, dim = ctx.args
-        return (None, mesh.all_to_all(grad, axes, split_axis, split_axis,
-                                      dim=dim), None, None, None)
+        return (None, None, None, None) + tuple(mesh.all_to_all(
+            grads, axes, split_axis, split_axis, dim=dim))

@@ -21,7 +21,8 @@ Two drivers share the per-interval logic:
 
 The engine runs on the CUDA card unless built with ``device="cpu"``.  Built
 with a ``mesh`` (``core/mesh.ShardMesh``) it runs the sharded fused driver
-instead (``core/sharded_stream``).
+instead (``core/sharded_stream``), each device group of the mesh on its own
+device.
 
 The chunked service API (``runtime/service.py``) drives the same fused
 program one chunk of K intervals at a time: ``run_stream_chunk`` takes the
@@ -84,7 +85,9 @@ class DualModeEngine:
     With ``mesh`` the engine is shard-parallel: the ownership permutation
     and routing tables are built once here, and ``run_stream`` runs the
     whole stream through the sharded fused driver on the mesh's shards.
-    The mesh's device must be the engine's.
+    The mesh's first device (``mesh.device``) must be the engine's: the
+    canonical values, event columns and outputs live there, and each device
+    group of the mesh keeps its shards' state blocks on its own device.
     """
 
     def __init__(self, app: AppSpec, store: StateStore,

@@ -428,10 +428,11 @@ def _default_bench(launch: Optional[Callable[[int], None]],
         trace = active_trace()
         set_active_trace(None)
         try:
-            start.record(stream)
-            launch(c)
-            end.record(stream)
-            end.synchronize()
+            with torch.cuda.device(dev):    # the events on the call's card
+                start.record(stream)
+                launch(c)
+                end.record(stream)
+                end.synchronize()
         finally:
             set_active_trace(trace)
         s = start.elapsed_time(end) / 1e3

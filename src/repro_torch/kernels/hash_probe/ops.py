@@ -34,9 +34,11 @@ def staged(n_buckets: int, smem_optin: int) -> bool:
 def _launch(keys, table, out, threads):
     """One launch over keys into out."""
     lib = _build.library(NAME, SIGNATURES)
-    err = lib.hash_probe(keys.data_ptr(), table.data_ptr(), out.data_ptr(),
-                         keys.shape[0], table.shape[0], threads,
-                         torch.cuda.current_stream(keys.device).cuda_stream)
+    with torch.cuda.device(keys.device):    # launch on the keys' card
+        err = lib.hash_probe(
+            keys.data_ptr(), table.data_ptr(), out.data_ptr(),
+            keys.shape[0], table.shape[0], threads,
+            torch.cuda.current_stream(keys.device).cuda_stream)
     _build.check_launch(lib, err, NAME)
 
 

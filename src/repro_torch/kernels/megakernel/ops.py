@@ -141,13 +141,15 @@ def fused_chain_eval(values: torch.Tensor, sops, ch, pad_uid: int, *,
     success = torch.empty_like(sops.valid)
     work = torch.empty((k * batch * w * (2 * n + 3 * s),),
                        dtype=torch.float32, device=dev)
-    err = lib.megakernel_stream(
-        ch.seg_start.data_ptr(), sops.fun.data_ptr(), sops.valid.data_ptr(),
-        sops.uid.data_ptr(), sops.operand.data_ptr(), ch.order.data_ptr(),
-        ch.counts.data_ptr(), a_lut.data_ptr(), b_lut.data_ptr(),
-        values.data_ptr(), pre.data_ptr(), post.data_ptr(),
-        success.data_ptr(), work.data_ptr(), k, batch, n, w, s, pad_uid,
-        threads, torch.cuda.current_stream(dev).cuda_stream)
+    with torch.cuda.device(dev):            # launch on the state's card
+        err = lib.megakernel_stream(
+            ch.seg_start.data_ptr(), sops.fun.data_ptr(),
+            sops.valid.data_ptr(), sops.uid.data_ptr(),
+            sops.operand.data_ptr(), ch.order.data_ptr(),
+            ch.counts.data_ptr(), a_lut.data_ptr(), b_lut.data_ptr(),
+            values.data_ptr(), pre.data_ptr(), post.data_ptr(),
+            success.data_ptr(), work.data_ptr(), k, batch, n, w, s, pad_uid,
+            threads, torch.cuda.current_stream(dev).cuda_stream)
     _build.check_launch(lib, err, NAME)
     LAUNCHES[NAME] += PHASES
     res = dict(pre=pre, post=post, success=success)

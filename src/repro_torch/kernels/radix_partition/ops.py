@@ -53,9 +53,11 @@ def _launch(keys, rank, counts, n_buckets, threads):
     """One launch over keys [BN, N] into rank and counts."""
     bn, n = keys.shape
     lib = _build.library(NAME, SIGNATURES)
-    err = lib.radix_partition_rank(
-        keys.data_ptr(), rank.data_ptr(), counts.data_ptr(), bn, n,
-        n_buckets, threads, torch.cuda.current_stream(keys.device).cuda_stream)
+    with torch.cuda.device(keys.device):    # launch on the keys' card
+        err = lib.radix_partition_rank(
+            keys.data_ptr(), rank.data_ptr(), counts.data_ptr(), bn, n,
+            n_buckets, threads,
+            torch.cuda.current_stream(keys.device).cuda_stream)
     _build.check_launch(lib, err, NAME)
 
 

@@ -61,11 +61,12 @@ def _affine(seg_start, a, b, A, B, threads):
     """One launch of the affine scan into A, B (fresh scratch each call)."""
     n, w = a.shape
     lib = _build.library(LIB, SIGNATURES)
-    status, carry, slots = _scratch(n, w, 2, a.device)
-    err = lib.segscan_affine(
-        seg_start.data_ptr(), a.data_ptr(), b.data_ptr(), A.data_ptr(),
-        B.data_ptr(), status.data_ptr(), carry.data_ptr(), slots, n, w,
-        threads, torch.cuda.current_stream(a.device).cuda_stream)
+    with torch.cuda.device(a.device):       # launch on the operands' card
+        status, carry, slots = _scratch(n, w, 2, a.device)
+        err = lib.segscan_affine(
+            seg_start.data_ptr(), a.data_ptr(), b.data_ptr(), A.data_ptr(),
+            B.data_ptr(), status.data_ptr(), carry.data_ptr(), slots, n, w,
+            threads, torch.cuda.current_stream(a.device).cuda_stream)
     _build.check_launch(lib, err, "segscan_affine")
 
 
@@ -73,11 +74,12 @@ def _max(seg_start, m, M, threads):
     """One launch of the max scan into M (fresh scratch each call)."""
     n, w = m.shape
     lib = _build.library(LIB, SIGNATURES)
-    status, carry, slots = _scratch(n, w, 1, m.device)
-    err = lib.segscan_max(
-        seg_start.data_ptr(), m.data_ptr(), M.data_ptr(),
-        status.data_ptr(), carry.data_ptr(), slots, n, w, threads,
-        torch.cuda.current_stream(m.device).cuda_stream)
+    with torch.cuda.device(m.device):       # launch on the operands' card
+        status, carry, slots = _scratch(n, w, 1, m.device)
+        err = lib.segscan_max(
+            seg_start.data_ptr(), m.data_ptr(), M.data_ptr(),
+            status.data_ptr(), carry.data_ptr(), slots, n, w, threads,
+            torch.cuda.current_stream(m.device).cuda_stream)
     _build.check_launch(lib, err, "segscan_max")
 
 

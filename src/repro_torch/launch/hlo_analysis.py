@@ -42,7 +42,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 from collections import defaultdict
-from typing import Dict, List, Tuple
+from typing import Dict, List, Sequence, Tuple
 
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
@@ -152,11 +152,13 @@ class ProgramTrace(TorchDispatchMode):
         self.ops.append(OpRecord(f"kernel:{name}", float(nbytes),
                                  float(n_ops)))
 
-    def collective(self, kind: str, out: torch.Tensor, n_shards: int,
-                   group: int) -> None:
+    def collective(self, kind: str, outs: Sequence[torch.Tensor],
+                   n_shards: int, group: int) -> None:
+        """One collective, by its result: a stacked tensor per device
+        group of the mesh (``core/mesh.py``), every shard's together."""
         if group < 2:
             return
-        total = out.numel() * out.element_size()
+        total = sum(o.numel() * o.element_size() for o in outs)
         self.collectives.append((kind, total / n_shards, group))
         self.ops.append(OpRecord(kind, float(total), 0.0))
 

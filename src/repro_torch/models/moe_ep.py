@@ -195,6 +195,9 @@ def _shard_mesh(mesh, x: torch.Tensor) -> ShardMesh:
     ``ShardMesh`` (on ``x``'s device), else one of its shape on ``x``'s
     device (``meta`` under the dry run)."""
     if isinstance(mesh, ShardMesh):
+        if mesh.n_groups != 1:
+            raise ValueError(f"expert parallelism takes a one-group mesh "
+                             f"(got {mesh.n_groups} device groups)")
         if mesh.device != x.device:
             raise ValueError(f"EP mesh on {mesh.device}, tokens on "
                              f"{x.device}")
@@ -243,7 +246,8 @@ def moe_forward_ep(cfg: ArchConfig, p: dict, x: torch.Tensor) -> torch.Tensor:
         """all_to_all over the EP axes of every shard's [n_shards, cap,
         ...] buffer."""
         shaped = v.reshape((n, n_shards, r.cap) + tuple(v.shape[2:]))
-        return sm.all_to_all(shaped, ep, 0, 0, dim=0).reshape(v.shape)
+        (out,) = sm.all_to_all((shaped,), ep, 0, 0, dim=0)
+        return out.reshape(v.shape)
 
     recv_x, recv_eid, recv_valid = (exchange(send_x), exchange(send_eid),
                                     exchange(send_valid))

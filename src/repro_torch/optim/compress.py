@@ -60,8 +60,8 @@ def compressed_psum(grads: Tree, mesh, axis_name, error: Tree | None = None
         rows = g32.reshape(mesh.size, -1)
         q, s = _compress_rows(rows)
         # the collective moves the quantized values and their scales
-        qsum = mesh.psum(q.to(torch.int32), group, dim=0)
-        ssum = mesh.psum(s, group, dim=0)
+        (qsum,) = mesh.psum((q.to(torch.int32),), group, dim=0)
+        (ssum,) = mesh.psum((s,), group, dim=0)
         n = rows.shape[1]
         avg = (qsum.float() * (ssum / nd)).reshape(mesh.size, -1)[:, :n] / nd
         deq = (q.float() * s).reshape(mesh.size, -1)[:, :n]

@@ -71,13 +71,13 @@ def test_collectives_match_reference_ring_formulas():
     x = torch.randn(8, 8, 3)                     # every shard's [8, 3]
     ids = torch.arange(8 * 4, dtype=torch.int32).reshape(8, 4)
     with ProgramTrace() as tr:
-        mesh.all_to_all(x, ("data", "model"), 0, 0, dim=0)      # g = 8
-        mesh.all_to_all(x.reshape(8, 4, 6), "model", 0, 0, dim=0)
-        mesh.all_gather(x, "model", 0, dim=0)                    # [4, 8, 3]
-        mesh.psum(x, "data", dim=0)
-        mesh.pmax(ids, ("data", "model"), dim=0)
-        mesh.pmin(x, "model", dim=0)
-        mesh.psum(x, (), dim=0)                  # a group of one: nothing
+        mesh.all_to_all((x,), ("data", "model"), 0, 0, dim=0)   # g = 8
+        mesh.all_to_all((x.reshape(8, 4, 6),), "model", 0, 0, dim=0)
+        mesh.all_gather((x,), "model", 0, dim=0)                 # [4, 8, 3]
+        mesh.psum((x,), "data", dim=0)
+        mesh.pmax((ids,), ("data", "model"), dim=0)
+        mesh.pmin((x,), "model", dim=0)
+        mesh.psum((x,), (), dim=0)               # a group of one: nothing
     got = analyze(tr, 8)
     want = _reference([
         ("all-to-all", (8, 3), torch.float32, 8),
@@ -98,14 +98,14 @@ def test_all_to_all_gradient_is_recorded():
     mesh = ShardMesh((2, 4), ("data", "model"), device="cpu")
     x = torch.randn(8, 8, 3, requires_grad=True)
     with ProgramTrace() as tr:
-        y = mesh.all_to_all(x, ("data", "model"), 0, 0, dim=0)
+        (y,) = mesh.all_to_all((x,), ("data", "model"), 0, 0, dim=0)
         (g,) = torch.autograd.grad((y * torch.arange(3.0)).sum(), [x])
     kinds = [k for k, _, _ in tr.collectives]
     assert kinds == ["all-to-all", "all-to-all"]
     # the exchange is its own inverse: the gradient is the exchanged
     # cotangent
-    want = mesh.all_to_all(torch.ones(8, 8, 1) * torch.arange(3.0),
-                           ("data", "model"), 0, 0, dim=0)
+    (want,) = mesh.all_to_all((torch.ones(8, 8, 1) * torch.arange(3.0),),
+                              ("data", "model"), 0, 0, dim=0)
     assert torch.equal(g, want)
 
 

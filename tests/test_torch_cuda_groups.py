@@ -1,0 +1,203 @@
+"""Kernels on a tensor's own card, and the sharded driver over device
+groups, on the card.
+
+Every test here needs NVIDIA cards: it is marked ``cuda``, decides in a
+fixture whether enough cards are present and skips without them.  The file
+imports no JAX.  On a machine with four cards:
+
+    PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda_groups.py
+
+* Each kernel wrapper, called on tensors on ``cuda:1`` while the current
+  device is ``cuda:0``, launches on ``cuda:1`` (its outputs are there, the
+  current device is left as it was) and gives the bits the same call gives
+  on ``cuda:0``; each result is also held to its plain twin (bitwise, the
+  affine scan to rtol = atol = 1e-5).
+* The grouped sharded driver on two groups of one card (``["cuda:0",
+  "cuda:0"]``) and on one group a card: GS on the megakernel rung and SL on
+  the lockstep schedule bitwise with the one-group run on ``cuda:0``, TP
+  ``shared_per_socket`` to rtol = atol = 1e-5 (the CUDA affine scan
+  associates by where a chain lies among its tiles, and a group scans only
+  its own rows); the megakernel launches once per group.
+"""
+import numpy as np
+import pytest
+import torch
+
+from repro_torch import LAUNCHES, reset_launches
+from repro_torch.apps import ALL_APPS
+from repro_torch.core import types as T
+from repro_torch.core.engines import simple_affine_luts
+from repro_torch.core.mesh import ShardMesh, card_groups
+from repro_torch.core.restructure import restructure
+from repro_torch.core.scheduler import DualModeEngine, EngineConfig
+from repro_torch.kernels.hash_probe.ops import hash_probe
+from repro_torch.kernels.hash_probe.ref import build_table, hash_probe_ref
+from repro_torch.kernels.megakernel.ops import fused_chain_eval
+from repro_torch.kernels.megakernel.ref import fused_chain_stream_ref
+from repro_torch.kernels.radix_partition.ops import radix_partition_rank
+from repro_torch.kernels.radix_partition.ref import radix_partition_rank_ref
+from repro_torch.kernels.segscan.ops import segscan_affine, segscan_max
+from repro_torch.kernels.segscan.ref import segscan_affine_ref, segscan_max_ref
+
+pytestmark = pytest.mark.cuda
+
+INTERVAL = 128
+
+
+@pytest.fixture
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
+    return torch.device("cuda", 0)
+
+
+@pytest.fixture
+def two_cards(card):
+    if torch.cuda.device_count() < 2:
+        pytest.skip(f"needs two CUDA cards ({torch.cuda.device_count()} "
+                    "present)")
+    return card, torch.device("cuda", 1)
+
+
+def _kernel_case(name):
+    """(call, twin, inputs on the CPU, bitwise) of each kernel wrapper."""
+    g = torch.Generator().manual_seed(3)
+    if name == "radix_partition":
+        keys = torch.randint(0, 1001, (40, 5000), generator=g,
+                             dtype=torch.int32)
+        return (lambda k: radix_partition_rank(k, 1001),
+                lambda k: radix_partition_rank_ref(k, 1001), (keys,), True)
+    if name in ("segscan_affine", "segscan_max"):
+        a = torch.rand(300_000, 2, generator=g) * 1.5
+        b = (torch.rand(300_000, 2, generator=g) - 0.5) * 4
+        f = torch.rand(300_000, generator=g) < 0.2
+        if name == "segscan_max":
+            return segscan_max, lambda m, s: segscan_max_ref(s, m), (b, f), \
+                True
+        return segscan_affine, lambda x, y, s: segscan_affine_ref(s, x, y), \
+            (a, b, f), False
+    if name == "hash_probe":
+        table = torch.from_numpy(build_table(np.arange(10_000,
+                                                       dtype=np.int32), 2500))
+        q = torch.randint(-5, 12_000, (100_000,), generator=g,
+                          dtype=torch.int32)
+        return hash_probe, hash_probe_ref, (q, table), True
+    # the megakernel on a GS-shaped stream: 3 intervals of 5,000 rows
+    rng = np.random.default_rng(7)
+    s, n, k = 10_000, 5000, 3
+    idx = torch.arange(n, dtype=torch.int32)
+    ops = T.OpBatch(
+        uid=torch.from_numpy(rng.integers(0, s, (k, n)).astype(np.int32)),
+        ts=(idx // 4).expand(k, n), txn=(idx // 4).expand(k, n),
+        slot=(idx % 4).expand(k, n),
+        kind=torch.zeros((k, n), dtype=torch.int32),
+        fun=torch.from_numpy(rng.integers(0, 4, (k, n)).astype(np.int32)),
+        gate=torch.full((k, n), -1, dtype=torch.int32),
+        operand=torch.from_numpy(rng.normal(size=(k, n, 2)).astype(
+            np.float32)),
+        valid=torch.from_numpy(rng.random((k, n)) > .01))
+    sops, ch = restructure(ops, s, rowmajor_ts=True, light=True,
+                           method="partition", geometry=False,
+                           use_kernels=False)
+    values = torch.from_numpy(rng.normal(size=(s + 1, 2)).astype(np.float32))
+    values[s] = 0.0
+    funs = (T.F_NOP, T.F_READ, T.F_PUT, T.F_ADD)
+    a_lut, b_lut = simple_affine_luts(funs, "cpu")
+
+    def mega(v, so, c, al, bl, fn=fused_chain_eval):
+        res, out, _ = fn(v.clone(), so, c, s, a_lut=al, b_lut=bl)
+        return res["pre"], res["post"], res["success"], out
+    return (mega, lambda *x: mega(*x, fn=fused_chain_stream_ref),
+            (values, sops, ch, a_lut, b_lut), True)
+
+
+def _move(x, dev):
+    if isinstance(x, (T.OpBatch,)) or hasattr(x, "seg_start"):
+        return type(x)(**{k: None if v is None else v.to(dev)
+                          for k, v in vars(x).items()})
+    return x.to(dev)
+
+
+def _outs(out):
+    return out if isinstance(out, tuple) else (out,)
+
+
+@pytest.mark.parametrize("kernel", ["radix_partition", "segscan_affine",
+                                    "segscan_max", "hash_probe",
+                                    "megakernel"])
+def test_wrapper_launches_on_its_tensors_card(two_cards, kernel):
+    first, second = two_cards
+    call, twin, args, bitwise = _kernel_case(kernel)
+    torch.cuda.set_device(first)
+    got = {}
+    for dev in (second, first):
+        inputs = [_move(a, dev) for a in args]
+        reset_launches()
+        out = _outs(call(*inputs))
+        torch.cuda.synchronize(dev)
+        assert torch.cuda.current_device() == first.index
+        assert sum(LAUNCHES.values()) > 0, "no kernel launched"
+        assert all(o.device == dev for o in out), kernel
+        got[dev] = out
+        want = _outs(twin(*inputs))
+        for o, w in zip(out, want):
+            if bitwise:
+                assert torch.equal(o, w), f"{kernel} on {dev} vs twin"
+            else:
+                torch.testing.assert_close(o, w, rtol=1e-5, atol=1e-5)
+    for a, b in zip(got[second], got[first]):
+        assert torch.equal(a.cpu(), b.cpu()), f"{kernel}: cuda:1 vs cuda:0"
+
+
+@pytest.fixture(params=["one_card", "a_card_a_group"])
+def group_devices(request, card):
+    """The group devices of a case: two groups on one card, or one group
+    on each of up to four cards (as many as divide the 4 shards)."""
+    if request.param == "one_card":
+        return [card, card]
+    n = torch.cuda.device_count()
+    if n < 2:
+        pytest.skip(f"needs two CUDA cards ({n} present)")
+    devs = card_groups(4, card)
+    assert len(devs) == (4 if n >= 4 else 2) and len(set(devs)) == len(devs)
+    return devs
+
+
+@pytest.mark.parametrize("app_name,method,layout,shape,names", [
+    ("gs", "megakernel", "shared_nothing", (4,), ("dev",)),
+    ("sl", "partition", "shared_nothing", (4,), ("dev",)),
+    ("tp", "partition", "shared_per_socket", (2, 2), ("socket", "core"))])
+def test_grouped_driver_on_cards_matches_one_group(
+        card, group_devices, app_name, method, layout, shape, names):
+    devices = group_devices
+    app = ALL_APPS[app_name]
+    stream = app.gen_events(np.random.default_rng(11), 4 * INTERVAL)
+    cfg = EngineConfig(restructure_method=method)
+    runs = {}
+    for devs in ([card], devices):
+        mesh = ShardMesh(shape, names, devices=devs)
+        eng = DualModeEngine(app, app.make_store(device=card), cfg,
+                             device=card, mesh=mesh, layout=layout,
+                             exchange_slack=8.0)
+        reset_launches()
+        outs, vals = eng.run_stream(eng.init_store.values, stream, INTERVAL)
+        st = eng.last_exchange_stats
+        assert int(np.sum(st["dropped"])) == 0
+        assert eng.last_rung == method
+        runs[len(devs)] = (outs, vals, dict(LAUNCHES))
+    (o1, v1, l1), (og, vg, lg) = runs[1], runs[len(devices)]
+    g = len(devices)
+    assert lg["radix_partition"] == g * l1["radix_partition"]
+    assert lg["megakernel"] == g * l1["megakernel"]
+    if method == "megakernel":
+        assert l1["megakernel"] == 3            # one stream call
+    if app_name == "tp":
+        torch.testing.assert_close(vg, v1, rtol=1e-5, atol=1e-5)
+        for a, b in zip(og, o1):
+            for k in b:
+                np.testing.assert_allclose(a[k], b[k], rtol=1e-5, atol=1e-5)
+    else:
+        assert torch.equal(vg, v1)
+        for a, b in zip(og, o1):
+            for k in b:
+                np.testing.assert_array_equal(a[k], b[k], err_msg=k)

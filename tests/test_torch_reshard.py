@@ -126,7 +126,7 @@ def test_reshard_moves_only_the_movers(app_name):
         assert moved == movers > 0
         assert eng.owners == overrides
         assert torch.equal(eng.carry_out(blocks), values)
-        assert torch.equal(blocks, eng.carry_in(values))
+        assert all(map(torch.equal, blocks, eng.carry_in(values)))
     same, moved = eng.apply_resharding(blocks, ())
     assert same is blocks and moved == 0
 

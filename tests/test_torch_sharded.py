@@ -276,7 +276,8 @@ def test_collectives_match_their_definition(shape, names, axes):
 
     want = _stack(mesh, lambda c: torch.stack(
         [x[:, idx[with_g(c, s)], gid(c)] for s in range(g_size)], dim=1))
-    torch.testing.assert_close(mesh.all_to_all(x, axes, 1, 1, dim=1), want,
+    torch.testing.assert_close(mesh.all_to_all((x,), axes, 1, 1, dim=1)[0],
+                               want,
                                rtol=0, atol=0)
     for ax in axes:
         m = names.index(ax)
@@ -287,7 +288,8 @@ def test_collectives_match_their_definition(shape, names, axes):
             return tuple(c)
         want_g = _stack(mesh, lambda c: torch.stack(
             [x[:, idx[others(c, k)]] for k in range(shape[m])], dim=1))
-        torch.testing.assert_close(mesh.all_gather(x, ax, 1, dim=1), want_g,
+        torch.testing.assert_close(mesh.all_gather((x,), ax, 1, dim=1)[0],
+                                   want_g,
                                    rtol=0, atol=0)
     members = {c: [d for d in coords
                    if all(d[i] == c[i] for i in range(len(shape))
@@ -295,6 +297,7 @@ def test_collectives_match_their_definition(shape, names, axes):
     want_s = _stack(mesh, lambda c: sum(x[:, idx[d]] for d in members[c]))
     want_m = _stack(mesh, lambda c: torch.stack(
         [x[:, idx[d]] for d in members[c]]).amax(0))
-    torch.testing.assert_close(mesh.psum(x, axes, dim=1), want_s)
-    torch.testing.assert_close(mesh.pmax(x, axes, dim=1), want_m, rtol=0,
+    torch.testing.assert_close(mesh.psum((x,), axes, dim=1)[0], want_s)
+    torch.testing.assert_close(mesh.pmax((x,), axes, dim=1)[0], want_m,
+                               rtol=0,
                                atol=0)

@@ -186,8 +186,8 @@ def test_pmin_is_the_min_over_the_group():
     mesh = ShardMesh((2, 4), ("socket", "core"), device="cpu")
     x = torch.randint(-50, 50, (3, 8, 5), generator=torch.Generator()
                       .manual_seed(0), dtype=torch.int32)
-    got = mesh.pmin(x, ("core",), dim=1)
+    (got,) = mesh.pmin((x,), ("core",), dim=1)
     want = x.reshape(3, 2, 4, 5).amin(2, keepdim=True).expand(3, 2, 4, 5)
     assert torch.equal(got, want.reshape(3, 8, 5))
-    assert torch.equal(mesh.pmin(x, ("socket", "core"), dim=1),
+    assert torch.equal(mesh.pmin((x,), ("socket", "core"), dim=1)[0],
                        x.amin(1, keepdim=True).expand_as(x))
