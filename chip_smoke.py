@@ -142,7 +142,21 @@ Run from the repository root:  python3 chip_smoke.py [--seed N]
    and at 1.25 the card's kept mask and dropped-choice count bitwise with
    the CPU's; then 20 steps of ``build_train_step`` (batch 8 x 512, bf16
    params and AdamW state) with steps/s, tokens/s, the model FLOP share and
-   one profiled step (``e2e ep`` lines).  minicpm-2b, 2 layers, float32:
+   one profiled step (``e2e ep`` lines).  Then the same over device groups
+   of the (2, 4) mesh, the routed experts placed in the groups
+   (``launch/sharding.place_params``): two groups on the first card, and
+   with two or more cards one group a card (``make_host_mesh`` spreading
+   the shards; a machine with one card says so on its own line).  Each
+   grouped run holds to the one-group run on the first card, bitwise, the
+   MoE layer at 1.25 on the skewed batch (output, kept mask, drops), step
+   0's loss and every gradient leaf, and a compressed all-reduce over
+   ``data`` of the MoE block's step-0 gradients; its 20 steps' losses
+   (the first two bitwise, the rest within the bf16 bar of 2e-2 relative:
+   the per-card sums of the global norm round bf16 params differently
+   once the rate is above 0), each expert slice still on its card; its
+   ``e2e ep groups`` line gives G, the device of each group, steps/s and
+   tokens/s beside the one-group run's, and each card's busy share and the
+   peer copies' bytes in one profiled step.  minicpm-2b, 2 layers, float32:
    ``build_decode_step`` on ``MeshSpec({"data": 1, "model": 16})`` pads 36
    heads to 48, each step's logits within 2e-4 of the unpadded decode, with
    tokens/s of both and decode_32k's per-device KV-cache bytes from
@@ -2418,6 +2432,11 @@ def ep_phase(card, cuda, seed) -> None:
             raise AssertionError(f"EP train: losses {losses}, step "
                                  f"{int(st_['step'])}")
         profile_call("ep train moonshot step", lambda: fn(p, st_, batch))
+        del p, st_
+        sps1 = (EP_STEPS - 1) / sum(step_s[1:])
+        for devs in ep_group_setups(cuda):
+            ep_groups(cfg, params, moe, x, batch, losses, sps1, devs, card,
+                      cuda)
     finally:
         moe_ep.set_ep_mesh(None, ("data",))
     sps = (EP_STEPS - 1) / sum(step_s[1:])
@@ -2435,6 +2454,197 @@ def ep_phase(card, cuda, seed) -> None:
           f"{BF16_PEAK_FLOPS:.3g}) loss {losses[0]:.4f} -> {losses[-1]:.4f} "
           f"card={card}")
     print(f"ep phase: {time.perf_counter() - t0:.1f} s")
+
+
+def card_trace(fn) -> tuple:
+    """``fn()`` once under torch.profiler: (wall s, {card index: busy s},
+    bytes of the peer copies between cards), each card's busy time the sum
+    of its kernels' and copies' device time (None where the profiler saw no
+    CUDA activity), the peer bytes from the trace's ``Memcpy PtoP`` events
+    (None where the trace gives no copy's bytes)."""
+    import tempfile
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        sync()
+        t0 = time.perf_counter()
+        fn()
+        sync()
+        wall = time.perf_counter() - t0
+    fd, path = tempfile.mkstemp(suffix=".json", prefix="chip_smoke_trace_")
+    os.close(fd)
+    try:
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = json.load(f).get("traceEvents", [])
+    finally:
+        os.remove(path)
+    busy, peer, sized = {}, 0, False
+    for ev in events:
+        cat, args = ev.get("cat", ""), ev.get("args") or {}
+        if cat in ("kernel", "gpu_memcpy", "gpu_memset") \
+                and "device" in args:
+            d = int(args["device"])
+            busy[d] = busy.get(d, 0.0) + float(ev.get("dur", 0.0)) / 1e6
+        if cat == "gpu_memcpy" and "bytes" in args:
+            sized = True
+            if "PtoP" in ev.get("name", ""):
+                peer += int(args["bytes"])
+    return wall, (busy or None), (peer if sized else None)
+
+
+def ep_group_setups(cuda) -> list:
+    """The device groups of the grouped EP runs: two groups on the first
+    card, and with two or more cards one group a card (as
+    ``make_host_mesh`` spreads a (2, 4) mesh)."""
+    from repro_torch.core.mesh import card_groups
+    setups = [[cuda, cuda]]
+    n = torch.cuda.device_count()
+    if n >= 2:
+        setups.append(card_groups(8, None))
+    else:
+        print(f"ep groups: {n} card visible: the run with one group a card "
+              "needs two or more and did not run; the two-groups-on-one-"
+              "card run stands for it")
+    return setups
+
+
+def ep_groups(cfg, params, moe, x, batch, losses1, sps1, devs, card, cuda):
+    """Expert-parallel MoE over the device groups ``devs`` of a (2, 4)
+    ``make_host_mesh``, the routed experts placed in the groups
+    (``place_params``), against the same work with one group on ``cuda``:
+    the MoE layer at capacity factor 1.25 on the skewed batch (output, kept
+    mask, dropped count) and step 0's loss and every gradient leaf
+    bitwise; 20 steps of ``build_train_step``, the first two losses
+    bitwise with the one-group run's and every loss within the bf16 loss
+    bar (2e-2 relative), the slices still on their cards;
+    a compressed all-reduce over ``data`` of the MoE block's step-0
+    gradients (one per shard, scaled) bitwise; steps/s, each card's busy
+    share and the peer copies' bytes of one profiled step (``e2e ep
+    groups`` line)."""
+    from repro_torch.ckpt.checkpoint import _flatten, _unflatten
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.sharding import gather_params, place_params
+    from repro_torch.launch.steps import StepConfig, build_train_step
+    from repro_torch.models import ShapeCfg, loss_fn, moe_ep
+    from repro_torch.optim import adamw_init, compressed_psum
+    t0 = time.perf_counter()
+    g = len(devs)
+    one = make_host_mesh(model=4, data=2, device=cuda)
+    mesh = (make_host_mesh(model=4, data=2, devices=devs) if len(set(devs))
+            == 1 else make_host_mesh(model=4, data=2))
+    if list(mesh.devices) != list(devs):
+        raise AssertionError(f"make_host_mesh placed {mesh.devices}, "
+                             f"expected {devs}")
+    label = f"ep groups G={g} devices={[str(d) for d in devs]}"
+
+    # the MoE layer at CF 1.25 on the skewed batch, f32
+    layer = []
+    for m in (one, mesh):
+        moe_ep.set_ep_mesh(m, ("data",))
+        pm = place_params({"ffn": moe}, m)["ffn"]
+        with torch.no_grad():
+            y = moe_ep.moe_forward_ep(cfg, pm, x.to(cuda))
+            keep = torch.cat([r.keep.to(cuda) for r in
+                              moe_ep.route_groups(cfg, pm, x.to(cuda))])
+        layer.append((y, keep))
+    assert_equal(layer[1][0], layer[0][0], f"{label}: MoE layer output")
+    assert_equal(layer[1][1], layer[0][1], f"{label}: kept mask")
+    dropped = int((~layer[0][1]).sum())
+    if not dropped:
+        raise AssertionError(f"{label}: CF 1.25 dropped no choice")
+
+    # step 0's loss and gradients, then 20 steps
+    grads, fns = [], []
+    for m in (one, mesh):
+        fn, _ = build_train_step(cfg, ShapeCfg("ep", EP_SEQ, EP_BATCH,
+                                               "train"), m, StepConfig())
+        pm = place_params(params, m)
+        leaves = [v.detach().requires_grad_() for _, v in _flatten(pm)]
+        loss = loss_fn(cfg, _unflatten(pm, iter(leaves)), batch)
+        grads.append((loss.detach(), gather_params(_unflatten(
+            pm, iter(torch.autograd.grad(loss, leaves))))))
+        fns.append((fn, pm))
+        del leaves, loss
+    (l1, g1), (lg, gg) = grads
+    assert_equal(lg, l1, f"{label}: step 0 loss")
+    for (path, a), (_, b) in zip(_flatten(gg), _flatten(g1)):
+        assert_equal(a, b, f"{label}: step 0 grad {'/'.join(path)}")
+    n_leaves = len(_flatten(g1))
+
+    # a compressed all-reduce over data of the MoE block's step-0 grads
+    # (the routed experts left out: 8 shards of them take 10 GB), shard s's
+    # gradient scaled by 0.5 + s / 8
+    block = {"/".join(k): v for k, v in _flatten(g1["stacks"]["moe"])
+             if k[-1] not in ("wu", "wg", "wd")}
+    scale = torch.arange(8, device=cuda, dtype=torch.float32) / 8 + 0.5
+    per_shard = {k: (v[None].float() * scale.view((8,) + (1,) * v.dim())
+                     ).to(v.dtype) for k, v in block.items()}
+    want = compressed_psum(per_shard, one, "data")
+    got = compressed_psum(tuple(dict(zip(per_shard, parts)) for parts in zip(
+        *(mesh.split(v) for v in per_shard.values()))), mesh, "data")
+    comp_bytes = sum(v.numel() * v.element_size() for v in per_shard.values())
+    for part, ref in zip(got, want):
+        for k in ref:
+            assert_equal(mesh.join(tuple(t[k] for t in part)), ref[k],
+                         f"{label}: compressed_psum {k}")
+    del grads, g1, gg, per_shard, want, got
+
+    fn, pm = fns[1]
+    moe_ep.set_ep_mesh(mesh, ("data",))
+    st = place_params(adamw_init(params, StepConfig().optimizer), mesh)
+    losses, step_s = [], []
+    for _ in range(EP_STEPS):
+        sync()
+        t1 = time.perf_counter()
+        pm, st, loss = fn(pm, st, batch)
+        sync()
+        step_s.append(time.perf_counter() - t1)
+        losses.append(float(loss))
+    if not all(np.isfinite(losses)) or int(st["step"]) != EP_STEPS:
+        raise AssertionError(f"{label}: losses {losses}")
+    # steps 0 and 1 see the same params (the schedule's rate is 0 at step
+    # 0); later bf16 params round differently where the global norm's
+    # per-card sums moved the clip factor's last bit: the bf16 loss bar
+    if losses[:2] != losses1[:2]:
+        raise AssertionError(f"{label}: losses {losses[:2]} of steps 0-1 "
+                             f"against {losses1[:2]} with one group")
+    loss_err = max(abs(a - b) for a, b in zip(losses, losses1))
+    if any(abs(a - b) > LOSS_BF16_TOL * abs(b) for a, b in zip(losses,
+                                                               losses1)):
+        raise AssertionError(f"{label}: losses {losses} against {losses1} "
+                             f"with one group beyond {LOSS_BF16_TOL}")
+    spans = moe_ep.expert_spans(mesh, cfg.n_experts)
+    for path, leaf in _flatten(dict(p=pm, m=st["m"], v=st["v"])):
+        if path[-2] in ("wu", "wg", "wd"):
+            gi = int(path[-1])
+            if leaf.device != mesh.devices[gi] or \
+                    leaf.shape[-3] != spans[gi][1] - spans[gi][0]:
+                raise AssertionError(f"{label}: {'/'.join(path)} on "
+                                     f"{leaf.device}, shape "
+                                     f"{tuple(leaf.shape)}")
+    w_p, busy, peer = card_trace(lambda: fn(pm, st, batch))
+    share = ("not measured" if busy is None else
+             {str(d): busy.get(d.index, 0.0) / w_p
+              for d in dict.fromkeys(devs)})
+    sps = (EP_STEPS - 1) / sum(step_s[1:])
+    tok = EP_BATCH * EP_SEQ
+    print(f"e2e {label} moonshot-v1-16b-a3b ({depth(cfg)}, (2, 4) mesh, 8 EP "
+          f"shards, {cfg.n_experts // g} experts at rest a group, "
+          f"{n_leaves} param leaves) batch {EP_BATCH} x seq {EP_SEQ}: "
+          f"steps_per_s={sps} tokens_per_s={sps * tok} (steps 1-"
+          f"{EP_STEPS - 1}) step0_s={step_s[0]} | G=1 on {cuda}: "
+          f"steps_per_s={sps1} tokens_per_s={sps1 * tok} | ratio "
+          f"{sps / sps1} | busy_share_per_card={share} peer_copy_bytes_"
+          f"per_step={'not measured' if peer is None else peer} (one "
+          f"profiled step, wall_s={w_p}) | bitwise with G=1: MoE layer "
+          f"CF 1.25 (dropped {dropped} of {layer[0][1].numel()} choices), "
+          f"step 0 loss and {n_leaves} grad leaves, compressed_psum over "
+          f"data of {len(block)} leaves x 8 shards ({comp_bytes} B) | {EP_STEPS} "
+          f"losses max abs diff {loss_err} (loss {losses[0]:.4f} -> "
+          f"{losses[-1]:.4f}) | expert slices on their cards after "
+          f"{EP_STEPS + 1} steps | {card}")
+    print(f"ep groups G={g} phase: {time.perf_counter() - t0:.1f} s")
 
 
 def serve_padded_phase(card, cuda, seed) -> None:

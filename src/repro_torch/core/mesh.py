@@ -131,7 +131,10 @@ class ShardMesh:
 
     def split(self, x: torch.Tensor, dim: int = 0) -> Groups:
         """A stacked tensor of every shard (shard axis ``dim``, on any
-        device) -> the per-group tuple on the groups' devices."""
+        device) -> the per-group tuple on the groups' devices (with one
+        group, the stack itself on ``device``)."""
+        if len(self.devices) == 1:
+            return (x.to(self.device).contiguous(),)
         return tuple(c.to(d).contiguous() for c, d in zip(
             x.split(self.per_group, dim=dim), self.devices))
 

@@ -7,15 +7,19 @@ extends data parallelism across pods.
 The port runs no 256- or 512-device program: ``make_production_mesh``
 returns a device-free ``MeshSpec`` that the sharding rules and the dry run
 read (``launch/dryrun.py`` traces the step on it with shape-only tensors).
-``make_host_mesh`` gives a real ``core.mesh.ShardMesh``, every shard on one
-device.
+``make_host_mesh`` gives a real ``core.mesh.ShardMesh`` over the devices of
+this process, as the reference's spreads over the host's devices: by
+default its shards in device groups, one group a visible card
+(``core/mesh.card_groups``); on one given device, one group.
 """
 from __future__ import annotations
 
 import math
 from typing import Dict, Tuple
 
-from ..core.mesh import ShardMesh
+import torch
+
+from ..core.mesh import ShardMesh, card_groups
 
 
 class MeshSpec:
@@ -37,12 +41,23 @@ def make_production_mesh(*, multi_pod: bool = False) -> MeshSpec:
     return MeshSpec({"data": 16, "model": 16})
 
 
-def make_host_mesh(model: int = 1, data: int = 1, device=None) -> ShardMesh:
-    """A ``(data, model)`` mesh of stacked shards on ``device`` (None: the
-    CUDA card).  The reference spreads its mesh over the host's devices;
-    the port's shards are a tensor axis on one device, so the caller sets
-    both axis sizes."""
-    return ShardMesh((data, model), ("data", "model"), device=device)
+def make_host_mesh(model: int = 1, data: int | None = None, device=None,
+                   devices=None) -> ShardMesh:
+    """A ``(data, model)`` mesh over this process's devices.  ``data=None``
+    takes the reference's rule: ``n // model`` rows (at least one), n the
+    devices (``devices``'s count, else the visible cards, one on a given
+    device).  ``devices`` places the groups as given; else ``device=None``
+    spreads the shards over the visible cards (``card_groups``: one group
+    a card; no card raises), and a given device holds them all in one
+    group."""
+    if data is None:
+        n = (len(devices) if devices is not None else
+             torch.cuda.device_count() if device is None else 1)
+        data = max(n // model, 1)
+    if devices is None and device is None:
+        devices = card_groups(data * model, None)
+    return ShardMesh((data, model), ("data", "model"), device=device,
+                     devices=devices)
 
 
 def dp_axes(mesh) -> tuple:

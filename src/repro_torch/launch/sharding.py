@@ -10,6 +10,13 @@ A spec is JAX's ``PartitionSpec`` as data: a tuple with one entry per dim,
 each ``None`` (replicated), an axis name, or a tuple of axis names.  The
 port has no ``NamedSharding``: ``param_shardings`` pairs each spec with the
 mesh, and the dry run reads per-device sizes from them (``spec_bytes``).
+
+On a ``ShardMesh`` of device groups with EP engaged, ``place_params`` puts
+the routed experts where the EP rule ``spec(ep, None, None)`` puts them:
+each expert leaf becomes a tuple of G slices along the expert axis, slice g
+on ``mesh.devices[g]``; ``gather_params`` joins them again.  Every other
+leaf stays on ``mesh.device`` (FSDP and TP placement by ``param_shardings``
+is not done).
 """
 from __future__ import annotations
 
@@ -18,12 +25,20 @@ from typing import Any, Tuple
 
 import torch
 
-from ..core.mesh import axis_sizes
-from ..models.moe_ep import ep_axes, get_ep_mesh
+from ..core.mesh import ShardMesh, axis_sizes
+from ..models.moe_ep import ep_axes, experts_tile, expert_spans, get_ep_mesh
 from .mesh import dp_axes
 
 PyTree = Any
 Spec = Tuple[Any, ...]
+
+
+def _lead(path: Tuple[str, ...]) -> int:
+    """Stacked layer axes before a leaf's own: hybrid groups have two,
+    plain stacks one."""
+    if "stacks" not in path:
+        return 0
+    return 2 if "hybrid_group" in path else 1
 
 
 def _rule(path: Tuple[str, ...], ndim: int, dp, ep=None) -> Spec:
@@ -33,11 +48,7 @@ def _rule(path: Tuple[str, ...], ndim: int, dp, ep=None) -> Spec:
     (``moe_ep.ep_axes``): expert weights live fully sharded by expert, so
     the EP region needs no weight collectives."""
     name = path[-1]
-    inside_stack = "stacks" in path
-    # hybrid groups have two stacked axes, plain stacks one
-    lead = 0
-    if inside_stack:
-        lead = 2 if "hybrid_group" in path else 1
+    lead = _lead(path)
     core = ndim - lead
 
     def spec(*dims):
@@ -157,6 +168,50 @@ def param_specs(params: PyTree, mesh) -> PyTree:
             ep = ep_axes(mesh, leaf.shape[-3])
         return sanitize_spec(_rule(names, leaf.dim(), dp, ep),
                              tuple(leaf.shape), mesh)
+
+    return _map_with_path(one, params)
+
+
+def _is_expert(path: Tuple[str, ...], leaf) -> bool:
+    """A routed-expert weight: ``wu``/``wg``/``wd`` of rank 3 past the
+    stacked axes ([E, D, F] / [E, F, D]); the optimizer's moments too."""
+    return (path[-1] in ("wu", "wg", "wd")
+            and isinstance(leaf, torch.Tensor)
+            and leaf.dim() - _lead(path) == 3)
+
+
+def place_params(params: PyTree, mesh) -> PyTree:
+    """``params`` (or an AdamW state mirroring them) with each routed
+    expert leaf cut along its expert axis into the mesh's device groups:
+    a tuple of G slices, slice g (the experts group g's shards own,
+    ``moe_ep.expert_spans``) a copy on ``mesh.devices[g]``.  Only when EP
+    is engaged (``moe_ep.get_ep_mesh``) on a ``ShardMesh`` of more than
+    one group whose spans cut the experts into disjoint slices; else, and
+    for every other leaf, the tree as given."""
+    if (not isinstance(mesh, ShardMesh) or mesh.n_groups == 1
+            or get_ep_mesh() is None):
+        return params
+
+    def one(path, leaf):
+        if not _is_expert(path, leaf):
+            return leaf
+        e = leaf.shape[-3]
+        if not experts_tile(mesh, e):
+            return leaf
+        return tuple(leaf.narrow(-3, lo, hi - lo).to(dev, copy=True)
+                     for (lo, hi), dev in zip(expert_spans(mesh, e),
+                                              mesh.devices))
+
+    return _map_with_path(one, params)
+
+
+def gather_params(params: PyTree) -> PyTree:
+    """``place_params``'s inverse: each tuple of expert slices joined along
+    the expert axis on its first slice's device."""
+    def one(_, leaf):
+        if isinstance(leaf, tuple):
+            return torch.cat([x.to(leaf[0].device) for x in leaf], dim=-3)
+        return leaf
 
     return _map_with_path(one, params)
 

@@ -9,10 +9,16 @@ traces a step on them.  ``build_train_step``, ``build_prefill_step`` and
 its inputs lie.
 
 Of ``StepConfig``, ``remat``, ``expert_parallel``, ``serving_head_pad``,
-``kv_chunk`` and ``optimizer`` shape the step.  ``seq_shard_acts`` (the
-reference's sequence-sharding constraint on the layer carry) and the jit
-shardings and buffer donation have no counterpart on one device: the field
-is kept, and only the dry run reads it (it reports the setting).
+``kv_chunk`` and ``optimizer`` shape the step.  On a ``ShardMesh`` of
+device groups with EP engaged, the steps take params as
+``launch/sharding.place_params`` gives them (each group's routed experts on
+its card, the reference's EP rule) and the MoE layers run each group on
+its card; every other leaf and the batch stay on ``mesh.device``.  The
+reference's other jit shardings (FSDP over data, TP over model, the batch
+over data; ROADMAP A9.6), ``seq_shard_acts`` (its sequence-sharding
+constraint on the layer carry) and buffer donation have no counterpart
+yet: the field is kept, and only the dry run reads it (it reports the
+setting).
 """
 from __future__ import annotations
 

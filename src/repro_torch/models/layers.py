@@ -337,6 +337,10 @@ def moe_forward(cfg: ArchConfig, p: dict, x: torch.Tensor) -> torch.Tensor:
 
     x: [B, S, D].  Expert weights: [E, D, F] / [E, F, D] (+gate for swiglu).
     """
+    if isinstance(p["wu"], tuple):
+        raise ValueError("routed experts placed in device groups take the "
+                         "expert-parallel path (launch/sharding."
+                         "gather_params joins them)")
     b, s, d = x.shape
     e, k = cfg.n_experts, cfg.experts_per_token
     n_tok = b * s

@@ -263,12 +263,17 @@ def _block_forward(cfg: ArchConfig, p, x, pos, kind, cache=None,
 
 def _unstack(tree, n: int):
     """A tree of stacked leaves ``[n, ...]`` as n trees of ``[...]`` (one
-    ``unbind`` per leaf, whose backward stacks the grads)."""
+    ``unbind`` per leaf, whose backward stacks the grads).  A tuple leaf
+    (routed-expert slices, one a device group: ``launch/sharding.
+    place_params``) gives each layer the tuple of its slices' layer."""
     if tree is None:
         return [None] * n
     if isinstance(tree, dict):
         cols = {k: _unstack(v, n) for k, v in tree.items()}
         return [{k: cols[k][i] for k in tree} for i in range(n)]
+    if isinstance(tree, tuple):
+        cols = [_unstack(x, n) for x in tree]
+        return [tuple(c[i] for c in cols) for i in range(n)]
     return list(torch.unbind(tree, 0))
 
 
@@ -277,6 +282,9 @@ def _restack(trees):
         return None
     if isinstance(trees[0], dict):
         return {k: _restack([t[k] for t in trees]) for k in trees[0]}
+    if isinstance(trees[0], tuple):
+        return tuple(_restack([t[j] for t in trees])
+                     for j in range(len(trees[0])))
     return torch.stack(trees, 0)
 
 

@@ -9,15 +9,28 @@ with an all-to-all over the expert-parallel axes, runs its E/n experts with
 ``ragged_dot``, sends the results back and combines them weighted by the
 gates.  The shared experts stay on the dense path.
 
-The port keeps every shard of the mesh on one device, as a tensor axis
-(``core/mesh.ShardMesh``).  ``moe_forward_ep`` cuts ``x`` into the blocks
-``shard_map`` hands each device (``TokenLayout``, the reference's
-``x_spec``), runs every shard's step at once on the stacked tensor, and
-exchanges through ``ShardMesh.all_to_all`` over the EP axes.  The capacity
-drop keeps the reference's rows: a choice's rank among the choices bound
-for its shard comes from a stable sort of the destinations and a running
-max of the run starts, and the combine sums each token's choices in flat
-(token, choice) order, as ``out.at[flat_tok].add`` does.
+The port keeps the mesh's shards in device groups (``core/mesh.ShardMesh``:
+G contiguous groups of the flat shard axis, group g on ``mesh.devices[g]``;
+a tensor axis within a group).  ``moe_forward_ep`` cuts ``x`` into the
+blocks ``shard_map`` hands each device (``TokenLayout``, the reference's
+``x_spec``) and splits them into the groups.  The router's logits are one
+product over every shard's tokens on ``mesh.device`` (the router is
+replicated, and one product keeps its gradient one sum, bit for bit with
+one group).  Each group then routes, packs its send buffers and runs its
+experts on its own card, in a Python loop that only enqueues work; the
+buffers go through ``ShardMesh.all_to_all`` over the EP axes (whose
+gradient is again an all-to-all across the groups), and the combined
+output is joined back on ``mesh.device``.  Group g reads only the experts
+its shards own, ``expert_spans(mesh, E)[g]``: the routed-expert weights
+are either whole on ``mesh.device`` (a group then takes its slice) or, as
+``launch/sharding.place_params`` holds them, a tuple of G slices along E,
+slice g on ``mesh.devices[g]`` (the reference's ``P(ep, None, None)``).
+The capacity drop keeps the reference's rows: a choice's rank among the
+choices bound for its shard comes from a stable sort of the destinations
+and a running max of the run starts, and the combine sums each token's
+choices in flat (token, choice) order, as ``out.at[flat_tok].add`` does.
+Every step is per shard or exact, so any grouping gives the bits of one
+group.
 
 Wire per layer is about 2 * T_local * k * D * (bytes per element), in both
 directions.
@@ -33,8 +46,7 @@ import torch
 
 from ..core.mesh import ShardMesh, axis_sizes
 from .config import ArchConfig
-from .layers import (act_fn, ffn_forward, group_sizes, grouped_matmul,
-                     sigmoid, top_k)
+from .layers import act_fn, ffn_forward, grouped_matmul, sigmoid, top_k
 
 CAPACITY_FACTOR = 1.25
 
@@ -144,10 +156,19 @@ def route(cfg: ArchConfig, x_loc: torch.Tensor, router: torch.Tensor,
           n_shards: int, e_loc: int) -> Routing:
     """The reference's ``local_fn`` routing on every shard at once.
     x_loc: [N, t, D]; ``e_loc`` experts a shard."""
-    n, t, _ = x_loc.shape
+    return _route_logits(cfg, _logits(x_loc, router), n_shards, e_loc)
+
+
+def _logits(x_loc: torch.Tensor, router: torch.Tensor) -> torch.Tensor:
+    return torch.einsum("ntd,de->nte", x_loc.float(), router.float())
+
+
+def _route_logits(cfg: ArchConfig, logits: torch.Tensor, n_shards: int,
+                  e_loc: int) -> Routing:
+    """``route`` from the router's logits [N, t, E]."""
+    n, t, _ = logits.shape
     k = cfg.experts_per_token
     cap = max(int(t * k * CAPACITY_FACTOR) // n_shards, 8)
-    logits = torch.einsum("ntd,de->nte", x_loc.float(), router.float())
     gates, choice = top_k(sigmoid(logits), k)
     gates = gates / torch.clamp(gates.sum(-1, keepdim=True), min=1e-9)
     tk = t * k
@@ -158,7 +179,7 @@ def route(cfg: ArchConfig, x_loc: torch.Tensor, router: torch.Tensor,
     sd = torch.gather(dest, 1, order)
     starts = torch.cat([torch.ones_like(sd[:, :1], dtype=torch.bool),
                         sd[:, 1:] != sd[:, :-1]], dim=1)
-    ar = torch.arange(tk, device=x_loc.device).expand(n, tk)
+    ar = torch.arange(tk, device=logits.device).expand(n, tk)
     rank_sorted = ar - torch.cummax(torch.where(starts, ar, 0), dim=1).values
     rank = torch.zeros_like(ar).scatter(1, order, rank_sorted)
     keep = rank < cap                                  # capacity drop
@@ -166,20 +187,26 @@ def route(cfg: ArchConfig, x_loc: torch.Tensor, router: torch.Tensor,
     return Routing(flat_choice, gates.reshape(n, tk), keep, slot, cap)
 
 
-def _local_expert_block(cfg: ArchConfig, recv_x, recv_eid, recv_valid,
-                        wg, wu, wd, first):
-    """Every shard's experts on the rows it received, at once.  recv_x:
-    [N, R, D]; recv_eid: each row's expert within its shard's block, which
-    starts at global expert ``first[n]`` of the full weights [E, ...].  The
-    rows sort by expert; invalid rows go in a pad group past the last
-    expert and come out zero."""
-    n, r, d = recv_x.shape
-    e = wu.shape[0]
+def _expert_order(recv_eid, recv_valid, first, e: int):
+    """Each received row's expert within the group's ``e`` experts (its
+    shard's block starts at ``first[n]``), invalid rows in a pad group past
+    the last; the stable order that sorts the rows by it, and the rows of
+    each expert as a device tensor (None for ``meta`` tensors)."""
     eid = torch.where(recv_valid, recv_eid.long() + first[:, None], e)
-    eid = eid.reshape(n * r)
+    eid = eid.reshape(-1)
     order = torch.argsort(eid, stable=True)
+    counts = None if eid.is_meta else torch.bincount(eid, minlength=e)[:e]
+    return order, counts
+
+
+def _local_expert_block(cfg: ArchConfig, recv_x, order, sizes, wg, wu, wd):
+    """One group's experts on the rows its shards received, at once.
+    recv_x: [N, R, D]; ``order`` sorts its rows by expert, ``sizes`` the
+    rows of each of the group's experts (host ints; None on ``meta``), the
+    weights the group's own [E_g, ...].  Rows past the experts (the pad
+    group) come out zero."""
+    n, r, d = recv_x.shape
     xs = recv_x.reshape(n * r, d)[order]
-    sizes = group_sizes(eid, e)
     f = act_fn(cfg.act)
     if cfg.gated_ffn:
         h = f(grouped_matmul(xs, wg, sizes)) * grouped_matmul(xs, wu, sizes)
@@ -192,12 +219,9 @@ def _local_expert_block(cfg: ArchConfig, recv_x, recv_eid, recv_valid,
 
 def _shard_mesh(mesh, x: torch.Tensor) -> ShardMesh:
     """The collectives' mesh: the EP mesh itself where it is a
-    ``ShardMesh`` (on ``x``'s device), else one of its shape on ``x``'s
-    device (``meta`` under the dry run)."""
+    ``ShardMesh`` (its first group on ``x``'s device), else one of its
+    shape on ``x``'s device (``meta`` under the dry run)."""
     if isinstance(mesh, ShardMesh):
-        if mesh.n_groups != 1:
-            raise ValueError(f"expert parallelism takes a one-group mesh "
-                             f"(got {mesh.n_groups} device groups)")
         if mesh.device != x.device:
             raise ValueError(f"EP mesh on {mesh.device}, tokens on "
                              f"{x.device}")
@@ -209,63 +233,147 @@ def _shard_mesh(mesh, x: torch.Tensor) -> ShardMesh:
     return ShardMesh(shape, mesh.axis_names, device=x.device)
 
 
+def _ep(mesh, n_experts: int) -> Tuple[Tuple[str, ...], int, int]:
+    """The EP axes moe_forward_ep takes, the EP shard count and the
+    experts a shard."""
+    ep = ep_axes(mesh, n_experts) or (_TP_AXIS,)
+    n_shards = math.prod(axis_sizes(mesh)[a] for a in ep)
+    return ep, n_shards, n_experts // n_shards
+
+
+def expert_spans(mesh: ShardMesh, n_experts: int):
+    """The experts ``[lo, hi)`` each device group of ``mesh`` reads: from
+    the first to the last expert its shards own."""
+    ep, _, e_loc = _ep(mesh, n_experts)
+    idx = _group_index(mesh, ep)
+    spans = []
+    for g in range(mesh.n_groups):
+        own = idx[list(mesh.shards(g))]
+        spans.append((int(own.min()) * e_loc, (int(own.max()) + 1) * e_loc))
+    return spans
+
+
+def experts_tile(mesh: ShardMesh, n_experts: int) -> bool:
+    """Whether the groups' expert spans cut the experts into G disjoint
+    slices in order (the EP axes span every group boundary), so each group
+    can hold its slice alone."""
+    spans = expert_spans(mesh, n_experts)
+    ends = [0] + [hi for _, hi in spans]
+    return (all(lo == end for (lo, _), end in zip(spans, ends))
+            and ends[-1] == n_experts)
+
+
+def _group_weight(w, g: int, span, dev: torch.device) -> torch.Tensor:
+    """Group ``g``'s experts of a routed-expert leaf: its own slice of a
+    placed leaf (no copy), else its span of the whole leaf on ``dev``."""
+    if isinstance(w, (tuple, list)):
+        if w[g].shape[0] != span[1] - span[0] or w[g].device != dev:
+            raise ValueError(f"placed expert slice {g} of shape "
+                             f"{tuple(w[g].shape)} on {w[g].device} is not "
+                             f"the group's experts {span} on {dev}")
+        return w[g]
+    if span != (0, w.shape[0]):
+        w = w[span[0]:span[1]]
+    return w.to(dev)
+
+
+def route_groups(cfg: ArchConfig, p: dict, x: torch.Tensor):
+    """The EP mesh's routing of ``x`` [B, S, D], one ``Routing`` a device
+    group (each on its group's device), as ``moe_forward_ep`` routes it."""
+    sm = _shard_mesh(_EP_MESH, x)
+    _, n_shards, e_loc = _ep(_EP_MESH, cfg.n_experts)
+    layout = TokenLayout.of(_EP_MESH, *x.shape[:2], _DP_AXES, _TP_AXIS)
+    x_st = layout.split(x)
+    x_loc = x_st.reshape(x_st.shape[0], -1, x.shape[-1])
+    return _routes(cfg, sm, x_loc, p["router"], n_shards, e_loc)
+
+
+def _routes(cfg, sm: ShardMesh, x_loc, router, n_shards, e_loc):
+    logits = sm.split(_logits(x_loc, router))
+    return [_route_logits(cfg, lg, n_shards, e_loc) for lg in logits]
+
+
 def moe_forward_ep(cfg: ArchConfig, p: dict, x: torch.Tensor) -> torch.Tensor:
     """``layers.moe_forward`` when an EP mesh is set: the routed experts
-    run expert-parallel over the EP axes, the shared experts on the dense
-    path.  x: [B, S, D]."""
+    run expert-parallel over the EP axes, each device group of the mesh on
+    its own card, the shared experts on the dense path.  x: [B, S, D] on
+    the mesh's first device."""
     mesh, dp, tp = _EP_MESH, _DP_AXES, _TP_AXIS
     sm = _shard_mesh(mesh, x)
-    ep = ep_axes(mesh, cfg.n_experts) or (tp,)
-    sizes = axis_sizes(mesh)
-    n_shards = math.prod(sizes[a] for a in ep)
-    e_loc = cfg.n_experts // n_shards
+    ep, n_shards, e_loc = _ep(mesh, cfg.n_experts)
     b, s, d = x.shape
     layout = TokenLayout.of(mesh, b, s, dp, tp)
     x_st = layout.split(x)
     n, bl, sl, _ = x_st.shape
     t = bl * sl
     x_loc = x_st.reshape(n, t, d)
-    r = route(cfg, x_loc, p["router"], n_shards, e_loc)
+    routes = _routes(cfg, sm, x_loc, p["router"], n_shards, e_loc)
     k = cfg.experts_per_token
-    rows = n_shards * r.cap
+    cap = routes[0].cap
+    rows = n_shards * cap
+    pg = sm.per_group
+    spans = expert_spans(sm, cfg.n_experts)
+    index = _group_index(mesh, ep)
 
     # pack: each kept choice's token row into its destination's buffer
     # (a broadcast then a scatter to distinct rows: no backward adds into
     # one row from many; dropped choices all land in one extra row)
-    xt_rep = x_loc[:, :, None, :].expand(n, t, k, d).reshape(n, t * k, d)
-    slot = r.slot
-    send_x = x_loc.new_zeros((n, rows + 1, d)).scatter(
-        1, slot[..., None].expand(n, t * k, d), xt_rep)[:, :rows]
-    send_eid = torch.zeros((n, rows + 1), dtype=torch.int32,
-                           device=x.device).scatter(
-        1, slot, (r.choice % e_loc).to(torch.int32))[:, :rows]
-    send_valid = torch.zeros((n, rows + 1), dtype=torch.bool,
-                             device=x.device).scatter(1, slot, r.keep)[:, :rows]
+    send_x, send_eid, send_valid = [], [], []
+    for xg, r in zip(sm.split(x_loc), routes):
+        dev = xg.device
+        xt_rep = xg[:, :, None, :].expand(pg, t, k, d).reshape(pg, t * k, d)
+        send_x.append(xg.new_zeros((pg, rows + 1, d)).scatter(
+            1, r.slot[..., None].expand(pg, t * k, d), xt_rep)[:, :rows])
+        send_eid.append(torch.zeros((pg, rows + 1), dtype=torch.int32,
+                                    device=dev).scatter(
+            1, r.slot, (r.choice % e_loc).to(torch.int32))[:, :rows])
+        send_valid.append(torch.zeros((pg, rows + 1), dtype=torch.bool,
+                                      device=dev).scatter(
+            1, r.slot, r.keep)[:, :rows])
 
-    def exchange(v):
+    def exchange(vs):
         """all_to_all over the EP axes of every shard's [n_shards, cap,
-        ...] buffer."""
-        shaped = v.reshape((n, n_shards, r.cap) + tuple(v.shape[2:]))
-        (out,) = sm.all_to_all((shaped,), ep, 0, 0, dim=0)
-        return out.reshape(v.shape)
+        ...] buffer, group by group."""
+        shaped = sm.all_to_all(tuple(
+            v.reshape((pg, n_shards, cap) + tuple(v.shape[2:])) for v in vs),
+            ep, 0, 0, dim=0)
+        return [o.reshape(v.shape) for o, v in zip(shaped, vs)]
 
     recv_x, recv_eid, recv_valid = (exchange(send_x), exchange(send_eid),
                                     exchange(send_valid))
-    first = torch.as_tensor(_group_index(mesh, ep) * e_loc, device=x.device)
-    ys = _local_expert_block(cfg, recv_x, recv_eid, recv_valid, p.get("wg"),
-                             p["wu"], p["wd"], first)
-    ys = torch.where(recv_valid[..., None], ys, 0.0)
+    # every group's expert order and counts are enqueued before any group's
+    # counts are read back
+    orders = []
+    for g, dev in enumerate(sm.devices):
+        lo, hi = spans[g]
+        first = torch.as_tensor(index[list(sm.shards(g))] * e_loc - lo,
+                                device=dev)
+        orders.append(_expert_order(recv_eid[g], recv_valid[g], first,
+                                    hi - lo))
+    ys = []
+    for g, dev in enumerate(sm.devices):
+        order, counts = orders[g]
+        w = [None if p.get(name) is None else
+             _group_weight(p[name], g, spans[g], dev)
+             for name in ("wg", "wu", "wd")]
+        y = _local_expert_block(cfg, recv_x[g], order,
+                                None if counts is None else counts.tolist(),
+                                *w)
+        ys.append(torch.where(recv_valid[g][..., None], y, 0.0))
     back = exchange(ys)
 
-    contrib = torch.gather(
-        torch.cat([back, back.new_zeros((n, 1, d))], dim=1), 1,
-        torch.clamp(slot, max=rows)[..., None].expand(n, t * k, d))
-    contrib = contrib.float() * (r.gate * r.keep)[..., None]
-    contrib = contrib.reshape(n, t, k, d)
-    out = torch.zeros((n, t, d), dtype=torch.float32, device=x.device)
-    for j in range(k):          # flat (token, choice) order
-        out = out + contrib[:, :, j]
-    routed = layout.join(out.reshape(n, bl, sl, d).to(x.dtype))
+    outs = []
+    for bg, r in zip(back, routes):
+        contrib = torch.gather(
+            torch.cat([bg, bg.new_zeros((pg, 1, d))], dim=1), 1,
+            torch.clamp(r.slot, max=rows)[..., None].expand(pg, t * k, d))
+        contrib = contrib.float() * (r.gate * r.keep)[..., None]
+        contrib = contrib.reshape(pg, t, k, d)
+        out = torch.zeros((pg, t, d), dtype=torch.float32, device=bg.device)
+        for j in range(k):          # flat (token, choice) order
+            out = out + contrib[:, :, j]
+        outs.append(out.reshape(pg, bl, sl, d).to(x.dtype))
+    routed = layout.join(sm.join(tuple(outs)))
 
     if cfg.n_shared_experts:
         sh = dict(wu=p["shared_wu"], wd=p["shared_wd"])

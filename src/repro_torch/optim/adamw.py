@@ -48,7 +48,20 @@ def adamw_init(params: Tree, cfg: AdamWConfig) -> Tree:
 
 
 def _global_norm(leaves) -> torch.Tensor:
-    return torch.sqrt(sum(torch.sum(torch.square(x.float())) for x in leaves))
+    """The norm of every leaf together, on the first leaf's device.  Leaves
+    on one device sum in leaf order; leaves across devices (routed-expert
+    slices placed in device groups) sum per device in leaf order, and the
+    per-device sums, gathered on the first device, in the order the
+    devices first appear."""
+    parts = {}
+    for x in leaves:
+        term = torch.sum(torch.square(x.float()))
+        parts[x.device] = parts[x.device] + term if x.device in parts \
+            else term
+    if len(parts) <= 1:
+        return torch.sqrt(sum(parts.values()))
+    first = next(iter(parts))
+    return torch.sqrt(sum(v.to(first) for v in parts.values()))
 
 
 def adamw_update(params: Tree, grads: Tree, state: Tree, cfg: AdamWConfig,
@@ -66,9 +79,15 @@ def adamw_update(params: Tree, grads: Tree, state: Tree, cfg: AdamWConfig,
     bc2 = 1.0 - b2 ** step_f
     lr = cfg.lr * lr_scale
 
+    scalars = {step.device: (clip, bc1, bc2, lr)}
     new_p, new_m, new_v = [], [], []
     for p, g, m, v in zip(_leaves(params), g_leaves, _leaves(state["m"]),
                           _leaves(state["v"])):
+        if p.device not in scalars:      # a leaf of another device group
+            scalars[p.device] = tuple(
+                x.to(p.device) if isinstance(x, torch.Tensor) else x
+                for x in scalars[step.device])
+        clip, bc1, bc2, lr = scalars[p.device]
         g = g.float() * clip
         m32 = m.float() * cfg.b1 + (1 - cfg.b1) * g
         v32 = v.float() * cfg.b2 + (1 - cfg.b2) * g * g

@@ -18,6 +18,13 @@ imports no JAX.  On a machine with four cards:
   ``shared_per_socket`` to rtol = atol = 1e-5 (the CUDA affine scan
   associates by where a chain lies among its tiles, and a group scans only
   its own rows); the megakernel launches once per group.
+* Expert-parallel MoE over the same groupings of a (2, 4) mesh (moonshot's
+  smoke config, bf16): the layer's output, kept mask and every gradient,
+  and step 0's loss and gradients of ``build_train_step`` with the experts
+  placed in the groups (``launch/sharding.place_params``), bitwise with
+  one group on ``cuda:0``; after a step each slice is still on its card.
+  ``compressed_psum`` over ``data`` on those groups, bitwise with one
+  group.
 """
 import numpy as np
 import pytest
@@ -201,3 +208,130 @@ def test_grouped_driver_on_cards_matches_one_group(
         for a, b in zip(og, o1):
             for k in b:
                 np.testing.assert_array_equal(a[k], b[k], err_msg=k)
+
+
+@pytest.fixture(params=["one_card", "a_card_a_group"])
+def ep_devices(request, card):
+    """The groups of a (2, 4) EP mesh: two on one card, or one a card on
+    up to four cards (as many as divide the 8 shards)."""
+    if request.param == "one_card":
+        return [card, card]
+    n = torch.cuda.device_count()
+    if n < 2:
+        pytest.skip(f"needs two CUDA cards ({n} present)")
+    return card_groups(8, card)
+
+
+def _same_bits(a, b) -> bool:
+    """Bitwise equal, NaNs included."""
+    return (a.shape == b.shape and a.dtype == b.dtype and torch.equal(
+        a.contiguous().view(torch.uint8), b.contiguous().view(torch.uint8)))
+
+
+def _ep_setup(card, seed=0):
+    from repro_torch.configs import get_arch
+    from repro_torch.models import init_params
+    cfg = get_arch("moonshot-v1-16b-a3b").smoke()
+    params = init_params(cfg, torch.Generator(device=card).manual_seed(seed),
+                         device=card)
+    params["stacks"]["moe"]["ffn"]["router"][..., :2] += 4.0      # skew
+    return cfg, params
+
+
+def _ep_mesh(devs):
+    return ShardMesh((2, 4), ("data", "model"), devices=devs)
+
+
+def test_grouped_ep_on_cards_matches_one_group(card, ep_devices):
+    from repro_torch.launch.sharding import gather_params, place_params
+    from repro_torch.models import moe_ep
+    cfg, params = _ep_setup(card)
+    layer = {k: v[0] for k, v in params["stacks"]["moe"]["ffn"].items()}
+    x0 = torch.randn((8, 64, cfg.d_model), generator=torch.Generator(
+        device=card).manual_seed(1), device=card).to(torch.bfloat16) + 0.5
+    runs = []
+    try:
+        for devs in ([card], ep_devices):
+            mesh = _ep_mesh(devs)
+            moe_ep.set_ep_mesh(mesh, ("data",))
+            p = place_params({"ffn": layer}, mesh)["ffn"]
+            leaves = {k: tuple(t.clone().requires_grad_() for t in v)
+                      if isinstance(v, tuple) else v.clone().requires_grad_()
+                      for k, v in p.items()}
+            x = x0.clone().requires_grad_()
+            y = moe_ep.moe_forward_ep(cfg, leaves, x)
+            flat = [t for v in leaves.values()
+                    for t in (v if isinstance(v, tuple) else (v,))]
+            grads = torch.autograd.grad(y.float().square().sum(), [x] + flat)
+            it = iter(grads[1:])
+            whole = gather_params({k: tuple(next(it) for _ in v)
+                                   if isinstance(v, tuple) else next(it)
+                                   for k, v in leaves.items()})
+            with torch.no_grad():
+                keep = torch.cat([r.keep.to(card) for r in
+                                  moe_ep.route_groups(cfg, leaves, x0)])
+            runs.append((y.detach(), keep, grads[0], whole))
+    finally:
+        moe_ep.set_ep_mesh(None, ("data",))
+    (y1, k1, gx1, w1), (yg, kg, gxg, wg) = runs
+    assert not k1.all()                         # choices were dropped
+    assert torch.equal(yg, y1) and torch.equal(kg, k1)
+    assert _same_bits(gxg, gx1)
+    for k in w1:
+        assert _same_bits(wg[k], w1[k]), k
+
+
+def test_grouped_ep_train_step_on_cards(card, ep_devices):
+    from repro_torch.ckpt.checkpoint import _flatten, _unflatten
+    from repro_torch.launch.sharding import gather_params, place_params
+    from repro_torch.launch.steps import StepConfig, build_train_step
+    from repro_torch.models import ShapeCfg, loss_fn, moe_ep
+    from repro_torch.optim import adamw_init
+    cfg, params = _ep_setup(card, seed=2)
+    toks = torch.randint(0, cfg.vocab, (8, 65), generator=torch.Generator(
+        device=card).manual_seed(3), device=card, dtype=torch.int32)
+    batch = dict(tokens=toks[:, :-1].contiguous(),
+                 labels=toks[:, 1:].contiguous())
+    runs = []
+    try:
+        for devs in ([card], ep_devices):
+            mesh = _ep_mesh(devs)
+            step, _ = build_train_step(cfg, ShapeCfg("t", 64, 8, "train"),
+                                       mesh, StepConfig())
+            p = place_params(params, mesh)
+            leaves = [x.detach().requires_grad_() for _, x in _flatten(p)]
+            loss = loss_fn(cfg, _unflatten(p, iter(leaves)), batch)
+            grads = _unflatten(p, iter(torch.autograd.grad(loss, leaves)))
+            st = place_params(adamw_init(params, StepConfig().optimizer),
+                              mesh)
+            p2, _, loss_s = step(p, st, batch)
+            runs.append((loss.detach(), loss_s, gather_params(grads), p2,
+                         mesh))
+    finally:
+        moe_ep.set_ep_mesh(None, ("data",))
+    (l1, ls1, g1, _, _), (lg, lsg, gg, p2, mesh) = runs
+    assert torch.equal(lg, l1) and torch.equal(lsg, ls1)
+    for (path, a), (_, b) in zip(_flatten(gg), _flatten(g1)):
+        assert _same_bits(a, b), path
+    wu = p2["stacks"]["moe"]["ffn"]["wu"]
+    assert isinstance(wu, tuple) and [w.device for w in wu] == list(
+        mesh.devices)
+
+
+def test_grouped_compressed_psum_on_cards(card, ep_devices):
+    from repro_torch.optim import compressed_psum
+    gen = torch.Generator(device=card).manual_seed(4)
+    grads = dict(a=torch.randn((8, 3000), generator=gen, device=card),
+                 b=torch.randn((8, 40, 70), generator=gen, device=card))
+    one = _ep_mesh([card])
+    want = compressed_psum(grads, one, "data")
+    mesh = _ep_mesh(ep_devices)
+    got = compressed_psum(tuple(
+        {k: v for k, v in zip(grads, parts)}
+        for parts in zip(*(mesh.split(v) for v in grads.values()))),
+        mesh, "data")
+    for part, ref in zip(got, want):
+        for k in ref:
+            joined = mesh.join(tuple(t[k] for t in part))
+            assert torch.equal(joined, ref[k]), k
+            assert [t[k].device for t in part] == list(mesh.devices)
