@@ -140,23 +140,34 @@ Run from the repository root:  python3 chip_smoke.py [--seed N]
    shared), on a (2, 4) ``make_host_mesh`` on the card (8 EP shards):
    ``moe_forward_ep`` against ``moe_forward`` at capacity factor 16 (5e-4),
    and at 1.25 the card's kept mask and dropped-choice count bitwise with
-   the CPU's; then 20 steps of ``build_train_step`` (batch 8 x 512, bf16
-   params and AdamW state) with steps/s, tokens/s, the model FLOP share and
-   one profiled step (``e2e ep`` lines).  Then the same over device groups
-   of the (2, 4) mesh, the routed experts placed in the groups
-   (``launch/sharding.place_params``): two groups on the first card, and
-   with two or more cards one group a card (``make_host_mesh`` spreading
-   the shards; a machine with one card says so on its own line).  Each
-   grouped run holds to the one-group run on the first card, bitwise, the
-   MoE layer at 1.25 on the skewed batch (output, kept mask, drops), step
-   0's loss and every gradient leaf, and a compressed all-reduce over
-   ``data`` of the MoE block's step-0 gradients; its 20 steps' losses
-   (the first two bitwise, the rest within the bf16 bar of 2e-2 relative:
-   the per-card sums of the global norm round bf16 params differently
-   once the rate is above 0), each expert slice still on its card; its
-   ``e2e ep groups`` line gives G, the device of each group, steps/s and
-   tokens/s beside the one-group run's, and each card's busy share and the
-   peer copies' bytes in one profiled step.  minicpm-2b, 2 layers, float32:
+   the CPU's; every gradient leaf of the first step finite, at these
+   widths and for the smoke config drawn from a CUDA generator with seed 2
+   (``c6`` line: C6, NaN gradients through the sigmoid); then 20 steps of
+   ``build_train_step`` (batch 8 x 512, bf16 params and AdamW state) with
+   steps/s, tokens/s, the model FLOP share and one profiled step (``e2e
+   ep`` lines).  Then the same over device groups of the (2, 4) mesh
+   through the partitioned step (every leaf, the AdamW state and the batch
+   placed, ``launch/sharding.place_params``): two groups on the first
+   card, and with two or more cards one group a card (``make_host_mesh``
+   spreading the shards; a machine with one card says so on its own
+   line).  Each grouped run holds to the one-group run on the first card,
+   bitwise, the MoE layer at 1.25 on the skewed batch (output, kept mask,
+   drops), step 0's loss and every gradient leaf, and a compressed
+   all-reduce over ``data`` of the MoE block's step-0 gradients; its 20
+   steps' losses within the bf16 bar of 2e-2 relative of the
+   unpartitioned run's, each block still on its card; its ``e2e ep
+   groups`` line gives G, the device of each group, steps/s and tokens/s
+   beside the unpartitioned run's, and each card's busy share and the peer
+   copies' bytes in one profiled step.  The partitioned step (ROADMAP
+   A9.6): minicpm-2b at its published widths, 2 layers, bf16 params, f32
+   AdamW state, batch 8 x 128, on a (data 2, model 2) mesh in four groups
+   (one a card with four cards, else four on the first card, said on its
+   own line): step 0's loss and every gradient bitwise with one group;
+   each group's bytes at rest equal to ``per_device_bytes``; 20 steps'
+   losses, the prefill logits and 16 decode steps' logits within the bf16
+   bar of the unpartitioned step's; steps/s, tokens/s, busy share per
+   card and peer bytes (``e2e partitioned`` line).  minicpm-2b, 2 layers,
+   float32:
    ``build_decode_step`` on ``MeshSpec({"data": 1, "model": 16})`` pads 36
    heads to 48, each step's logits within 2e-4 of the unpadded decode, with
    tokens/s of both and decode_32k's per-device KV-cache bytes from
@@ -2419,6 +2430,7 @@ def ep_phase(card, cuda, seed) -> None:
             0, cfg.vocab, (EP_BATCH, EP_SEQ + 1)).astype(np.int32)).to(cuda)
         batch = dict(tokens=tokens[:, :-1].contiguous(),
                      labels=tokens[:, 1:].contiguous())
+        c6_check(cfg, params, batch, cuda)
         losses, step_s = [], []
         p, st_ = params, state
         for _ in range(EP_STEPS):
@@ -2454,6 +2466,41 @@ def ep_phase(card, cuda, seed) -> None:
           f"{BF16_PEAK_FLOPS:.3g}) loss {losses[0]:.4f} -> {losses[-1]:.4f} "
           f"card={card}")
     print(f"ep phase: {time.perf_counter() - t0:.1f} s")
+
+
+def c6_check(cfg, params, batch, cuda) -> None:
+    """C6 (NaN gradients through ``layers.sigmoid``): every gradient leaf of
+    the first step finite, for ``params`` (the phase's, at published
+    widths) and for moonshot's smoke config drawn on the card from a CUDA
+    generator with seed 2 (where NaN leaves showed before the repair),
+    both bf16 under the phase's EP mesh."""
+    from repro_torch.ckpt.checkpoint import _flatten, _unflatten
+    from repro_torch.configs import get_arch
+    from repro_torch.models import init_params, loss_fn
+    small = get_arch("moonshot-v1-16b-a3b").smoke()
+    sp = init_params(small, torch.Generator(device=cuda).manual_seed(2),
+                     device=cuda)
+    toks = torch.randint(0, small.vocab, (8, 33),
+                         generator=torch.Generator(device=cuda).manual_seed(2),
+                         device=cuda, dtype=torch.int32)
+    sb = dict(tokens=toks[:, :-1].contiguous(),
+              labels=toks[:, 1:].contiguous())
+    out = []
+    for label, c, p, b in (("published widths", cfg, params, batch),
+                           ("smoke, CUDA generator seed 2", small, sp, sb)):
+        leaves = [v.detach().requires_grad_() for _, v in _flatten(p)]
+        loss = loss_fn(c, _unflatten(p, iter(leaves)), b)
+        grads = torch.autograd.grad(loss, leaves)
+        bad = ["/".join(k) for (k, _), g in zip(_flatten(p), grads)
+               if not bool(torch.isfinite(g).all())]
+        if bad or not bool(torch.isfinite(loss)):
+            raise AssertionError(f"C6 {label}: loss {loss.item()}, "
+                                 f"non-finite gradient leaves {bad}")
+        out.append(f"{label}: loss {loss.item():.4f}, {len(grads)} "
+                   f"gradient leaves all finite")
+        del leaves, grads, loss
+    print(f"c6 moonshot-v1-16b-a3b first step bf16 under EP: "
+          f"{'; '.join(out)}")
 
 
 def card_trace(fn) -> tuple:
@@ -2511,22 +2558,25 @@ def ep_group_setups(cuda) -> list:
 
 def ep_groups(cfg, params, moe, x, batch, losses1, sps1, devs, card, cuda):
     """Expert-parallel MoE over the device groups ``devs`` of a (2, 4)
-    ``make_host_mesh``, the routed experts placed in the groups
-    (``place_params``), against the same work with one group on ``cuda``:
-    the MoE layer at capacity factor 1.25 on the skewed batch (output, kept
-    mask, dropped count) and step 0's loss and every gradient leaf
-    bitwise; 20 steps of ``build_train_step``, the first two losses
-    bitwise with the one-group run's and every loss within the bf16 loss
-    bar (2e-2 relative), the slices still on their cards;
-    a compressed all-reduce over ``data`` of the MoE block's step-0
-    gradients (one per shard, scaled) bitwise; steps/s, each card's busy
-    share and the peer copies' bytes of one profiled step (``e2e ep
-    groups`` line)."""
-    from repro_torch.ckpt.checkpoint import _flatten, _unflatten
+    ``make_host_mesh``, against the same mesh in one group on ``cuda``: the
+    MoE layer at capacity factor 1.25 on the skewed batch, its routed
+    experts at rest in the groups by the EP rule (output, kept mask,
+    dropped count) bitwise; then the partitioned train step
+    (``models/partitioned.py``), every leaf, the AdamW state and the batch
+    placed by their specs: step 0's loss and every gradient leaf bitwise
+    with one group; a compressed all-reduce over ``data`` of the MoE
+    block's step-0 gradients (one per shard, scaled) bitwise; 20 steps, every
+    loss within the bf16 bar (2e-2 relative) of the unpartitioned step's
+    (``ep_phase``'s one-device program), the expert blocks still on their
+    cards; steps/s, each card's busy share (card 0's beside the 53.8% of
+    PR 25's experts-only placement on four cards) and the peer copies'
+    bytes of one profiled step (``e2e ep groups`` line)."""
+    from repro_torch.ckpt.checkpoint import _flatten
     from repro_torch.launch.mesh import make_host_mesh
-    from repro_torch.launch.sharding import gather_params, place_params
+    from repro_torch.launch.sharding import (gather_params, param_specs,
+                                             place_batch, place_params)
     from repro_torch.launch.steps import StepConfig, build_train_step
-    from repro_torch.models import ShapeCfg, loss_fn, moe_ep
+    from repro_torch.models import ShapeCfg, moe_ep
     from repro_torch.optim import adamw_init, compressed_psum
     t0 = time.perf_counter()
     g = len(devs)
@@ -2537,12 +2587,16 @@ def ep_groups(cfg, params, moe, x, batch, losses1, sps1, devs, card, cuda):
         raise AssertionError(f"make_host_mesh placed {mesh.devices}, "
                              f"expected {devs}")
     label = f"ep groups G={g} devices={[str(d) for d in devs]}"
+    shape = ShapeCfg("ep", EP_SEQ, EP_BATCH, "train")
 
-    # the MoE layer at CF 1.25 on the skewed batch, f32
+    # the MoE layer at CF 1.25 on the skewed batch, f32, the routed experts
+    # at rest by the EP rule and the router and shared experts whole
     layer = []
     for m in (one, mesh):
         moe_ep.set_ep_mesh(m, ("data",))
-        pm = place_params({"ffn": moe}, m)["ffn"]
+        placed = place_params({"ffn": moe}, m)["ffn"]
+        pm = {k: placed[k] if k in ("wu", "wg", "wd") else v
+              for k, v in moe.items()}
         with torch.no_grad():
             y = moe_ep.moe_forward_ep(cfg, pm, x.to(cuda))
             keep = torch.cat([r.keep.to(cuda) for r in
@@ -2554,22 +2608,23 @@ def ep_groups(cfg, params, moe, x, batch, losses1, sps1, devs, card, cuda):
     if not dropped:
         raise AssertionError(f"{label}: CF 1.25 dropped no choice")
 
-    # step 0's loss and gradients, then 20 steps
+    # step 0's loss and gradients of the partitioned step, then 20 steps
     grads, fns = [], []
     for m in (one, mesh):
-        fn, _ = build_train_step(cfg, ShapeCfg("ep", EP_SEQ, EP_BATCH,
-                                               "train"), m, StepConfig())
-        pm = place_params(params, m)
-        leaves = [v.detach().requires_grad_() for _, v in _flatten(pm)]
-        loss = loss_fn(cfg, _unflatten(pm, iter(leaves)), batch)
-        grads.append((loss.detach(), gather_params(_unflatten(
-            pm, iter(torch.autograd.grad(loss, leaves))))))
-        fns.append((fn, pm))
-        del leaves, loss
+        fn, structs = build_train_step(cfg, shape, m, StepConfig())
+        ps = param_specs(structs[0], m)
+        pm = place_params(params, m, ps)
+        loss, gr = fn.plan.loss_and_grads(pm, place_batch(batch, m))
+        grads.append((loss, gather_params(gr, m, ps)))
+        fns.append((fn, pm, param_specs(structs[1], m)))
+        del gr
     (l1, g1), (lg, gg) = grads
     assert_equal(lg, l1, f"{label}: step 0 loss")
     for (path, a), (_, b) in zip(_flatten(gg), _flatten(g1)):
         assert_equal(a, b, f"{label}: step 0 grad {'/'.join(path)}")
+        if not bool(torch.isfinite(a).all()):
+            raise AssertionError(f"{label}: step 0 grad {'/'.join(path)} "
+                                 f"is not finite")
     n_leaves = len(_flatten(g1))
 
     # a compressed all-reduce over data of the MoE block's step-0 grads
@@ -2590,61 +2645,262 @@ def ep_groups(cfg, params, moe, x, batch, losses1, sps1, devs, card, cuda):
                          f"{label}: compressed_psum {k}")
     del grads, g1, gg, per_shard, want, got
 
-    fn, pm = fns[1]
+    fn, pm, ss = fns[1]
+    del fns
     moe_ep.set_ep_mesh(mesh, ("data",))
-    st = place_params(adamw_init(params, StepConfig().optimizer), mesh)
+    st = place_params(adamw_init(params, StepConfig().optimizer), mesh, ss)
+    pb = place_batch(batch, mesh)
     losses, step_s = [], []
     for _ in range(EP_STEPS):
         sync()
         t1 = time.perf_counter()
-        pm, st, loss = fn(pm, st, batch)
+        pm, st, loss = fn(pm, st, pb)
         sync()
         step_s.append(time.perf_counter() - t1)
         losses.append(float(loss))
     if not all(np.isfinite(losses)) or int(st["step"]) != EP_STEPS:
         raise AssertionError(f"{label}: losses {losses}")
-    # steps 0 and 1 see the same params (the schedule's rate is 0 at step
-    # 0); later bf16 params round differently where the global norm's
-    # per-card sums moved the clip factor's last bit: the bf16 loss bar
-    if losses[:2] != losses1[:2]:
-        raise AssertionError(f"{label}: losses {losses[:2]} of steps 0-1 "
-                             f"against {losses1[:2]} with one group")
     loss_err = max(abs(a - b) for a, b in zip(losses, losses1))
     if any(abs(a - b) > LOSS_BF16_TOL * abs(b) for a, b in zip(losses,
                                                                losses1)):
         raise AssertionError(f"{label}: losses {losses} against {losses1} "
-                             f"with one group beyond {LOSS_BF16_TOL}")
-    spans = moe_ep.expert_spans(mesh, cfg.n_experts)
+                             f"of the unpartitioned step beyond "
+                             f"{LOSS_BF16_TOL}")
     for path, leaf in _flatten(dict(p=pm, m=st["m"], v=st["v"])):
-        if path[-2] in ("wu", "wg", "wd"):
-            gi = int(path[-1])
-            if leaf.device != mesh.devices[gi] or \
-                    leaf.shape[-3] != spans[gi][1] - spans[gi][0]:
-                raise AssertionError(f"{label}: {'/'.join(path)} on "
-                                     f"{leaf.device}, shape "
-                                     f"{tuple(leaf.shape)}")
-    w_p, busy, peer = card_trace(lambda: fn(pm, st, batch))
+        if path[-1] != "step" and leaf.device != mesh.devices[int(path[-1])]:
+            raise AssertionError(f"{label}: {'/'.join(path)} on "
+                                 f"{leaf.device}")
+    w_p, busy, peer = card_trace(lambda: fn(pm, st, pb))
     share = ("not measured" if busy is None else
              {str(d): busy.get(d.index, 0.0) / w_p
               for d in dict.fromkeys(devs)})
     sps = (EP_STEPS - 1) / sum(step_s[1:])
     tok = EP_BATCH * EP_SEQ
-    print(f"e2e {label} moonshot-v1-16b-a3b ({depth(cfg)}, (2, 4) mesh, 8 EP "
-          f"shards, {cfg.n_experts // g} experts at rest a group, "
-          f"{n_leaves} param leaves) batch {EP_BATCH} x seq {EP_SEQ}: "
-          f"steps_per_s={sps} tokens_per_s={sps * tok} (steps 1-"
-          f"{EP_STEPS - 1}) step0_s={step_s[0]} | G=1 on {cuda}: "
+    print(f"e2e {label} moonshot-v1-16b-a3b ({depth(cfg)}, (2, 4) mesh, "
+          f"partitioned step: every leaf, the AdamW state and the batch "
+          f"placed, 8 EP shards, {n_leaves} param leaves) batch {EP_BATCH} x "
+          f"seq {EP_SEQ}: steps_per_s={sps} tokens_per_s={sps * tok} (steps "
+          f"1-{EP_STEPS - 1}) step0_s={step_s[0]} | unpartitioned on {cuda}: "
           f"steps_per_s={sps1} tokens_per_s={sps1 * tok} | ratio "
-          f"{sps / sps1} | busy_share_per_card={share} peer_copy_bytes_"
+          f"{sps / sps1} | busy_share_per_card={share} (card 0 was 0.538 with "
+          f"the experts alone placed, PR 25, four cards) peer_copy_bytes_"
           f"per_step={'not measured' if peer is None else peer} (one "
           f"profiled step, wall_s={w_p}) | bitwise with G=1: MoE layer "
           f"CF 1.25 (dropped {dropped} of {layer[0][1].numel()} choices), "
-          f"step 0 loss and {n_leaves} grad leaves, compressed_psum over "
-          f"data of {len(block)} leaves x 8 shards ({comp_bytes} B) | {EP_STEPS} "
-          f"losses max abs diff {loss_err} (loss {losses[0]:.4f} -> "
-          f"{losses[-1]:.4f}) | expert slices on their cards after "
+          f"step 0 loss and {n_leaves} grad leaves (all finite), "
+          f"compressed_psum over data of {len(block)} leaves x 8 shards "
+          f"({comp_bytes} B) | {EP_STEPS} losses against the unpartitioned "
+          f"step's max abs diff {loss_err} (loss {losses[0]:.4f} -> "
+          f"{losses[-1]:.4f}) | every block on its card after "
           f"{EP_STEPS + 1} steps | {card}")
     print(f"ep groups G={g} phase: {time.perf_counter() - t0:.1f} s")
+
+
+PART_BATCH, PART_SEQ, PART_STEPS, PART_DECODE = 8, 128, 20, 16
+
+
+def partitioned_groups(cuda) -> list:
+    """The device groups of the partitioned phase's (2, 2) mesh: one group a
+    card with four or more cards, else four groups on ``cuda`` (said on a
+    line of its own)."""
+    from repro_torch.core.mesh import card_groups
+    n = torch.cuda.device_count()
+    if n >= 4:
+        return card_groups(4, None)
+    print(f"partitioned: {n} card(s) visible: the run with one group a card "
+          f"needs four and did not run; four groups on {cuda} stand for it")
+    return [cuda] * 4
+
+
+def partitioned_phase(card, cuda, seed) -> None:
+    """minicpm-2b at its published widths (d_model 2,304, 36 MHA heads,
+    d_ff 5,760, vocab 122,753), 2 layers, bf16 params, f32 AdamW state,
+    batch 8 x 128, on a (data 2, model 2) mesh in four device groups
+    (``partitioned_groups``), every leaf, the AdamW moments, the batch and
+    the decode cache placed by the reference's specs: step 0's loss and
+    every gradient leaf bitwise with the same mesh in one group on
+    ``cuda``; each group's params and AdamW bytes at rest equal to
+    ``per_device_bytes``; 20 train steps, each loss finite and within the
+    bf16 bar (2e-2 relative) of the unpartitioned step's (the (1, 1) mesh,
+    same params); the prefill logits and 16 decode steps' logits, fed the
+    same tokens, within 2e-2 of the largest magnitude of the unpartitioned
+    ones; steps/s and tokens/s of both, each card's busy share and the peer
+    copies' bytes over one profiled step (``e2e partitioned`` line)."""
+    from repro_torch.ckpt.checkpoint import _flatten
+    from repro_torch.launch.mesh import MeshSpec, make_host_mesh
+    from repro_torch.launch.sharding import (cache_specs, gather_params,
+                                             param_specs, per_device_bytes,
+                                             place_batch, place_cache,
+                                             place_params)
+    from repro_torch.launch.steps import (StepConfig, build_decode_step,
+                                          build_prefill_step,
+                                          build_train_step, logits_spec)
+    from repro_torch.models import ShapeCfg, init_cache, init_params, moe_ep
+    from repro_torch.optim import AdamWConfig, adamw_init
+    t0 = time.perf_counter()
+    cfg = cut("minicpm-2b", 2)
+    devs = partitioned_groups(cuda)
+    one = make_host_mesh(model=2, data=2, device=cuda)
+    mesh = (make_host_mesh(model=2, data=2) if len(set(devs)) > 1 else
+            make_host_mesh(model=2, data=2, devices=devs))
+    if list(mesh.devices) != list(devs):
+        raise AssertionError(f"make_host_mesh placed {mesh.devices}, "
+                             f"expected {devs}")
+    flat = make_host_mesh(device=cuda)
+    g = mesh.n_groups
+    label = f"partitioned G={g} devices={[str(d) for d in devs]}"
+    params = init_params(cfg, torch.Generator(device=cuda).manual_seed(seed),
+                         device=cuda)
+    step_cfg = StepConfig(optimizer=AdamWConfig(state_dtype=torch.float32))
+    shape = ShapeCfg("train", PART_SEQ, PART_BATCH, "train")
+    rng = np.random.default_rng(seed)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab, (
+        PART_BATCH, PART_SEQ + 1)).astype(np.int32)).to(cuda)
+    batch = dict(tokens=toks[:, :-1].contiguous(),
+                 labels=toks[:, 1:].contiguous())
+    try:
+        # step 0: the partitioned loss and gradients, G groups vs one
+        runs = []
+        for m in (one, mesh):
+            fn, structs = build_train_step(cfg, shape, m, step_cfg)
+            ps, ss = param_specs(structs[0], m), param_specs(structs[1], m)
+            pm = place_params(params, m, ps)
+            loss, grads = fn.plan.loss_and_grads(pm, place_batch(batch, m))
+            runs.append((loss, gather_params(grads, m, ps), fn, pm, ps, ss,
+                         structs))
+            del grads
+        (l1, g1, *_), (lg, gg, fn, pm, ps, ss, structs) = runs
+        assert_equal(lg, l1, f"{label}: step 0 loss")
+        for (path, a), (_, b) in zip(_flatten(gg), _flatten(g1)):
+            assert_equal(a, b, f"{label}: step 0 grad {'/'.join(path)}")
+            if not bool(torch.isfinite(a).all()):
+                raise AssertionError(f"{label}: grad {'/'.join(path)} not "
+                                     f"finite")
+        n_leaves = len(_flatten(g1))
+        del runs, g1, gg
+        st = place_params(adamw_init(params, step_cfg.optimizer), mesh, ss)
+
+        # bytes at rest: each group's against per_device_bytes
+        spec_mesh = MeshSpec({"data": 2, "model": 2})
+        want = {k: per_device_bytes(t, param_specs(t, spec_mesh), spec_mesh)
+                for k, t in (("params", structs[0]), ("m", structs[1]["m"]),
+                             ("v", structs[1]["v"]))}
+        whole = {k: sum(x.numel() * x.element_size() for _, x in
+                        _flatten(t)) for k, t in (
+            ("params", structs[0]), ("m", structs[1]["m"]),
+            ("v", structs[1]["v"]))}
+        rest = {}
+        for k, t in (("params", pm), ("m", st["m"]), ("v", st["v"])):
+            per = [0] * g
+            for path, x in _flatten(t):
+                per[int(path[-1])] += x.numel() * x.element_size()
+            rest[k] = per
+            if per != [want[k]] * g:
+                raise AssertionError(f"{label}: {k} bytes at rest {per} "
+                                     f"against per_device_bytes {want[k]}")
+
+        # 20 steps against the unpartitioned step
+        wfn, _ = build_train_step(cfg, shape, flat, step_cfg)
+        losses = {}
+        times = {}
+        for key, f, p, s_, b in (
+                ("whole", wfn, params, adamw_init(params, step_cfg.optimizer),
+                 batch),
+                ("part", fn, pm, st, place_batch(batch, mesh))):
+            ls, ts = [], []
+            for _ in range(PART_STEPS):
+                sync()
+                t1 = time.perf_counter()
+                p, s_, loss = f(p, s_, b)
+                sync()
+                ts.append(time.perf_counter() - t1)
+                ls.append(float(loss))
+            losses[key], times[key] = ls, ts
+            if key == "part":
+                pm, st = p, s_
+        if not all(np.isfinite(losses["part"])):
+            raise AssertionError(f"{label}: losses {losses['part']}")
+        loss_err = max(abs(a - b) for a, b in zip(losses["part"],
+                                                  losses["whole"]))
+        if any(abs(a - b) > LOSS_BF16_TOL * abs(b) for a, b in zip(
+                losses["part"], losses["whole"])):
+            raise AssertionError(f"{label}: losses {losses['part']} against "
+                                 f"{losses['whole']} beyond {LOSS_BF16_TOL}")
+        pb = place_batch(batch, mesh)
+        w_p, busy, peer = card_trace(lambda: fn(pm, st, pb))
+        share = ("not measured" if busy is None else
+                 {str(d): busy.get(d.index, 0.0) / w_p
+                  for d in dict.fromkeys(devs)})
+        del pm, st
+        sps = {k: (PART_STEPS - 1) / sum(v[1:]) for k, v in times.items()}
+
+        # prefill and decode against the unpartitioned program
+        pshape = ShapeCfg("prefill", PART_SEQ, PART_BATCH, "prefill")
+        wpre, _ = build_prefill_step(cfg, pshape, flat)
+        ref = wpre(params, dict(tokens=batch["tokens"]))
+        pre, pst = build_prefill_step(cfg, pshape, mesh)
+        got = mesh.assemble(pre(place_params(params, mesh, param_specs(
+            pst[0], mesh)), dict(tokens=batch["tokens"])),
+            logits_spec(cfg, pshape, mesh))
+        pre_err = max_err(got, ref)
+        if pre_err > LOSS_BF16_TOL * float(ref.float().abs().max()):
+            raise AssertionError(f"{label}: prefill logits max abs err "
+                                 f"{pre_err}")
+        del got, ref
+        dshape = ShapeCfg("decode", PART_DECODE, PART_BATCH, "decode")
+        wdec, _ = build_decode_step(cfg, dshape, flat)
+        dec, (dps, dcs, _, _) = build_decode_step(cfg, dshape, mesh)
+        dparams = place_params(params, mesh, param_specs(dps, mesh))
+        wc = init_cache(cfg, PART_BATCH, PART_DECODE, device=cuda)
+        pc = place_cache(init_cache(cfg, PART_BATCH, PART_DECODE,
+                                    device=cuda), mesh, PART_BATCH)
+        lspec = logits_spec(cfg, dshape, mesh, decode=True)
+        dec_err, dec_s = 0.0, {"whole": 0.0, "part": 0.0}
+        tok = batch["tokens"][:, :1]
+        for pos in range(PART_DECODE):
+            sync()
+            t1 = time.perf_counter()
+            wl, wc = wdec(params, wc, tok, pos)
+            sync()
+            t2 = time.perf_counter()
+            dl, pc = dec(dparams, pc, tok, pos)
+            sync()
+            dec_s["whole"] += t2 - t1
+            dec_s["part"] += time.perf_counter() - t2
+            err = max_err(mesh.assemble(dl, lspec), wl)
+            if err > LOSS_BF16_TOL * float(wl.float().abs().max()):
+                raise AssertionError(f"{label}: decode step {pos} logits max "
+                                     f"abs err {err}")
+            dec_err = max(dec_err, err)
+            tok = wl[:, -1].argmax(-1, keepdim=True).to(torch.int32)
+        del wc, pc
+    finally:
+        moe_ep.set_ep_mesh(None, ("data",))
+    tok_n = PART_BATCH * PART_SEQ
+    gb = lambda n: f"{n} B"
+    print(f"e2e {label} minicpm-2b (d_model {cfg.d_model}, {cfg.n_heads} "
+          f"heads MHA, d_ff {cfg.d_ff}, vocab {cfg.vocab}, {depth(cfg)}, bf16 "
+          f"params, f32 AdamW state, remat full) on a (data 2, model 2) mesh "
+          f"batch {PART_BATCH} x seq {PART_SEQ}: bytes at rest per group "
+          f"params {gb(rest['params'][0])} m {gb(rest['m'][0])} v "
+          f"{gb(rest['v'][0])} (= per_device_bytes; whole "
+          f"{gb(whole['params'])} / {gb(whole['m'])} / {gb(whole['v'])}) | "
+          f"steps_per_s={sps['part']} tokens_per_s={sps['part'] * tok_n} "
+          f"against unpartitioned steps_per_s={sps['whole']} tokens_per_s="
+          f"{sps['whole'] * tok_n} (steps 1-{PART_STEPS - 1}; ratio "
+          f"{sps['part'] / sps['whole']}) step0_s={times['part'][0]} | "
+          f"busy_share_per_card={share} peer_copy_bytes_per_step="
+          f"{'not measured' if peer is None else peer} (one profiled step, "
+          f"wall_s={w_p}) | step 0 loss and {n_leaves} grad leaves bitwise "
+          f"with G=1 (all finite) | {PART_STEPS} losses max abs diff "
+          f"{loss_err} from the unpartitioned step (loss "
+          f"{losses['part'][0]:.4f} -> {losses['part'][-1]:.4f}) | prefill "
+          f"logits max abs err {pre_err} | {PART_DECODE} decode steps logits "
+          f"max abs err {dec_err}, decode tokens_per_s "
+          f"{PART_BATCH * PART_DECODE / dec_s['part']} against "
+          f"{PART_BATCH * PART_DECODE / dec_s['whole']} (bar 2e-2 of "
+          f"the largest magnitude) | {card}")
+    print(f"partitioned phase: {time.perf_counter() - t0:.1f} s")
 
 
 def serve_padded_phase(card, cuda, seed) -> None:
@@ -3027,6 +3283,7 @@ def main() -> int:
     serve_phase(card, cuda, launches, args.seed)
     mamba_phase(card, cuda, args.seed)
     ep_phase(card, cuda, args.seed)
+    partitioned_phase(card, cuda, args.seed)
     serve_padded_phase(card, cuda, args.seed)
     dryrun_phase()
     service_attribution_phase(stream, card, cuda, launches)

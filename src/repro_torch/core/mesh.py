@@ -28,11 +28,16 @@ group its part.  No process group is involved: the reference's
 ``card_groups`` places a mesh's shards on the visible cards.
 
 Under a program trace (``launch/hlo_analysis.ProgramTrace``) each call
-counts once, as the collective it stands for (all-to-all, all-gather or
-all-reduce) over its group, with one shard's result bytes; the tensor ops
-and copies that carry it out are not recorded.  ``all_to_all`` is its own
-inverse, so its gradient is an ``all_to_all`` of the output's gradient: a
-traced backward pass counts its exchanges too.
+counts once, as the collective it stands for (all-to-all, all-gather,
+reduce-scatter or all-reduce) over its group, with one shard's result
+bytes; the tensor ops and copies that carry it out are not recorded.  The
+collectives a program differentiates through carry their gradients:
+``all_to_all`` is its own inverse, a (tiled) ``all_gather``'s gradient is
+a ``reduce_scatter`` and the reverse, and ``psum``'s is a ``psum`` of the
+results' gradients; a traced backward pass counts them too.  ``place``
+and ``assemble`` cut a whole value into every shard's block under a
+partition spec (the reference's ``PartitionSpec``, a tuple of axis names)
+and put it back together.
 """
 from __future__ import annotations
 
@@ -45,6 +50,14 @@ from ..kernels.runtime import active_trace, resolve_device
 
 Axes = Union[str, Sequence[str]]
 Groups = Tuple[torch.Tensor, ...]
+
+
+def spec_entry_axes(entry) -> Tuple[str, ...]:
+    """The mesh axes of one entry of a partition spec (None, an axis name or
+    a tuple of names)."""
+    if entry is None:
+        return ()
+    return (entry,) if isinstance(entry, str) else tuple(entry)
 
 
 def axis_sizes(mesh) -> Dict[str, int]:
@@ -165,6 +178,76 @@ class ShardMesh:
                                  f"{self.per_group}")
         return tuple(xs)
 
+    # -- values cut by a partition spec ---------------------------------------
+    def coords(self, s: int) -> Tuple[int, ...]:
+        """Shard ``s``'s index on each mesh axis (row-major numbering)."""
+        out = []
+        for n in reversed(self.shape):
+            out.append(s % n)
+            s //= n
+        return tuple(reversed(out))
+
+    def _block(self, entry, s: int) -> Tuple[int, int]:
+        """``(index, count)`` of shard ``s``'s block along a dim whose spec
+        entry is ``entry`` (None, an axis name or a tuple of them)."""
+        axes = spec_entry_axes(entry)
+        c = self.coords(s)
+        idx = 0
+        for a in axes:
+            m = self.axis_names.index(a)
+            idx = idx * self.shape[m] + c[m]
+        return idx, math.prod(self.shape[self.axis_names.index(a)]
+                              for a in axes)
+
+    def block_of(self, x: torch.Tensor, spec, s: int) -> torch.Tensor:
+        """Shard ``s``'s block of the whole value ``x`` under ``spec`` (a
+        view)."""
+        for d, entry in enumerate(spec):
+            i, n = self._block(entry, s)
+            if n > 1:
+                step = x.shape[d] // n
+                x = x.narrow(d, i * step, step)
+        return x
+
+    def place(self, x: torch.Tensor, spec) -> Groups:
+        """The whole value ``x`` cut by ``spec`` into every shard's block,
+        stacked per group on the group's device: a tuple of G tensors
+        ``[per_group, *block]`` (a shard of a replicated dim holds it
+        whole)."""
+        return tuple(torch.stack([self.block_of(x, spec, s)
+                                  for s in self.shards(g)]).to(dev)
+                     for g, dev in enumerate(self.devices))
+
+    def first_replica(self, spec, s: int) -> bool:
+        """Whether shard ``s`` is the first (lowest) of the shards that hold
+        its block under ``spec``: its index is 0 on every axis ``spec``
+        leaves out."""
+        used = {a for e in spec for a in spec_entry_axes(e)}
+        c = self.coords(s)
+        return all(c[m] == 0 for m, a in enumerate(self.axis_names)
+                   if a not in used)
+
+    def assemble(self, xs: Groups, spec) -> torch.Tensor:
+        """``place``'s inverse: the whole value on ``device``, each block
+        from the first shard that holds it."""
+        stack = self.join(xs)
+        blk = stack.shape[1:]
+        shape = [n * self._block(e, 0)[1] for n, e in zip(
+            blk, tuple(spec) + (None,) * (len(blk) - len(spec)))]
+        out = stack.new_empty(shape)
+        for s in range(self.size):
+            if self.first_replica(spec, s):
+                self.block_of(out, spec, s).copy_(stack[s])
+        return out
+
+    def psum_replicas(self, xs: Groups, spec) -> Groups:
+        """A placed value summed over the mesh axes ``spec`` leaves out
+        (its replicas), every replica then holding the sum: per-copy
+        gradients of a replicated leaf into the leaf's one gradient."""
+        used = {a for e in spec for a in spec_entry_axes(e)}
+        rep = tuple(a for a in self.axis_names if a not in used)
+        return self.psum(xs, rep, dim=0) if rep else xs
+
     # -- layout helpers ----------------------------------------------------
     def _axes(self, axes: Axes) -> Tuple[int, ...]:
         names = (axes,) if isinstance(axes, str) else tuple(axes)
@@ -212,7 +295,7 @@ class ShardMesh:
         if split_axis != concat_axis:
             raise ValueError("all_to_all takes split_axis == concat_axis")
         xs = self._groups(xs, dim)
-        if torch.is_grad_enabled() and any(x.requires_grad for x in xs):
+        if _needs_grad(xs):
             return _AllToAll.apply(self, axes, split_axis, dim, *xs)
         return self._traced("all-to-all", axes, lambda: self._stacked(
             xs, dim, lambda x: self._all_to_all_stack(x, axes, split_axis,
@@ -233,16 +316,27 @@ class ShardMesh:
         xu = xu.flatten(b, b + len(sizes) - 1)
         return xu.flatten(dim, dim + len(self.shape) - 1).contiguous()
 
-    def all_gather(self, xs: Groups, axis: str, gather_axis: int, *,
-                   dim: int) -> Groups:
-        """``jax.lax.all_gather(x, axis, axis=gather_axis)`` (not tiled):
-        each shard gets a new axis at ``gather_axis`` holding the values of
-        every shard along ``axis`` that agrees with it on the other axes."""
+    def all_gather(self, xs: Groups, axis: Axes, gather_axis: int, *,
+                   dim: int, tiled: bool = False) -> Groups:
+        """``jax.lax.all_gather(x, axis, axis=gather_axis, tiled=tiled)``.
+        Not tiled (one axis name): each shard gets a new axis at
+        ``gather_axis`` holding the values of every shard along ``axis``
+        that agrees with it on the other axes.  Tiled (``axis`` a name or a
+        tuple in mesh order): those values are concatenated along the
+        existing ``gather_axis``, row-major over the axes.  Its gradient is
+        ``reduce_scatter``."""
         xs = self._groups(xs, dim)
+        if _needs_grad(xs):
+            return _AllGather.apply(self, axis, gather_axis, dim, tiled, *xs)
+        if tiled:
+            fn = lambda x: self._gather_tiled_stack(x, axis, gather_axis,
+                                                    dim)
+            out_dim = dim
+        else:
+            fn = lambda x: self._all_gather_stack(x, axis, gather_axis, dim)
+            out_dim = dim + 1 if gather_axis < dim else dim
         return self._traced("all-gather", axis, lambda: self._stacked(
-            xs, dim, lambda x: self._all_gather_stack(x, axis, gather_axis,
-                                                      dim),
-            out_dim=dim + 1 if gather_axis < dim else dim))
+            xs, dim, fn, out_dim=out_dim))
 
     def _all_gather_stack(self, x, axis, gather_axis, dim):
         (m,) = self._axes(axis)
@@ -256,8 +350,72 @@ class ShardMesh:
         start = dim + 1 if gather_axis < dim else dim
         return g.flatten(start, start + k - 1).contiguous()
 
+    def _gather_tiled_stack(self, x, axes, gather_axis, dim):
+        idx = self._axes(axes)
+        k = len(self.shape)
+        xu = self._unflatten(x, dim)
+        p = gather_axis if gather_axis < dim else gather_axis + k
+        mesh_pos = [dim + m for m in idx]
+        rest = [i for i in range(xu.dim()) if i not in mesh_pos]
+        at = rest.index(p)
+        g = xu.permute(rest[:at] + mesh_pos + rest[at:])
+        g = g.flatten(at, at + len(idx))                 # the gathered axis
+        for mp in mesh_pos:                              # ascending
+            g = g.unsqueeze(mp)
+        shape = list(g.shape)
+        for m in idx:
+            shape[dim + m] = self.shape[m]
+        return g.expand(shape).flatten(dim, dim + k - 1).contiguous()
+
+    def reduce_scatter(self, xs: Groups, axes: Axes, scatter_axis: int, *,
+                       dim: int, tiled: bool = True) -> Groups:
+        """``jax.lax.psum_scatter(x, axes, scatter_dimension=scatter_axis,
+        tiled=tiled)``: every shard gets its own block, along
+        ``scatter_axis``, of the sum over its group of ``axes`` (blocks in
+        row-major order over the axes; not tiled, one axis name, the block
+        axis is dropped).  The gradient of a tiled ``all_gather``, and its
+        own gradient is that gather."""
+        xs = self._groups(xs, dim)
+        if _needs_grad(xs):
+            return _ReduceScatter.apply(self, axes, scatter_axis, dim, tiled,
+                                        *xs)
+        out_dim = dim - 1 if not tiled and scatter_axis < dim else dim
+
+        def fn(x):
+            r = self._scatter_tiled_stack(x, axes, scatter_axis, dim)
+            if tiled:
+                return r
+            return r.squeeze(scatter_axis if scatter_axis < dim
+                             else scatter_axis + 1)
+
+        return self._traced("reduce-scatter", axes, lambda: self._stacked(
+            xs, dim, fn, out_dim=out_dim))
+
+    def _scatter_tiled_stack(self, x, axes, scatter_axis, dim):
+        idx = self._axes(axes)
+        k = len(self.shape)
+        xu = self._unflatten(x, dim)
+        p = scatter_axis if scatter_axis < dim else scatter_axis + k
+        mesh_pos = [dim + m for m in idx]
+        sizes = [self.shape[m] for m in idx]
+        if xu.shape[p] % math.prod(sizes):
+            raise ValueError(f"scatter axis of size {xu.shape[p]} does not "
+                             f"divide into {math.prod(sizes)} blocks")
+        rest = [i for i in range(xu.dim()) if i not in mesh_pos]
+        r = torch.sum(xu, dim=mesh_pos)                  # dims: ``rest``
+        at = rest.index(p)
+        r = r.unflatten(at, sizes + [xu.shape[p] // math.prod(sizes)])
+        # each axis of the block grid takes the place of its mesh axis
+        label = rest[:at] + mesh_pos + [p] + rest[at + 1:]
+        r = r.permute(sorted(range(len(label)), key=label.__getitem__))
+        return r.flatten(dim, dim + k - 1).contiguous()
+
     def psum(self, xs: Groups, axes: Axes, *, dim: int) -> Groups:
-        """``jax.lax.psum`` over ``axes``: every shard gets its group's sum."""
+        """``jax.lax.psum`` over ``axes``: every shard gets its group's sum.
+        Its gradient is the psum of the results' gradients."""
+        xs = self._groups(xs, dim)
+        if _needs_grad(xs):
+            return _PSum.apply(self, axes, dim, *xs)
         return self._reduce(xs, axes, dim, torch.sum)
 
     def pmax(self, xs: Groups, axes: Axes, *, dim: int) -> Groups:
@@ -297,3 +455,56 @@ class _AllToAll(torch.autograd.Function):
         mesh, axes, split_axis, dim = ctx.args
         return (None, None, None, None) + tuple(mesh.all_to_all(
             grads, axes, split_axis, split_axis, dim=dim))
+
+
+def _needs_grad(xs) -> bool:
+    return torch.is_grad_enabled() and any(x.requires_grad for x in xs)
+
+
+class _AllGather(torch.autograd.Function):
+    """``ShardMesh.all_gather`` with its gradient, a ``reduce_scatter`` of
+    the results' gradients over the same axes."""
+
+    @staticmethod
+    def forward(ctx, mesh, axes, gather_axis, dim, tiled, *xs):
+        ctx.args = (mesh, axes, gather_axis, dim, tiled)
+        return mesh.all_gather(xs, axes, gather_axis, dim=dim, tiled=tiled)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        mesh, axes, gather_axis, dim, tiled = ctx.args
+        out_dim = dim + 1 if not tiled and gather_axis < dim else dim
+        return (None,) * 5 + tuple(mesh.reduce_scatter(
+            grads, axes, gather_axis, dim=out_dim, tiled=tiled))
+
+
+class _ReduceScatter(torch.autograd.Function):
+    """``ShardMesh.reduce_scatter`` with its gradient, the gather."""
+
+    @staticmethod
+    def forward(ctx, mesh, axes, scatter_axis, dim, tiled, *xs):
+        ctx.args = (mesh, axes, scatter_axis, dim, tiled)
+        return mesh.reduce_scatter(xs, axes, scatter_axis, dim=dim,
+                                   tiled=tiled)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        mesh, axes, scatter_axis, dim, tiled = ctx.args
+        out_dim = dim - 1 if not tiled and scatter_axis < dim else dim
+        return (None,) * 5 + tuple(mesh.all_gather(
+            grads, axes, scatter_axis, dim=out_dim, tiled=tiled))
+
+
+class _PSum(torch.autograd.Function):
+    """``ShardMesh.psum`` with its gradient: every input reaches every
+    result of its group, so its gradient is the psum of theirs."""
+
+    @staticmethod
+    def forward(ctx, mesh, axes, dim, *xs):
+        ctx.args = (mesh, axes, dim)
+        return mesh.psum(xs, axes, dim=dim)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        mesh, axes, dim = ctx.args
+        return (None,) * 3 + tuple(mesh.psum(grads, axes, dim=dim))

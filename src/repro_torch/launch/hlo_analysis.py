@@ -169,6 +169,8 @@ def _wire(kind: str, b: float, g: int) -> float:
         return 2 * b * frac
     if kind in ("all-gather", "all-to-all"):
         return b * frac
+    if kind == "reduce-scatter":          # b: one shard's block of the sum
+        return b * (g - 1)
     raise ValueError(f"unknown collective {kind!r}")
 
 

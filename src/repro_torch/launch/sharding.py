@@ -11,12 +11,12 @@ each ``None`` (replicated), an axis name, or a tuple of axis names.  The
 port has no ``NamedSharding``: ``param_shardings`` pairs each spec with the
 mesh, and the dry run reads per-device sizes from them (``spec_bytes``).
 
-On a ``ShardMesh`` of device groups with EP engaged, ``place_params`` puts
-the routed experts where the EP rule ``spec(ep, None, None)`` puts them:
-each expert leaf becomes a tuple of G slices along the expert axis, slice g
-on ``mesh.devices[g]``; ``gather_params`` joins them again.  Every other
-leaf stays on ``mesh.device`` (FSDP and TP placement by ``param_shardings``
-is not done).
+On a ``ShardMesh`` of more than one shard, ``place_params``,
+``place_batch`` and ``place_cache`` put every leaf where its spec puts it,
+in the mesh's per-shard form: a tuple of G tensors, group g's on
+``mesh.devices[g]`` stacking the block of each of its shards
+(``ShardMesh.place``); ``gather_params`` assembles the whole leaves again.
+The partitioned step (``models/partitioned.py``) runs on such trees.
 """
 from __future__ import annotations
 
@@ -25,8 +25,9 @@ from typing import Any, Tuple
 
 import torch
 
-from ..core.mesh import ShardMesh, axis_sizes
-from ..models.moe_ep import ep_axes, experts_tile, expert_spans, get_ep_mesh
+from ..core.mesh import ShardMesh, axis_sizes, spec_entry_axes
+from ..models.moe_ep import ep_axes, get_ep_mesh
+from ..models.partitioned import map_specs
 from .mesh import dp_axes
 
 PyTree = Any
@@ -172,48 +173,68 @@ def param_specs(params: PyTree, mesh) -> PyTree:
     return _map_with_path(one, params)
 
 
-def _is_expert(path: Tuple[str, ...], leaf) -> bool:
-    """A routed-expert weight: ``wu``/``wg``/``wd`` of rank 3 past the
-    stacked axes ([E, D, F] / [E, F, D]); the optimizer's moments too."""
-    return (path[-1] in ("wu", "wg", "wd")
-            and isinstance(leaf, torch.Tensor)
-            and leaf.dim() - _lead(path) == 3)
+def _partitioned(mesh) -> bool:
+    return isinstance(mesh, ShardMesh) and mesh.size > 1
 
 
-def place_params(params: PyTree, mesh) -> PyTree:
-    """``params`` (or an AdamW state mirroring them) with each routed
-    expert leaf cut along its expert axis into the mesh's device groups:
-    a tuple of G slices, slice g (the experts group g's shards own,
-    ``moe_ep.expert_spans``) a copy on ``mesh.devices[g]``.  Only when EP
-    is engaged (``moe_ep.get_ep_mesh``) on a ``ShardMesh`` of more than
-    one group whose spans cut the experts into disjoint slices; else, and
-    for every other leaf, the tree as given."""
-    if (not isinstance(mesh, ShardMesh) or mesh.n_groups == 1
-            or get_ep_mesh() is None):
+def is_placed(tree: PyTree) -> bool:
+    """Whether a tree holds leaves in the mesh's per-shard form (tuples of
+    group tensors): ``place_params`` / ``place_batch`` / ``place_cache``'s
+    output."""
+    return any(isinstance(x, tuple) for _, x in _walk(tree))
+
+
+def _place(tree: PyTree, mesh, specs: PyTree) -> PyTree:
+    return map_specs(lambda x, spec: x.to(mesh.device) if x.dim() == 0
+                     else mesh.place(x, spec), tree, specs)
+
+
+def place_params(params: PyTree, mesh, specs: PyTree = None) -> PyTree:
+    """``params`` (or an AdamW state mirroring them) at rest by the
+    reference's specs (``param_specs``, which read the EP mesh of
+    ``moe_ep.get_ep_mesh``: set it first, as the step builders do).  On a
+    ``ShardMesh`` of more than one shard every leaf becomes the mesh's
+    per-shard form, a tuple of G tensors ``[per_group, *block]``, group g's
+    on ``mesh.devices[g]`` holding the block of each of its shards (a dim
+    whose axis ``sanitize_spec`` dropped is whole in every block; the
+    routed experts fall under the EP rule ``spec(ep, None, None)``).  A 0-d
+    leaf (AdamW's ``step``) stays one tensor on ``mesh.device``.  With G =
+    ``mesh.size`` each group's bytes are ``per_device_bytes``.  On a
+    one-shard mesh, or a ``MeshSpec``, the tree as given."""
+    if not _partitioned(mesh):
         return params
-
-    def one(path, leaf):
-        if not _is_expert(path, leaf):
-            return leaf
-        e = leaf.shape[-3]
-        if not experts_tile(mesh, e):
-            return leaf
-        return tuple(leaf.narrow(-3, lo, hi - lo).to(dev, copy=True)
-                     for (lo, hi), dev in zip(expert_spans(mesh, e),
-                                              mesh.devices))
-
-    return _map_with_path(one, params)
+    return _place(params, mesh, param_specs(params, mesh)
+                  if specs is None else specs)
 
 
-def gather_params(params: PyTree) -> PyTree:
-    """``place_params``'s inverse: each tuple of expert slices joined along
-    the expert axis on its first slice's device."""
-    def one(_, leaf):
-        if isinstance(leaf, tuple):
-            return torch.cat([x.to(leaf[0].device) for x in leaf], dim=-3)
-        return leaf
+def gather_params(params: PyTree, mesh, specs: PyTree) -> PyTree:
+    """``place_params``'s inverse, bitwise: each placed leaf whole on
+    ``mesh.device``, each block from the first shard that holds it.
+    ``specs`` are the whole tree's (``param_specs`` of the step builders'
+    structs, taken under the same EP mesh)."""
+    def one(x, spec):
+        return mesh.assemble(x, spec) if isinstance(x, tuple) else x
+    return map_specs(one, params, specs)
 
-    return _map_with_path(one, params)
+
+def place_batch(batch: PyTree, mesh, global_batch: int = None) -> PyTree:
+    """A batch at rest by ``batch_specs``: the rows over the data axes
+    where they divide the global batch, else whole in every shard.  On a
+    one-shard mesh the batch as given."""
+    if not _partitioned(mesh):
+        return batch
+    if global_batch is None:
+        global_batch = next(x for _, x in _walk(batch)).shape[0]
+    return _place(batch, mesh, batch_specs(batch, mesh, global_batch))
+
+
+def place_cache(caches: PyTree, mesh, global_batch: int) -> PyTree:
+    """A decode cache at rest by ``cache_specs``: the batch over the data
+    axes, kv heads (or a latent, the conv channels, the SSM heads) over
+    ``model`` where they divide.  On a one-shard mesh the cache as given."""
+    if not _partitioned(mesh):
+        return caches
+    return _place(caches, mesh, cache_specs(caches, mesh, global_batch))
 
 
 def param_shardings(params: PyTree, mesh) -> PyTree:

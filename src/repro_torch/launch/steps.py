@@ -9,16 +9,23 @@ traces a step on them.  ``build_train_step``, ``build_prefill_step`` and
 its inputs lie.
 
 Of ``StepConfig``, ``remat``, ``expert_parallel``, ``serving_head_pad``,
-``kv_chunk`` and ``optimizer`` shape the step.  On a ``ShardMesh`` of
-device groups with EP engaged, the steps take params as
-``launch/sharding.place_params`` gives them (each group's routed experts on
-its card, the reference's EP rule) and the MoE layers run each group on
-its card; every other leaf and the batch stay on ``mesh.device``.  The
-reference's other jit shardings (FSDP over data, TP over model, the batch
-over data; ROADMAP A9.6), ``seq_shard_acts`` (its sequence-sharding
-constraint on the layer carry) and buffer donation have no counterpart
-yet: the field is kept, and only the dry run reads it (it reports the
-setting).
+``kv_chunk`` and ``optimizer`` shape the step.
+
+On a ``ShardMesh`` of more than one shard the steps run the reference's
+jit shardings: given params, AdamW state, batch and decode cache at rest
+by their specs (``launch/sharding.place_params``, ``place_batch``,
+``place_cache``; a whole batch or cache is placed on entry), they run the
+partitioned program (``models/partitioned.py``: FSDP over the data axes,
+TP over ``model``, EP for the routed experts, each group's share on its
+group's device) and return params, state, caches and logits placed.  Given
+whole params they run the one-device program, with EP over the mesh where
+it is engaged.  On a one-shard mesh (``make_host_mesh(device=...)``'s
+default) there is nothing to place and the program is that one-device
+program.  On a ``MeshSpec`` (the dry run) the builders trace it too, and
+the dry run reads per-device bytes from the specs.  ``seq_shard_acts``
+(the reference's sequence-sharding constraint on the layer carry) and
+buffer donation have no counterpart: the field is kept, and only the dry
+run reads it (it reports the setting).
 """
 from __future__ import annotations
 
@@ -28,13 +35,16 @@ from typing import Any, Dict
 import torch
 
 from ..ckpt.checkpoint import _flatten, _unflatten
-from ..core.mesh import axis_sizes
+from ..core.mesh import ShardMesh, axis_sizes
 from ..models import (ArchConfig, ShapeCfg, decode_step, forward, loss_fn,
                       meta_cache, meta_params)
 from ..models import layers, moe_ep
+from ..models.partitioned import Partitioned
 from ..models.serving import serving_padded
 from ..optim import AdamWConfig, adamw_init, adamw_update, wsd_schedule
 from .mesh import dp_axes
+from .sharding import (cache_specs, is_placed, param_specs, place_batch,
+                       place_cache, sanitize_spec)
 
 N_PATCHES = 256  # vision stub: patches per sample in vlm cells
 
@@ -114,10 +124,27 @@ def logits_spec(cfg: ArchConfig, shape: ShapeCfg, mesh,
                 decode: bool = False):
     """Spec of the logits [B, S, V], sanitized for odd batch/vocab sizes
     (the reference's ``_logits_spec``)."""
-    from .sharding import sanitize_spec
     s = 1 if decode else shape.seq_len
     return sanitize_spec((dp_axes(mesh), None, "model"),
                          (shape.global_batch, s, cfg.vocab), mesh)
+
+
+def _plan(cfg: ArchConfig, mesh, params_s, step_cfg: StepConfig):
+    """The partitioned program on a ``ShardMesh`` of more than one shard
+    (its specs read the EP mesh ``_configure_ep`` just set), else None."""
+    if not isinstance(mesh, ShardMesh) or mesh.size == 1:
+        return None
+    return Partitioned(cfg, mesh, param_specs(params_s, mesh),
+                       remat=step_cfg.remat)
+
+
+def _placed(plan, params) -> bool:
+    return plan is not None and is_placed(params)
+
+
+def _batch_in(plan, batch, global_batch: int):
+    return batch if is_placed(batch) else place_batch(batch, plan.mesh,
+                                                      global_batch)
 
 
 # ---------------------------------------------------------------------------
@@ -127,38 +154,58 @@ def build_train_step(cfg: ArchConfig, shape: ShapeCfg, mesh,
                      step_cfg: StepConfig = StepConfig()):
     """Returns ``(step, (params_struct, opt_struct, batch_struct))``;
     ``step(params, opt_state, batch) -> (params, opt_state, loss)``, its
-    inputs left as they were."""
+    inputs left as they were (placed params give placed results, the loss
+    on ``mesh.device``)."""
     _configure_ep(cfg, mesh, step_cfg)
     opt = step_cfg.optimizer
+    params_s = abstract_params(cfg)
+    plan = _plan(cfg, mesh, params_s, step_cfg)
 
     def train_step(params, opt_state, batch):
+        lr = wsd_schedule(opt_state["step"], warmup=2000, stable=50_000,
+                          decay=5_000)
+        if _placed(plan, params):
+            loss, grads = plan.loss_and_grads(
+                params, _batch_in(plan, batch, shape.global_batch))
+            with torch.no_grad():
+                new_params, new_state = adamw_update(
+                    params, grads, opt_state, opt, lr_scale=lr,
+                    gnorm=plan.global_norm(grads))
+            return new_params, new_state, loss
         leaves = [p.detach().requires_grad_() for _, p in _flatten(params)]
         loss = loss_fn(cfg, _unflatten(params, iter(leaves)), batch,
                        remat=step_cfg.remat)
         grads = torch.autograd.grad(loss, leaves)
-        lr = wsd_schedule(opt_state["step"], warmup=2000, stable=50_000,
-                          decay=5_000)
         with torch.no_grad():
             new_params, new_state = adamw_update(
                 params, _unflatten(params, iter(grads)), opt_state, opt,
                 lr_scale=lr)
         return new_params, new_state, loss.detach()
 
-    return train_step, (abstract_params(cfg), abstract_opt_state(cfg, opt),
+    train_step.plan = plan
+    return train_step, (params_s, abstract_opt_state(cfg, opt),
                         batch_struct(cfg, shape))
 
 
 def build_prefill_step(cfg: ArchConfig, shape: ShapeCfg, mesh,
                        step_cfg: StepConfig = StepConfig()):
     """Returns ``(prefill, (params_struct, batch_struct))``;
-    ``prefill(params, batch) -> logits``."""
+    ``prefill(params, batch) -> logits`` (placed by ``logits_spec`` where
+    the params are placed)."""
     _configure_ep(cfg, mesh, step_cfg)
+    params_s = abstract_params(cfg)
+    plan = _plan(cfg, mesh, params_s, step_cfg)
 
     def prefill(params, batch):
         with torch.no_grad():
+            if _placed(plan, params):
+                return plan.prefill(params, _batch_in(
+                    plan, batch, shape.global_batch),
+                    logits_spec(cfg, shape, mesh))
             return forward(cfg, params, batch, remat="none")
 
-    return prefill, (abstract_params(cfg), batch_struct(cfg, shape))
+    prefill.plan = plan
+    return prefill, (params_s, batch_struct(cfg, shape))
 
 
 def build_decode_step(cfg: ArchConfig, shape: ShapeCfg, mesh,
@@ -168,19 +215,34 @@ def build_decode_step(cfg: ArchConfig, shape: ShapeCfg, mesh,
     (``models.serving``) and ``serve`` takes the padded params
     (``pad_params_for_serving``).  Returns ``(serve, (params_struct,
     cache_struct, tokens_struct, pos_struct))``; ``serve(params, caches,
-    tokens, pos) -> (logits, caches)`` with ``pos`` an int."""
+    tokens, pos) -> (logits, caches)`` with ``pos`` an int (placed params
+    give placed logits and caches; a whole cache or whole tokens are placed
+    on entry)."""
     _configure_ep(cfg, mesh, step_cfg,
                   tokens_per_device=max(shape.global_batch
                                         // _dp_size(mesh), 1))
     if step_cfg.serving_head_pad:
         cfg = serving_padded(cfg, axis_sizes(mesh)["model"])
 
+    params_s, cache_s = abstract_params(cfg), abstract_cache(cfg, shape)
+    plan = _plan(cfg, mesh, params_s, step_cfg)
+    if plan is not None:
+        cspecs = cache_specs(cache_s, mesh, shape.global_batch)
+
     def serve(params, caches, tokens, pos):
         with torch.no_grad():
+            if _placed(plan, params):
+                if not is_placed(caches):
+                    caches = place_cache(caches, mesh, shape.global_batch)
+                tokens = _batch_in(plan, dict(tokens=tokens),
+                                   shape.global_batch)["tokens"]
+                return plan.decode(params, caches, cspecs, tokens, int(pos),
+                                   logits_spec(cfg, shape, mesh,
+                                               decode=True))
             return decode_step(cfg, params, caches, tokens, int(pos))
 
-    return serve, (abstract_params(cfg), abstract_cache(cfg, shape),
-                   batch_struct(cfg, shape)["tokens"],
+    serve.plan = plan
+    return serve, (params_s, cache_s, batch_struct(cfg, shape)["tokens"],
                    _meta((), torch.int32))
 
 

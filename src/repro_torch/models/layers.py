@@ -56,10 +56,28 @@ def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-5
     return (x * w.float()).to(dt)
 
 
+class _Sigmoid(torch.autograd.Function):
+    """The logistic with JAX's own derivative rule for ``lax.logistic``,
+    g * (s * (1 - s)) from the saved output s.  Autograd through the
+    expansion would give 0 * inf = NaN once ``exp(-x)`` overflows."""
+
+    @staticmethod
+    def forward(ctx, x):
+        s = 1 / (1 + torch.exp(-x))
+        ctx.save_for_backward(s)
+        return s
+
+    @staticmethod
+    def backward(ctx, g):
+        (s,) = ctx.saved_tensors
+        return g * (s * (1 - s))
+
+
 def sigmoid(x: torch.Tensor) -> torch.Tensor:
     """``jax.nn.sigmoid`` as XLA expands it, 1 / (1 + exp(-x)), rounded to
-    x's dtype after each op (``torch.sigmoid`` rounds bf16 once)."""
-    return 1 / (1 + torch.exp(-x))
+    x's dtype after each op (``torch.sigmoid`` rounds bf16 once); its
+    gradient is ``lax.logistic``'s (``_Sigmoid``)."""
+    return _Sigmoid.apply(x)
 
 
 def silu(x: torch.Tensor) -> torch.Tensor:
@@ -203,10 +221,15 @@ def _write_cache(buf: torch.Tensor, new: torch.Tensor, pos: int
 # ---------------------------------------------------------------------------
 def attn_forward(cfg: ArchConfig, p: dict, x: torch.Tensor, pos: torch.Tensor,
                  cache: Optional[dict] = None, cache_pos: Optional[int] = None,
-                 pos3: Optional[torch.Tensor] = None
+                 pos3: Optional[torch.Tensor] = None,
+                 kv_heads: Optional[Tuple[int, int]] = None
                  ) -> Tuple[torch.Tensor, Optional[dict]]:
     """x: [B, S, D].  With ``cache``, writes new kv at ``cache_pos`` and
-    attends over the cache (decode / incremental prefill)."""
+    attends over the cache (decode / incremental prefill).  The head
+    counts are the weights' own, so a tensor-parallel shard runs this on
+    its heads' columns of ``wq``/``wk``/``wv`` and rows of ``wo`` (its
+    output is then a partial sum).  ``kv_heads`` ``(lo, hi)``: the kv heads
+    its q heads attend to, where ``wk``/``wv`` (and the cache) hold more."""
     s = x.shape[1]
     q = torch.einsum("bsd,dhk->bshk", x, p["wq"])
     k = torch.einsum("bsd,dhk->bshk", x, p["wk"])
@@ -225,10 +248,14 @@ def attn_forward(cfg: ArchConfig, p: dict, x: torch.Tensor, pos: torch.Tensor,
     if cache is not None:
         ck = _write_cache(cache["k"], k, cache_pos)
         cv = _write_cache(cache["v"], v, cache_pos)
+        cache = dict(k=ck, v=cv)
+        if kv_heads is not None:
+            ck, cv = (c[:, :, kv_heads[0]:kv_heads[1]] for c in (ck, cv))
         o = flash_attention(q, ck, cv, causal=True, q_offset=cache_pos,
                             kv_len=cache_pos + s)
-        cache = dict(k=ck, v=cv)
     else:
+        if kv_heads is not None:
+            k, v = (t[:, :, kv_heads[0]:kv_heads[1]] for t in (k, v))
         o = flash_attention(q, k, v, causal=not cfg.encoder_only)
     out = torch.einsum("bshk,hkd->bsd", o, p["wo"])
     return out, cache
@@ -340,7 +367,7 @@ def moe_forward(cfg: ArchConfig, p: dict, x: torch.Tensor) -> torch.Tensor:
     if isinstance(p["wu"], tuple):
         raise ValueError("routed experts placed in device groups take the "
                          "expert-parallel path (launch/sharding."
-                         "gather_params joins them)")
+                         "gather_params assembles them)")
     b, s, d = x.shape
     e, k = cfg.n_experts, cfg.experts_per_token
     n_tok = b * s

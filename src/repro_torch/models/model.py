@@ -263,17 +263,12 @@ def _block_forward(cfg: ArchConfig, p, x, pos, kind, cache=None,
 
 def _unstack(tree, n: int):
     """A tree of stacked leaves ``[n, ...]`` as n trees of ``[...]`` (one
-    ``unbind`` per leaf, whose backward stacks the grads).  A tuple leaf
-    (routed-expert slices, one a device group: ``launch/sharding.
-    place_params``) gives each layer the tuple of its slices' layer."""
+    ``unbind`` per leaf, whose backward stacks the grads)."""
     if tree is None:
         return [None] * n
     if isinstance(tree, dict):
         cols = {k: _unstack(v, n) for k, v in tree.items()}
         return [{k: cols[k][i] for k in tree} for i in range(n)]
-    if isinstance(tree, tuple):
-        cols = [_unstack(x, n) for x in tree]
-        return [tuple(c[i] for c in cols) for i in range(n)]
     return list(torch.unbind(tree, 0))
 
 
@@ -282,9 +277,6 @@ def _restack(trees):
         return None
     if isinstance(trees[0], dict):
         return {k: _restack([t[k] for t in trees]) for k in trees[0]}
-    if isinstance(trees[0], tuple):
-        return tuple(_restack([t[j] for t in trees])
-                     for j in range(len(trees[0])))
     return torch.stack(trees, 0)
 
 
@@ -368,13 +360,21 @@ def forward(cfg: ArchConfig, params, batch, *, remat="full") -> torch.Tensor:
     return torch.einsum("bsd,dv->bsv", x, params["lm_head"])
 
 
-def _masked_ce(logits: torch.Tensor, labels: torch.Tensor,
-               mask: torch.Tensor) -> torch.Tensor:
+def masked_ce_sums(logits: torch.Tensor, labels: torch.Tensor,
+                   mask: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The masked cross-entropy's sum and the mask's count (a partitioned
+    step sums both over the data axes before it divides)."""
     logits = logits.float()
     lse = torch.logsumexp(logits, dim=-1)
     gold = torch.gather(logits, -1,
                         torch.clamp(labels, min=0).long()[..., None])[..., 0]
-    return torch.sum((lse - gold) * mask) / torch.clamp(mask.sum(), min=1)
+    return torch.sum((lse - gold) * mask), mask.sum()
+
+
+def _masked_ce(logits: torch.Tensor, labels: torch.Tensor,
+               mask: torch.Tensor) -> torch.Tensor:
+    total, count = masked_ce_sums(logits, labels, mask)
+    return total / torch.clamp(count, min=1)
 
 
 def loss_fn(cfg: ArchConfig, params, batch, *, remat="full") -> torch.Tensor:

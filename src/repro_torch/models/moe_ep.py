@@ -16,15 +16,17 @@ blocks ``shard_map`` hands each device (``TokenLayout``, the reference's
 ``x_spec``) and splits them into the groups.  The router's logits are one
 product over every shard's tokens on ``mesh.device`` (the router is
 replicated, and one product keeps its gradient one sum, bit for bit with
-one group).  Each group then routes, packs its send buffers and runs its
-experts on its own card, in a Python loop that only enqueues work; the
-buffers go through ``ShardMesh.all_to_all`` over the EP axes (whose
-gradient is again an all-to-all across the groups), and the combined
-output is joined back on ``mesh.device``.  Group g reads only the experts
-its shards own, ``expert_spans(mesh, E)[g]``: the routed-expert weights
-are either whole on ``mesh.device`` (a group then takes its slice) or, as
-``launch/sharding.place_params`` holds them, a tuple of G slices along E,
-slice g on ``mesh.devices[g]`` (the reference's ``P(ep, None, None)``).
+one group).  ``ep_groups`` then has each group route, pack its send
+buffers and run its experts on its own card, in a Python loop that only
+enqueues work; the buffers go through ``ShardMesh.all_to_all`` over the EP
+axes (whose gradient is again an all-to-all across the groups), and the
+combined output is joined back on ``mesh.device``.  The partitioned step
+(``models/partitioned.py``) calls ``ep_groups`` with each shard's own
+tokens and router logits.  Group g reads only the experts its shards own,
+``expert_spans(mesh, E)[g]``: the routed-expert weights are either whole on
+``mesh.device`` (a group then takes its slice) or, as
+``launch/sharding.place_params`` holds them, each shard's block of the
+reference's ``P(ep, None, None)`` stacked per group on its card.
 The capacity drop keeps the reference's rows: a choice's rank among the
 choices bound for its shard comes from a stable sort of the destinations
 and a running max of the run starts, and the combine sums each token's
@@ -253,25 +255,27 @@ def expert_spans(mesh: ShardMesh, n_experts: int):
     return spans
 
 
-def experts_tile(mesh: ShardMesh, n_experts: int) -> bool:
-    """Whether the groups' expert spans cut the experts into G disjoint
-    slices in order (the EP axes span every group boundary), so each group
-    can hold its slice alone."""
-    spans = expert_spans(mesh, n_experts)
-    ends = [0] + [hi for _, hi in spans]
-    return (all(lo == end for (lo, _), end in zip(spans, ends))
-            and ends[-1] == n_experts)
-
-
-def _group_weight(w, g: int, span, dev: torch.device) -> torch.Tensor:
-    """Group ``g``'s experts of a routed-expert leaf: its own slice of a
-    placed leaf (no copy), else its span of the whole leaf on ``dev``."""
+def _group_weight(w, g: int, span, dev: torch.device, own, e_loc: int
+                  ) -> torch.Tensor:
+    """Group ``g``'s experts of a routed-expert leaf: from a placed leaf
+    (``launch/sharding.place_params``: a tuple of G ``[per_group, e_loc,
+    ...]`` blocks of the EP rule) the blocks of its shards, the first shard
+    of each expert block its span holds (``own``: each of the group's
+    shards' EP index; no copy where they are the span in order), else its
+    span of the whole leaf on ``dev``."""
     if isinstance(w, (tuple, list)):
-        if w[g].shape[0] != span[1] - span[0] or w[g].device != dev:
-            raise ValueError(f"placed expert slice {g} of shape "
-                             f"{tuple(w[g].shape)} on {w[g].device} is not "
-                             f"the group's experts {span} on {dev}")
-        return w[g]
+        blk = w[g]
+        own = list(own)
+        rows = [own.index(j) for j in range(span[0] // e_loc,
+                                             span[1] // e_loc)]
+        if blk.device != dev or blk.shape[1] != e_loc:
+            raise ValueError(f"placed expert blocks of shape "
+                             f"{tuple(blk.shape)} on {blk.device} are not "
+                             f"group {g}'s blocks of {e_loc} experts on "
+                             f"{dev}")
+        if rows != list(range(blk.shape[0])):
+            blk = blk[rows]
+        return blk.flatten(0, 1)
     if span != (0, w.shape[0]):
         w = w[span[0]:span[1]]
     return w.to(dev)
@@ -300,26 +304,47 @@ def moe_forward_ep(cfg: ArchConfig, p: dict, x: torch.Tensor) -> torch.Tensor:
     the mesh's first device."""
     mesh, dp, tp = _EP_MESH, _DP_AXES, _TP_AXIS
     sm = _shard_mesh(mesh, x)
-    ep, n_shards, e_loc = _ep(mesh, cfg.n_experts)
+    _, n_shards, e_loc = _ep(mesh, cfg.n_experts)
     b, s, d = x.shape
     layout = TokenLayout.of(mesh, b, s, dp, tp)
     x_st = layout.split(x)
     n, bl, sl, _ = x_st.shape
-    t = bl * sl
-    x_loc = x_st.reshape(n, t, d)
-    routes = _routes(cfg, sm, x_loc, p["router"], n_shards, e_loc)
+    x_loc = x_st.reshape(n, bl * sl, d)
+    logits = sm.split(_logits(x_loc, p["router"]))
+    outs = ep_groups(cfg, sm, sm.split(x_loc), logits, p)
+    routed = layout.join(sm.join(tuple(
+        o.reshape(o.shape[0], bl, sl, d).to(x.dtype) for o in outs)))
+
+    if cfg.n_shared_experts:
+        sh = dict(wu=p["shared_wu"], wd=p["shared_wd"])
+        if cfg.gated_ffn:
+            sh["wg"] = p["shared_wg"]
+        routed = routed + ffn_forward(cfg, sh, x)
+    return routed
+
+
+def ep_groups(cfg: ArchConfig, sm: ShardMesh, xs, logits, p: dict):
+    """The routed-expert block on every shard's tokens, group by group:
+    ``xs`` [per_group, t, D] and the router's ``logits`` [per_group, t, E]
+    of each group, on its device.  Each shard routes its tokens, packs its
+    send buffers, exchanges them over the EP axes, runs its experts (the
+    routed-expert leaves of ``p``, whole or placed) and combines what comes
+    back.  Returns each group's float32 output [per_group, t, D]."""
+    ep, n_shards, e_loc = _ep(_EP_MESH, cfg.n_experts)
+    routes = [_route_logits(cfg, lg, n_shards, e_loc) for lg in logits]
+    t, d = xs[0].shape[1], xs[0].shape[2]
     k = cfg.experts_per_token
     cap = routes[0].cap
     rows = n_shards * cap
     pg = sm.per_group
     spans = expert_spans(sm, cfg.n_experts)
-    index = _group_index(mesh, ep)
+    index = _group_index(_EP_MESH, ep)
 
     # pack: each kept choice's token row into its destination's buffer
     # (a broadcast then a scatter to distinct rows: no backward adds into
     # one row from many; dropped choices all land in one extra row)
     send_x, send_eid, send_valid = [], [], []
-    for xg, r in zip(sm.split(x_loc), routes):
+    for xg, r in zip(xs, routes):
         dev = xg.device
         xt_rep = xg[:, :, None, :].expand(pg, t, k, d).reshape(pg, t * k, d)
         send_x.append(xg.new_zeros((pg, rows + 1, d)).scatter(
@@ -353,8 +378,9 @@ def moe_forward_ep(cfg: ArchConfig, p: dict, x: torch.Tensor) -> torch.Tensor:
     ys = []
     for g, dev in enumerate(sm.devices):
         order, counts = orders[g]
+        own = index[list(sm.shards(g))]
         w = [None if p.get(name) is None else
-             _group_weight(p[name], g, spans[g], dev)
+             _group_weight(p[name], g, spans[g], dev, own, e_loc)
              for name in ("wg", "wu", "wd")]
         y = _local_expert_block(cfg, recv_x[g], order,
                                 None if counts is None else counts.tolist(),
@@ -372,12 +398,5 @@ def moe_forward_ep(cfg: ArchConfig, p: dict, x: torch.Tensor) -> torch.Tensor:
         out = torch.zeros((pg, t, d), dtype=torch.float32, device=bg.device)
         for j in range(k):          # flat (token, choice) order
             out = out + contrib[:, :, j]
-        outs.append(out.reshape(pg, bl, sl, d).to(x.dtype))
-    routed = layout.join(sm.join(tuple(outs)))
-
-    if cfg.n_shared_experts:
-        sh = dict(wu=p["shared_wu"], wd=p["shared_wd"])
-        if cfg.gated_ffn:
-            sh["wg"] = p["shared_wg"]
-        routed = routed + ffn_forward(cfg, sh, x)
-    return routed
+        outs.append(out)
+    return outs

@@ -65,12 +65,16 @@ def _global_norm(leaves) -> torch.Tensor:
 
 
 def adamw_update(params: Tree, grads: Tree, state: Tree, cfg: AdamWConfig,
-                 lr_scale=1.0) -> Tuple[Tree, Tree]:
+                 lr_scale=1.0, gnorm=None) -> Tuple[Tree, Tree]:
     """One step.  Returns ``(new_params, new_state)``; neither input is
-    written."""
+    written.  ``gnorm``: the gradients' global norm where the caller counts
+    it (a partitioned step counts each placed block once,
+    ``models/partitioned.Partitioned.global_norm``); else ``_global_norm``
+    of the gradient leaves."""
     step = state["step"] + 1
     g_leaves = _leaves(grads)
-    gnorm = _global_norm(g_leaves)
+    if gnorm is None:
+        gnorm = _global_norm(g_leaves)
     clip = torch.clamp(cfg.grad_clip / torch.clamp(gnorm, min=1e-9), max=1.0)
     step_f = step.to(torch.float32)
     b1 = torch.tensor(cfg.b1, dtype=torch.float32, device=step.device)

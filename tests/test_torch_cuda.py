@@ -21,7 +21,9 @@ and the chunked service with ``run_stream`` on the card (TP to 1e-5).  The
 service on a sharded engine migrates live under a skew storm, bitwise with
 the single-device card run, and the replicate-everything baseline
 (``evaluate_sharded``) matches the single-device card evaluation (GS
-bitwise, TP to 1e-5).  The launch layer: expert-parallel MoE on the card
+bitwise, TP to 1e-5).  The model: moonshot's smoke config drawn on the card
+from a CUDA generator has a finite gradient in every leaf of its first
+step (C6).  The launch layer: expert-parallel MoE on the card
 keeps the CPU's choices bit for bit at the default capacity, the padded
 decode matches the unpadded one, and a chunk's traced cost
 (``chunk_cost``) on the card equals the CPU's.  The kernel-dispatch search
@@ -931,6 +933,40 @@ def test_decode_matches_prefill_on_card(arch, tol):
         full = forward(cfg, params, dict(tokens=torch.cat([prompt, gen], 1)),
                        remat="none")
     torch.testing.assert_close(steps, full, rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("ep", [False, True], ids=["dropless", "ep"])
+def test_moe_first_step_gradients_finite_on_card(ep):
+    """C6: moonshot's smoke config, bf16, drawn on the card from a CUDA
+    generator (seed 2, where NaN gradient leaves showed while the sigmoid's
+    gradient was autograd's through its expansion): the loss and every
+    gradient leaf of the first step finite, on the dropless path and under
+    EP on a (2, 4) mesh."""
+    from repro_torch.ckpt.checkpoint import _flatten, _unflatten
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import init_params, loss_fn, moe_ep
+    dev = need_card()
+    cfg = get_arch("moonshot-v1-16b-a3b").smoke()
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(2),
+                         device=dev)
+    toks = torch.randint(0, cfg.vocab, (8, 65), generator=torch.Generator(
+        device=dev).manual_seed(2), device=dev, dtype=torch.int32)
+    batch = dict(tokens=toks[:, :-1].contiguous(),
+                 labels=toks[:, 1:].contiguous())
+    try:
+        if ep:
+            moe_ep.set_ep_mesh(make_host_mesh(model=4, data=2, device=dev),
+                               ("data",))
+        leaves = [x.detach().requires_grad_() for _, x in _flatten(params)]
+        loss = loss_fn(cfg, _unflatten(params, iter(leaves)), batch)
+        grads = torch.autograd.grad(loss, leaves)
+    finally:
+        moe_ep.set_ep_mesh(None, ("data",))
+    assert bool(torch.isfinite(loss))
+    bad = [path for (path, _), g in zip(_flatten(params), grads)
+           if not bool(torch.isfinite(g).all())]
+    assert not bad, bad
 
 
 def test_ep_on_card_matches_cpu_kept_mask_bitwise():

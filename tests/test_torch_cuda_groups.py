@@ -20,11 +20,16 @@ imports no JAX.  On a machine with four cards:
   its own rows); the megakernel launches once per group.
 * Expert-parallel MoE over the same groupings of a (2, 4) mesh (moonshot's
   smoke config, bf16): the layer's output, kept mask and every gradient,
-  and step 0's loss and gradients of ``build_train_step`` with the experts
-  placed in the groups (``launch/sharding.place_params``), bitwise with
-  one group on ``cuda:0``; after a step each slice is still on its card.
-  ``compressed_psum`` over ``data`` on those groups, bitwise with one
-  group.
+  the routed experts at rest in the groups by the EP rule, bitwise with
+  one group on ``cuda:0``; and the partitioned train step (every leaf, the
+  AdamW state and the batch placed, ``launch/sharding.place_params``):
+  step 0's loss and gradients bitwise with one group, none of them NaN,
+  and after a step every block still on its card.  ``compressed_psum``
+  over ``data`` on those groups, bitwise with one group.
+* The partitioned train step of a dense arch (minicpm-2b's smoke config,
+  bf16; TP and FSDP) over the same groupings: step 0's loss and every
+  gradient bitwise with one group, none NaN, and three steps' losses,
+  params and state bitwise.
 """
 import numpy as np
 import pytest
@@ -223,9 +228,10 @@ def ep_devices(request, card):
 
 
 def _same_bits(a, b) -> bool:
-    """Bitwise equal, NaNs included."""
+    """Bitwise equal, and no NaN in either (C6 once gave NaN gradients)."""
     return (a.shape == b.shape and a.dtype == b.dtype and torch.equal(
-        a.contiguous().view(torch.uint8), b.contiguous().view(torch.uint8)))
+        a.contiguous().view(torch.uint8), b.contiguous().view(torch.uint8))
+        and not bool(torch.isnan(a).any()))
 
 
 def _ep_setup(card, seed=0):
@@ -243,30 +249,32 @@ def _ep_mesh(devs):
 
 
 def test_grouped_ep_on_cards_matches_one_group(card, ep_devices):
-    from repro_torch.launch.sharding import gather_params, place_params
+    from repro_torch.launch.sharding import param_specs, place_params
     from repro_torch.models import moe_ep
     cfg, params = _ep_setup(card)
     layer = {k: v[0] for k, v in params["stacks"]["moe"]["ffn"].items()}
     x0 = torch.randn((8, 64, cfg.d_model), generator=torch.Generator(
         device=card).manual_seed(1), device=card).to(torch.bfloat16) + 0.5
+    experts = ("wu", "wg", "wd")
     runs = []
     try:
         for devs in ([card], ep_devices):
             mesh = _ep_mesh(devs)
             moe_ep.set_ep_mesh(mesh, ("data",))
-            p = place_params({"ffn": layer}, mesh)["ffn"]
-            leaves = {k: tuple(t.clone().requires_grad_() for t in v)
-                      if isinstance(v, tuple) else v.clone().requires_grad_()
-                      for k, v in p.items()}
+            specs = param_specs({"ffn": layer}, mesh)["ffn"]
+            placed = place_params({"ffn": layer}, mesh)["ffn"]
+            leaves = {k: tuple(t.clone().requires_grad_() for t in placed[k])
+                      if k in experts else v.clone().requires_grad_()
+                      for k, v in layer.items()}
             x = x0.clone().requires_grad_()
             y = moe_ep.moe_forward_ep(cfg, leaves, x)
             flat = [t for v in leaves.values()
                     for t in (v if isinstance(v, tuple) else (v,))]
             grads = torch.autograd.grad(y.float().square().sum(), [x] + flat)
             it = iter(grads[1:])
-            whole = gather_params({k: tuple(next(it) for _ in v)
-                                   if isinstance(v, tuple) else next(it)
-                                   for k, v in leaves.items()})
+            whole = {k: mesh.assemble(tuple(next(it) for _ in v), specs[k])
+                     if isinstance(v, tuple) else next(it)
+                     for k, v in leaves.items()}
             with torch.no_grad():
                 keep = torch.cat([r.keep.to(card) for r in
                                   moe_ep.route_groups(cfg, leaves, x0)])
@@ -281,41 +289,81 @@ def test_grouped_ep_on_cards_matches_one_group(card, ep_devices):
         assert _same_bits(wg[k], w1[k]), k
 
 
-def test_grouped_ep_train_step_on_cards(card, ep_devices):
-    from repro_torch.ckpt.checkpoint import _flatten, _unflatten
-    from repro_torch.launch.sharding import gather_params, place_params
+def _partitioned_runs(card, devices, cfg, params, batch, steps):
+    """Step 0's loss and gradients of the partitioned train step on a
+    (2, 4) mesh in one group on ``card`` and in ``devices``, then
+    ``steps`` steps: (loss, whole grads, losses, whole params and state,
+    the placed params, mesh) a grouping."""
+    from repro_torch.launch.sharding import (gather_params, param_specs,
+                                             place_batch, place_params)
     from repro_torch.launch.steps import StepConfig, build_train_step
-    from repro_torch.models import ShapeCfg, loss_fn, moe_ep
+    from repro_torch.models import ShapeCfg, moe_ep
     from repro_torch.optim import adamw_init
+    runs = []
+    try:
+        for devs in ([card], devices):
+            mesh = _ep_mesh(devs)
+            step, structs = build_train_step(
+                cfg, ShapeCfg("t", batch["tokens"].shape[1], 8, "train"),
+                mesh, StepConfig())
+            ps = param_specs(structs[0], mesh)
+            ss = param_specs(structs[1], mesh)
+            p = place_params(params, mesh, ps)
+            loss, grads = step.plan.loss_and_grads(p, place_batch(batch,
+                                                                  mesh))
+            st = place_params(adamw_init(params, StepConfig().optimizer),
+                              mesh, ss)
+            losses = []
+            for _ in range(steps):
+                p, st, loss_s = step(p, st, batch)
+                losses.append(loss_s)
+            runs.append((loss, gather_params(grads, mesh, ps), losses,
+                         gather_params(dict(p=p), mesh, dict(p=ps)),
+                         gather_params(st, mesh, ss), p, mesh))
+    finally:
+        moe_ep.set_ep_mesh(None, ("data",))
+    return runs
+
+
+def test_grouped_ep_train_step_on_cards(card, ep_devices):
+    from repro_torch.ckpt.checkpoint import _flatten
     cfg, params = _ep_setup(card, seed=2)
     toks = torch.randint(0, cfg.vocab, (8, 65), generator=torch.Generator(
         device=card).manual_seed(3), device=card, dtype=torch.int32)
     batch = dict(tokens=toks[:, :-1].contiguous(),
                  labels=toks[:, 1:].contiguous())
-    runs = []
-    try:
-        for devs in ([card], ep_devices):
-            mesh = _ep_mesh(devs)
-            step, _ = build_train_step(cfg, ShapeCfg("t", 64, 8, "train"),
-                                       mesh, StepConfig())
-            p = place_params(params, mesh)
-            leaves = [x.detach().requires_grad_() for _, x in _flatten(p)]
-            loss = loss_fn(cfg, _unflatten(p, iter(leaves)), batch)
-            grads = _unflatten(p, iter(torch.autograd.grad(loss, leaves)))
-            st = place_params(adamw_init(params, StepConfig().optimizer),
-                              mesh)
-            p2, _, loss_s = step(p, st, batch)
-            runs.append((loss.detach(), loss_s, gather_params(grads), p2,
-                         mesh))
-    finally:
-        moe_ep.set_ep_mesh(None, ("data",))
-    (l1, ls1, g1, _, _), (lg, lsg, gg, p2, mesh) = runs
-    assert torch.equal(lg, l1) and torch.equal(lsg, ls1)
+    (l1, g1, ls1, *_), (lg, gg, lsg, _, _, p2, mesh) = _partitioned_runs(
+        card, ep_devices, cfg, params, batch, 1)
+    assert torch.equal(lg, l1) and torch.equal(lsg[0], ls1[0])
     for (path, a), (_, b) in zip(_flatten(gg), _flatten(g1)):
         assert _same_bits(a, b), path
     wu = p2["stacks"]["moe"]["ffn"]["wu"]
     assert isinstance(wu, tuple) and [w.device for w in wu] == list(
         mesh.devices)
+
+
+def test_partitioned_train_step_on_cards(card, ep_devices):
+    """minicpm-2b's smoke config (MHA on TP, FSDP over data), bf16."""
+    from repro_torch.ckpt.checkpoint import _flatten
+    from repro_torch.configs import get_arch
+    from repro_torch.models import init_params
+    cfg = get_arch("minicpm-2b").smoke()
+    params = init_params(cfg, torch.Generator(device=card).manual_seed(5),
+                         device=card)
+    toks = torch.randint(0, cfg.vocab, (8, 33), generator=torch.Generator(
+        device=card).manual_seed(5), device=card, dtype=torch.int32)
+    batch = dict(tokens=toks[:, :-1].contiguous(),
+                 labels=toks[:, 1:].contiguous())
+    (l1, g1, ls1, p1, s1, _, _), (lg, gg, lsg, pg, sg, placed, mesh) = \
+        _partitioned_runs(card, ep_devices, cfg, params, batch, 3)
+    assert torch.equal(lg, l1)
+    for (path, a), (_, b) in zip(_flatten(gg), _flatten(g1)):
+        assert _same_bits(a, b), path
+    assert torch.equal(torch.stack(lsg), torch.stack(ls1))
+    for (path, a), (_, b) in zip(_flatten([pg, sg]), _flatten([p1, s1])):
+        assert _same_bits(a.reshape(-1), b.reshape(-1)), path
+    for path, x in _flatten(placed):
+        assert x.device == mesh.devices[int(path[-1])], path
 
 
 def test_grouped_compressed_psum_on_cards(card, ep_devices):

@@ -1,9 +1,11 @@
 """The port's dry run (``repro_torch/launch/dryrun.py``) on the single-pod
 mesh (data 16, model 16), the traced FLOPs against XLA's, and the sweep.
 
-Held here: ``run_cell`` for all 40 (arch x shape) cells: the 31 cells the
-reference runs trace at full size on meta tensors, and the 9 it skips are
-skipped with its reasons; ``model_params`` and ``active_params`` equal the
+Held here and in ``tests/test_torch_dryrun_b.py`` / ``_c.py`` (each file
+runs the cells of one slice of the archs, ``torch_dryrun.ARCH_SLICES``):
+``run_cell`` for all 40 (arch x shape) cells: the 31 cells the reference
+runs trace at full size on meta tensors, and the 9 it skips are skipped
+with its reasons; ``model_params`` and ``active_params`` equal the
 reference's; ``mem.argument_bytes`` equals the per-device count from the
 reference's specs and ``jax.eval_shape`` exactly (``tests/torch_dryrun.py``).
 The traced ``dot_flops`` of the train and prefill steps of two dense smoke
@@ -12,7 +14,7 @@ same step compiled on one CPU device: the stated tolerance is 2%, and the
 counts agree exactly (MoE archs are not held: XLA may lower ``ragged_dot``
 over every expert).  The sweep writes one JSON per cell and skips cached
 cells on a rerun.  The multi-pod cells are in
-``tests/test_torch_dryrun_multipod.py``.
+``tests/test_torch_dryrun_multipod*.py``.
 """
 import json
 import os
@@ -31,14 +33,21 @@ from repro_torch.launch.mesh import MeshSpec
 from repro_torch.launch.steps import build_step
 from repro_torch.models import ShapeCfg, moe_ep
 
-from torch_dryrun import CELLS, check_cell
+from torch_dryrun import ARCH_SLICES, CELLS, cells, check_cell
 
 FLOPS_TOL = 0.02
 
 
-@pytest.mark.parametrize("arch,shape", CELLS)
+@pytest.mark.parametrize("arch,shape", cells("a"))
 def test_single_pod_cell_matches_reference(arch, shape):
     check_cell(arch, shape, multi_pod=False)
+
+
+def test_slices_cover_every_cell_once():
+    archs = [a for part in sorted(ARCH_SLICES) for a in ARCH_SLICES[part]]
+    assert sorted(archs) == sorted({a for a, _ in CELLS})
+    assert sorted(c for part in ARCH_SLICES for c in cells(part)) == \
+        sorted(CELLS)
 
 
 def test_cell_counts():

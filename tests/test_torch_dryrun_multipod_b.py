@@ -1,0 +1,12 @@
+"""The port's dry run on the multi-pod mesh (pod 2, data 16, model 16) for
+the cells of slice "b" of the archs (``torch_dryrun.ARCH_SLICES``), held
+as ``tests/test_torch_dryrun_multipod.py`` holds slice "a".
+"""
+import pytest
+
+from torch_dryrun import cells, check_cell
+
+
+@pytest.mark.parametrize("arch,shape", cells("b"))
+def test_multi_pod_cell_matches_reference(arch, shape):
+    check_cell(arch, shape, multi_pod=True)

@@ -6,7 +6,8 @@ Every grouping here runs on the CPU (``devices=["cpu"] * G``), which runs
 the grouped code as it runs across cards.  Held here:
 
 * on the (2, 4) and (1, 8) meshes, with G = 1, 2 and 4 groups, the routed
-  experts whole or placed in the groups (``launch/sharding.place_params``),
+  experts whole or placed in the groups (``launch/sharding.place_params``:
+  each shard's block of the EP rule, stacked per group),
   at capacity factor 1.25 (choices dropped) on a plain and a skewed router:
   the output, the kept mask and the gradient of every leaf (the expert
   slices included) are bitwise with the one-group mesh;
@@ -15,11 +16,12 @@ the grouped code as it runs across cards.  Held here:
   holds the one-group layer: the kept mask bitwise, the output within 1e-4
   of its largest magnitude;
 * where the EP axes do not span the group boundaries (4 experts on a
-  (2, 4) mesh: EP over ``model`` only), every group reads its span of the
-  whole weights, and the layer agrees with one group to rtol = atol =
-  1e-6 forward and, in each gradient, within 1e-6 of its largest magnitude
-  (a replicated expert's rows then run as several products, and its
-  gradient sums across the groups);
+  (2, 4) mesh: EP over ``model`` only), every group reads its span, from
+  the whole weights or from the first of its shards that holds each
+  expert block, and the layer agrees with one group to rtol = atol = 1e-6
+  forward and, in each gradient, within 1e-6 of its largest magnitude (a
+  replicated expert's rows then run as several products, and its gradient
+  sums across the groups, or across the placed replicas);
 * the placed experts stay off the dropless path, and the tokens must sit on
   the mesh's first device.
 """
@@ -34,7 +36,7 @@ import torch
 
 from repro_torch.configs import get_arch
 from repro_torch.core.mesh import ShardMesh
-from repro_torch.launch.sharding import gather_params, place_params
+from repro_torch.launch.sharding import param_specs, place_params
 from repro_torch.models import layers, model, moe_ep
 
 torch.set_num_threads(1)
@@ -76,13 +78,33 @@ def _mesh(shape, g):
     return ShardMesh(shape, ("data", "model"), devices=["cpu"] * g)
 
 
+EXPERTS = ("wg", "wu", "wd")
+
+
+def _place_experts(p, mesh):
+    """One MoE layer's routed-expert leaves at rest by the EP rule
+    (``place_params``), the router and the shared experts whole, as
+    ``moe_forward_ep`` takes them; and the experts' specs."""
+    specs = param_specs({"ffn": p}, mesh)["ffn"]
+    placed = place_params({"ffn": p}, mesh)["ffn"]
+    return ({k: placed[k] if k in EXPERTS else v for k, v in p.items()},
+            {k: specs[k] for k in EXPERTS if k in p})
+
+
+def _whole_grad(grads, mesh, spec):
+    """A placed leaf's gradient as one tensor: summed over its replicas,
+    each block from its first shard."""
+    return mesh.assemble(mesh.psum_replicas(grads, spec), spec)
+
+
 def _run(cfg, p, x0, mesh, placed):
     """The layer's output, its kept mask and the gradient of (y * y).sum()
-    to x and to every leaf (placed slices joined back), on ``mesh``."""
+    to x and to every leaf (placed blocks assembled), on ``mesh``."""
     moe_ep.set_ep_mesh(mesh, ("data",))
     tree = {"ffn": {k: v.clone() for k, v in p.items()}}
+    specs = {}
     if placed:
-        tree = place_params(tree, mesh)
+        tree["ffn"], specs = _place_experts(tree["ffn"], mesh)
     leaves = {k: tuple(t.requires_grad_() for t in v) if isinstance(v, tuple)
               else v.requires_grad_() for k, v in tree["ffn"].items()}
     flat = [t for v in leaves.values()
@@ -91,8 +113,9 @@ def _run(cfg, p, x0, mesh, placed):
     y = moe_ep.moe_forward_ep(cfg, leaves, x)
     grads = torch.autograd.grad((y * y).sum(), [x] + flat)
     it = iter(grads[1:])
-    whole = {k: torch.cat([next(it) for _ in v]) if isinstance(v, tuple)
-             else next(it) for k, v in leaves.items()}
+    whole = {k: _whole_grad(tuple(next(it) for _ in v), mesh, specs[k])
+             if isinstance(v, tuple) else next(it)
+             for k, v in leaves.items()}
     with torch.no_grad():
         keep = torch.cat([r.keep for r in moe_ep.route_groups(cfg, leaves,
                                                               x0)])
@@ -118,24 +141,27 @@ def test_grouped_ep_bitwise_with_one_group(mesh_key, skew, g, placed):
 
 
 def test_placed_slices_sit_on_their_groups():
-    """Each group's slice holds the experts its shards own, and the layer
-    hands that slice to the group itself (no copy)."""
+    """Each group's blocks hold the experts its shards own, and the layer
+    hands the group its blocks themselves (a view, no copy)."""
     cfg, p = _moe()
     mesh = _mesh((2, 4), 4)
     moe_ep.set_ep_mesh(mesh, ("data",))
     assert moe_ep.expert_spans(mesh, 8) == [(0, 2), (2, 4), (4, 6), (6, 8)]
-    assert moe_ep.experts_tile(mesh, 8)
-    placed = place_params({"ffn": p}, mesh)["ffn"]
+    placed, specs = _place_experts(p, mesh)
+    own = moe_ep._group_index(mesh, ("data", "model"))
     for name in ("wg", "wu", "wd"):
         assert len(placed[name]) == 4
         for gi, (lo, hi) in enumerate(moe_ep.expert_spans(mesh, 8)):
-            assert torch.equal(placed[name][gi], p[name][lo:hi])
-            assert moe_ep._group_weight(placed[name], gi, (lo, hi),
-                                        mesh.devices[gi]) is placed[name][gi]
+            assert torch.equal(placed[name][gi].flatten(0, 1),
+                               p[name][lo:hi])
+            w = moe_ep._group_weight(placed[name], gi, (lo, hi),
+                                     mesh.devices[gi],
+                                     own[list(mesh.shards(gi))], 1)
+            assert w.data_ptr() == placed[name][gi].data_ptr()
+        assert torch.equal(mesh.assemble(placed[name], specs[name]),
+                           p[name])
     for name in ("router", "shared_wu", "shared_wd"):
         assert placed[name] is p[name]
-    assert all(torch.equal(gather_params({"ffn": placed})["ffn"][k], p[k])
-               for k in p)
 
 
 EP_WORKER = r"""
@@ -214,7 +240,7 @@ def test_grouped_ep_matches_jax_ep_with_drops(skew, tmp_path):
     for g in (2, 4):
         mesh = _mesh((2, 4), g)
         moe_ep.set_ep_mesh(mesh, ("data",))
-        pp = place_params({"ffn": p}, mesh)["ffn"]
+        pp, _ = _place_experts(p, mesh)
         with torch.no_grad():
             got = moe_ep.moe_forward_ep(cfg, pp, xt).numpy()
             keep = torch.cat([r.keep for r in
@@ -231,16 +257,18 @@ def test_grouped_ep_matches_jax_ep_with_drops(skew, tmp_path):
 def test_ep_over_model_only_reads_each_span(g):
     """4 experts on a (2, 4) mesh: EP runs over ``model`` only, so the
     shards of ``data`` row 0 and row 1 hold the same experts, and a group
-    may need every expert.  ``place_params`` then keeps the weights whole,
-    each group reads its span, and the layer agrees with one group."""
+    may need every expert.  ``place_params`` then holds each expert block
+    on both of its shards, each group reads its span from the first shard
+    that holds each block, and the layer agrees with one group."""
     cfg, p = _moe(skew=6.0, n_experts=4)
     mesh = _mesh((2, 4), g)
     moe_ep.set_ep_mesh(mesh, ("data",))
     assert moe_ep.ep_axes(mesh, 4) == ("model",)
-    assert not moe_ep.experts_tile(mesh, 4)
     spans = moe_ep.expert_spans(mesh, 4)
     assert spans == ([(0, 4)] * 2 if g == 2 else [(0, 2), (2, 4)] * 2)
-    assert place_params({"ffn": p}, mesh)["ffn"]["wu"] is p["wu"]
+    placed, specs = _place_experts(p, mesh)
+    assert specs["wu"] == (("model",), None, None)
+    assert [tuple(x.shape[:2]) for x in placed["wu"]] == [(8 // g, 1)] * g
     x0 = _tokens(cfg, 2)
     want = _run(cfg, p, x0, _mesh((2, 4), 1), False)
     got = _run(cfg, p, x0, mesh, True)
@@ -255,7 +283,7 @@ def test_placed_experts_refuse_the_dropless_path():
     cfg, p = _moe()
     mesh = _mesh((2, 4), 2)
     moe_ep.set_ep_mesh(mesh, ("data",))
-    placed = place_params({"ffn": p}, mesh)["ffn"]
+    placed, _ = _place_experts(p, mesh)
     moe_ep.set_ep_mesh(None, ("data",))
     with pytest.raises(ValueError, match="expert-parallel path"):
         layers.moe_forward(cfg, placed, _tokens(cfg, 0, 2, 8))

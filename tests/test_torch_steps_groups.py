@@ -1,25 +1,28 @@
-"""Routed experts at rest in device groups (``launch/sharding.place_params``
-/ ``gather_params``) through the model, the optimizer, the checkpoint and
-the train step (``launch/steps.build_train_step``).
+"""The MoE archs' params at rest in device groups (``launch/sharding.
+place_params`` / ``gather_params``) through the partitioned program, the
+optimizer, the checkpoint and the train step (``launch/steps.
+build_train_step``).
 
 Every grouping runs on the CPU (``devices=["cpu"] * G``).  Held here, for
 the smoke configs of both MoE archs (moonshot-v1-16b-a3b; deepseek-v3-671b,
-whose MTP block holds experts outside the layer stacks), float32 params:
+whose MTP block holds experts outside the layer stacks, and whose MLA
+attention runs replicated over ``model``), float32 params:
 
-* ``place_params`` cuts each routed-expert leaf (params and AdamW moments)
-  into G slices along the expert axis, the experts of each group's shards,
-  and leaves every other leaf as it is; ``gather_params`` gives back the
-  tree bitwise; with one group, without EP, or for a dense arch it changes
-  nothing;
-* a checkpoint of placed params and state saves each slice as a leaf of its
-  own and loads back bitwise, each slice onto its target's device;
-* the global norm over placed leaves is within 1e-6 relative of the norm
-  over the whole ones (the per-slice sums associate differently);
+* ``place_params`` holds every leaf (params and AdamW moments) as G group
+  stacks of its shards' blocks; a routed-expert leaf's block is the
+  experts its shard owns under the EP rule; ``gather_params`` gives back
+  the tree bitwise; on a one-shard mesh it changes nothing, and without EP
+  the experts take the TP/FSDP rule;
+* a checkpoint of placed params and state saves each group's stack as a
+  leaf of its own and loads back bitwise, each onto its target's device;
+* the global norm over placed gradients counts every block once and is
+  within 1e-6 relative of the norm over the whole ones (the per-block sums
+  associate differently);
 * step 0 of ``build_train_step`` on a (2, 4) mesh of G = 2 and 4 groups,
-  the experts placed: the loss and every gradient leaf bitwise with one
+  every leaf placed: the loss and every gradient leaf bitwise with one
   group; three steps: params, optimizer state and losses within rtol =
-  atol = 1e-6 (after the first update the global norm's association shows),
-  with the slices still in their groups.
+  atol = 1e-6 (on the CPU they are bitwise), the expert blocks in their
+  groups.
 """
 import numpy as np
 import pytest
@@ -29,9 +32,10 @@ from repro_torch.ckpt import load_checkpoint, save_checkpoint
 from repro_torch.ckpt.checkpoint import _flatten, _unflatten
 from repro_torch.configs import get_arch
 from repro_torch.core.mesh import ShardMesh
-from repro_torch.launch.sharding import gather_params, place_params
+from repro_torch.launch.sharding import (gather_params, param_specs,
+                                         place_batch, place_params)
 from repro_torch.launch.steps import StepConfig, build_train_step
-from repro_torch.models import ShapeCfg, init_params, loss_fn, moe_ep
+from repro_torch.models import ShapeCfg, init_params, moe_ep
 from repro_torch.optim import AdamWConfig, adamw_init
 from repro_torch.optim.adamw import _global_norm
 
@@ -50,10 +54,10 @@ def _no_ep_mesh_left():
     moe_ep.set_ep_mesh(None, ("data",))
 
 
-def _mesh(g):
+def _mesh(g, shape=(2, 4)):
     if g == 1:
-        return ShardMesh((2, 4), ("data", "model"), device="cpu")
-    return ShardMesh((2, 4), ("data", "model"), devices=["cpu"] * g)
+        return ShardMesh(shape, ("data", "model"), device="cpu")
+    return ShardMesh(shape, ("data", "model"), devices=["cpu"] * g)
 
 
 def _params(arch, seed=0):
@@ -74,56 +78,80 @@ def _batch(cfg, seed=0):
                 labels=toks[:, 1:].contiguous())
 
 
+def _specs(cfg, mesh):
+    """The param and AdamW-state specs under the EP mesh the train step
+    sets (``moe_ep.set_ep_mesh``)."""
+    _, structs = build_train_step(cfg, ShapeCfg("t", S, B, "train"), mesh,
+                                  StepConfig(optimizer=OPT))
+    return param_specs(structs[0], mesh), param_specs(structs[1], mesh)
+
+
+def _leaf_values(tree):
+    if isinstance(tree, dict):
+        return [x for v in tree.values() for x in _leaf_values(v)]
+    return [tree]
+
+
 @pytest.mark.parametrize("g", [2, 4])
 @pytest.mark.parametrize("arch", MOE_ARCHS)
 def test_place_and_gather_round_trip(arch, g):
     cfg, params = _params(arch)
     mesh = _mesh(g)
-    moe_ep.set_ep_mesh(mesh, ("data",))
+    ps, ss = _specs(cfg, mesh)
     state = adamw_init(params, OPT)
     experts = _expert_paths(params)
     assert experts and (arch != "deepseek-v3-671b" or any(
         "mtp" in p for p in experts))
-    for tree in (params, state):
-        placed = place_params(tree, mesh)
+    own = moe_ep._group_index(mesh, ("data", "model"))
+    e_loc = cfg.n_experts // mesh.size
+    for tree, specs in ((params, ps), (state, ss)):
+        placed = place_params(tree, mesh, specs)
         flat = dict(_flatten(tree))
         for path, leaf in _flatten(placed):
-            if path[:-1] in [("m",) + e for e in experts] + [
-                    ("v",) + e for e in experts] + experts:
-                whole = flat[path[:-1]]
-                lo, hi = moe_ep.expert_spans(mesh, cfg.n_experts)[
-                    int(path[-1])]
-                assert torch.equal(leaf, whole.narrow(-3, lo, hi - lo))
-                assert leaf.device == mesh.devices[int(path[-1])]
-            else:
-                assert leaf is flat[path]
-        assert len(_flatten(placed)) == len(flat) + (g - 1) * sum(
-            1 for p in flat if p in experts or p[1:] in experts)
-        back = gather_params(placed)
+            if path == ("step",):
+                assert torch.equal(leaf, flat[path])
+                continue
+            gi = int(path[-1])
+            assert leaf.device == mesh.devices[gi]
+            assert leaf.shape[0] == mesh.per_group
+            whole = flat[path[:-1]]
+            if path[:-1] in experts or path[1:-1] in experts:
+                for j, sh in enumerate(mesh.shards(gi)):
+                    lo = int(own[sh]) * e_loc
+                    assert torch.equal(leaf[j], whole.narrow(-3, lo, e_loc))
+        assert len(_flatten(placed)) == g * len(flat) - (g - 1) * (
+            "step" in tree)
+        back = gather_params(placed, mesh, specs)
         assert [p for p, _ in _flatten(back)] == list(flat)
         for path, leaf in _flatten(back):
             assert torch.equal(leaf, flat[path]), path
 
 
 def test_place_params_keeps_one_group_and_dense_trees():
+    """A one-shard mesh keeps every tree; one group of the (2, 4) mesh
+    places every leaf, a dense tree's too; without EP the experts take the
+    TP/FSDP rule."""
     cfg, params = _params("moonshot-v1-16b-a3b")
-    moe_ep.set_ep_mesh(_mesh(1), ("data",))
-    assert place_params(params, _mesh(1)) is params
-    moe_ep.set_ep_mesh(None, ("data",))
-    assert place_params(params, _mesh(2)) is params      # EP not engaged
+    flat = _mesh(1, (1, 1))
+    moe_ep.set_ep_mesh(flat, ("data",))
+    assert place_params(params, flat) is params
     _, dense = _params("granite-34b")
-    moe_ep.set_ep_mesh(_mesh(2), ("data",))
-    placed = place_params(dense, _mesh(2))
-    assert all(a is b for (_, a), (_, b) in zip(_flatten(placed),
-                                                _flatten(dense)))
+    assert place_params(dense, flat) is dense
+    placed = place_params(dense, _mesh(1))
+    assert all(isinstance(x, tuple) and len(x) == 1 and x[0].shape[0] == 8
+               for x in _leaf_values(placed))
+    moe_ep.set_ep_mesh(None, ("data",))
+    spec = param_specs(params, _mesh(2))["stacks"]["moe"]["ffn"]["wu"]
+    assert spec == (None, "model", ("data",), None)
 
 
 @pytest.mark.parametrize("g", [2, 4])
 def test_checkpoint_of_placed_params_round_trips(g, tmp_path):
     cfg, params = _params("deepseek-v3-671b", seed=3)
     mesh = _mesh(g)
-    moe_ep.set_ep_mesh(mesh, ("data",))
-    tree = place_params(dict(p=params, o=adamw_init(params, OPT)), mesh)
+    ps, ss = _specs(cfg, mesh)
+    tree = dict(p=place_params(params, mesh, ps),
+                o=place_params(adamw_init(params, OPT), mesh, ss))
     save_checkpoint(str(tmp_path), 5, tree)
     blank = _unflatten(tree, iter(torch.zeros_like(x)
                                   for _, x in _flatten(tree)))
@@ -140,21 +168,12 @@ def test_checkpoint_of_placed_params_round_trips(g, tmp_path):
 def test_global_norm_over_placed_leaves(g):
     cfg, params = _params("moonshot-v1-16b-a3b", seed=5)
     mesh = _mesh(g)
-    moe_ep.set_ep_mesh(mesh, ("data",))
+    fn, structs = build_train_step(cfg, ShapeCfg("t", S, B, "train"), mesh,
+                                   StepConfig(optimizer=OPT))
     whole = float(_global_norm([x for _, x in _flatten(params)]))
-    placed = float(_global_norm([x for _, x in _flatten(
-        place_params(params, mesh))]))
+    placed = float(fn.plan.global_norm(place_params(
+        params, mesh, param_specs(structs[0], mesh))))
     assert abs(placed - whole) <= 1e-6 * whole
-
-
-def _step_grads(cfg, params, batch):
-    """The loss and gradients the train step takes (``build_train_step``'s
-    own lines), the gradient tree in ``params``'s structure."""
-    leaves = [p.detach().requires_grad_() for _, p in _flatten(params)]
-    loss = loss_fn(cfg, _unflatten(params, iter(leaves)), batch,
-                   remat="full")
-    return loss.detach(), _unflatten(params, iter(torch.autograd.grad(
-        loss, leaves)))
 
 
 @pytest.mark.parametrize("g", [2, 4])
@@ -165,28 +184,32 @@ def test_grouped_train_step_matches_one_group(arch, g):
     shape = ShapeCfg("t", S, B, "train")
     runs = []
     for mesh in (_mesh(1), _mesh(g)):
-        step, _ = build_train_step(cfg, shape, mesh, StepConfig(
+        step, structs = build_train_step(cfg, shape, mesh, StepConfig(
             optimizer=OPT))
         assert moe_ep.get_ep_mesh() is mesh
-        p = place_params(params, mesh)
-        st = place_params(adamw_init(params, OPT), mesh)
-        loss0, grads = _step_grads(cfg, p, batch)
+        ps, ss = param_specs(structs[0], mesh), param_specs(structs[1], mesh)
+        p = place_params(params, mesh, ps)
+        st = place_params(adamw_init(params, OPT), mesh, ss)
+        loss0, grads = step.plan.loss_and_grads(p, place_batch(batch, mesh))
         losses = []
         for _ in range(3):
             p, st, loss = step(p, st, batch)
             losses.append(loss)
-        runs.append((loss0, gather_params(grads), losses, p, st))
+        runs.append((loss0, gather_params(grads, mesh, ps), losses,
+                     gather_params(p, mesh, ps), gather_params(st, mesh, ss),
+                     p))
         moe_ep.set_ep_mesh(None, ("data",))
-    (l1, g1, ls1, p1, s1), (lg, gg, lsg, pg, sg) = runs
+    (l1, g1, ls1, p1, s1, _), (lg, gg, lsg, pg, sg, placed) = runs
     assert torch.equal(lg, l1) and torch.equal(lsg[0], ls1[0])
     for (path, a), (_, b) in zip(_flatten(gg), _flatten(g1)):
         assert torch.equal(a, b), path
+    leaf = dict(_flatten(placed))
     for path in _expert_paths(params):
-        leaf = dict(_flatten(pg))
-        assert all((path + (str(i),)) in leaf for i in range(g))
+        assert all(leaf[path + (str(i),)].device == _mesh(g).devices[i]
+                   for i in range(g))
     assert max(float((a - b).abs().max()) for (_, a), (_, b) in zip(
         _flatten(p1), _flatten(params))) > 1e-3          # the steps moved
-    for (path, a), (_, b) in zip(_flatten(gather_params(dict(p=pg, o=sg))),
+    for (path, a), (_, b) in zip(_flatten(dict(p=pg, o=sg)),
                                  _flatten(dict(p=p1, o=s1))):
         torch.testing.assert_close(a, b, rtol=1e-6, atol=1e-6,
                                    msg=str(path))

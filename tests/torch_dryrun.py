@@ -27,6 +27,22 @@ ARCHS = ["minicpm-2b", "hubert-xlarge", "mamba2-2.7b", "zamba2-2.7b",
 SHAPES = ["train_4k", "prefill_32k", "decode_32k", "long_500k"]
 CELLS = [(a, s) for a in ARCHS for s in SHAPES]
 
+# The archs whose cells each dry-run file runs, so that no file holds more
+# than about 300 s of case time (the driver keeps a file on one worker):
+# "a" tests/test_torch_dryrun.py and test_torch_dryrun_multipod.py, "b"
+# the *_b.py files, "c" the *_c.py files.
+ARCH_SLICES = {
+    "a": ("minicpm-2b", "hubert-xlarge", "moonshot-v1-16b-a3b",
+          "nemotron-4-15b", "deepseek-v3-671b"),
+    "b": ("granite-34b", "qwen2-vl-72b", "qwen1.5-110b"),
+    "c": ("mamba2-2.7b", "zamba2-2.7b"),
+}
+
+
+def cells(part: str):
+    """The cells of ``CELLS`` whose arch is in slice ``part``."""
+    return [c for c in CELLS if c[0] in ARCH_SLICES[part]]
+
 
 class FakeMesh:
     """A JAX-mesh stand-in with ``shape``, ``axis_names`` and ``size``
