@@ -43,8 +43,8 @@ from ..models.partitioned import Partitioned
 from ..models.serving import serving_padded
 from ..optim import AdamWConfig, adamw_init, adamw_update, wsd_schedule
 from .mesh import dp_axes
-from .sharding import (cache_specs, is_placed, param_specs, place_batch,
-                       place_cache, sanitize_spec)
+from .sharding import (batch_specs, cache_specs, is_placed, param_specs,
+                       place_batch, place_cache, sanitize_spec)
 
 N_PATCHES = 256  # vision stub: patches per sample in vlm cells
 
@@ -225,9 +225,12 @@ def build_decode_step(cfg: ArchConfig, shape: ShapeCfg, mesh,
         cfg = serving_padded(cfg, axis_sizes(mesh)["model"])
 
     params_s, cache_s = abstract_params(cfg), abstract_cache(cfg, shape)
+    tokens_s = batch_struct(cfg, shape)["tokens"]
     plan = _plan(cfg, mesh, params_s, step_cfg)
     if plan is not None:
         cspecs = cache_specs(cache_s, mesh, shape.global_batch)
+        tspec = batch_specs(dict(tokens=tokens_s), mesh,
+                            shape.global_batch)["tokens"]
 
     def serve(params, caches, tokens, pos):
         with torch.no_grad():
@@ -238,12 +241,11 @@ def build_decode_step(cfg: ArchConfig, shape: ShapeCfg, mesh,
                                    shape.global_batch)["tokens"]
                 return plan.decode(params, caches, cspecs, tokens, int(pos),
                                    logits_spec(cfg, shape, mesh,
-                                               decode=True))
+                                               decode=True), tspec[0])
             return decode_step(cfg, params, caches, tokens, int(pos))
 
     serve.plan = plan
-    return serve, (params_s, cache_s, batch_struct(cfg, shape)["tokens"],
-                   _meta((), torch.int32))
+    return serve, (params_s, cache_s, tokens_s, _meta((), torch.int32))
 
 
 def build_step(cfg: ArchConfig, shape: ShapeCfg, mesh,

@@ -222,14 +222,16 @@ def _write_cache(buf: torch.Tensor, new: torch.Tensor, pos: int
 def attn_forward(cfg: ArchConfig, p: dict, x: torch.Tensor, pos: torch.Tensor,
                  cache: Optional[dict] = None, cache_pos: Optional[int] = None,
                  pos3: Optional[torch.Tensor] = None,
-                 kv_heads: Optional[Tuple[int, int]] = None
+                 kv_heads: Optional[Tuple[int, int]] = None,
+                 partial: bool = False
                  ) -> Tuple[torch.Tensor, Optional[dict]]:
     """x: [B, S, D].  With ``cache``, writes new kv at ``cache_pos`` and
     attends over the cache (decode / incremental prefill).  The head
     counts are the weights' own, so a tensor-parallel shard runs this on
     its heads' columns of ``wq``/``wk``/``wv`` and rows of ``wo`` (its
-    output is then a partial sum).  ``kv_heads`` ``(lo, hi)``: the kv heads
-    its q heads attend to, where ``wk``/``wv`` (and the cache) hold more."""
+    output is then a partial sum, float32 with ``partial``: see
+    ``out_proj``).  ``kv_heads`` ``(lo, hi)``: the kv heads its q heads
+    attend to, where ``wk``/``wv`` (and the cache) hold more."""
     s = x.shape[1]
     q = torch.einsum("bsd,dhk->bshk", x, p["wq"])
     k = torch.einsum("bsd,dhk->bshk", x, p["wk"])
@@ -257,18 +259,22 @@ def attn_forward(cfg: ArchConfig, p: dict, x: torch.Tensor, pos: torch.Tensor,
         if kv_heads is not None:
             k, v = (t[:, :, kv_heads[0]:kv_heads[1]] for t in (k, v))
         o = flash_attention(q, k, v, causal=not cfg.encoder_only)
-    out = torch.einsum("bshk,hkd->bsd", o, p["wo"])
-    return out, cache
+    return out_proj("bshk,hkd->bsd", o, p["wo"], partial), cache
 
 
 # ---------------------------------------------------------------------------
 # MLA attention (DeepSeek-V3): low-rank q/kv with compressed KV cache
 # ---------------------------------------------------------------------------
 def mla_forward(cfg: ArchConfig, p: dict, x: torch.Tensor, pos: torch.Tensor,
-                cache: Optional[dict] = None, cache_pos: Optional[int] = None
+                cache: Optional[dict] = None, cache_pos: Optional[int] = None,
+                partial: bool = False
                 ) -> Tuple[torch.Tensor, Optional[dict]]:
+    """The head count is ``wuq``'s own, so a tensor-parallel shard runs
+    this on its heads of ``wuq``/``wuk``/``wuv`` and rows of ``wo`` (its
+    output is then a partial sum, float32 with ``partial``); the latent is
+    whole on every shard."""
     b, s, _ = x.shape
-    h = cfg.n_heads
+    h = p["wuq"].shape[-2]
     dn, dr = cfg.qk_nope_dim, cfg.qk_rope_dim
     # --- queries through the q-LoRA path
     cq = rms_norm(torch.einsum("bsd,dr->bsr", x, p["wdq"]), p["q_norm"],
@@ -303,22 +309,33 @@ def mla_forward(cfg: ArchConfig, p: dict, x: torch.Tensor, pos: torch.Tensor,
                       dim=-1)
         q_full = torch.cat([q_nope, q_rope], dim=-1)
         o = flash_attention(q_full, k, v, causal=True)
-    out = torch.einsum("bshk,hkd->bsd", o, p["wo"])
-    return out, cache
+    return out_proj("bshk,hkd->bsd", o, p["wo"], partial), cache
 
 
 # ---------------------------------------------------------------------------
 # FFN + MoE
 # ---------------------------------------------------------------------------
-def ffn_forward(cfg: ArchConfig, p: dict, x: torch.Tensor) -> torch.Tensor:
+def out_proj(eq: str, x: torch.Tensor, w: torch.Tensor,
+             partial: bool = False) -> torch.Tensor:
+    """A layer's last projection.  ``partial``: a tensor-parallel shard's
+    share of a sum over its rows of ``w``, kept in float32, so the psum
+    that adds the shards' shares rounds once, as the one-device product
+    does (bf16 shares each rounded put mamba2's outputs several percent
+    off over a few layers)."""
+    if partial:
+        return torch.einsum(eq, x.float(), w.float())
+    return torch.einsum(eq, x, w)
+
+
+def ffn_forward(cfg: ArchConfig, p: dict, x: torch.Tensor,
+                partial: bool = False) -> torch.Tensor:
     f = act_fn(cfg.act)
     if cfg.gated_ffn:
-        return torch.einsum(
-            "bsf,fd->bsd",
-            f(torch.einsum("bsd,df->bsf", x, p["wg"]))
-            * torch.einsum("bsd,df->bsf", x, p["wu"]), p["wd"])
-    return torch.einsum("bsf,fd->bsd",
-                        f(torch.einsum("bsd,df->bsf", x, p["wu"])), p["wd"])
+        h = f(torch.einsum("bsd,df->bsf", x, p["wg"])) \
+            * torch.einsum("bsd,df->bsf", x, p["wu"])
+    else:
+        h = f(torch.einsum("bsd,df->bsf", x, p["wu"]))
+    return out_proj("bsf,fd->bsd", h, p["wd"], partial)
 
 
 def top_k(x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -360,10 +377,27 @@ def grouped_matmul(xs: torch.Tensor, w: torch.Tensor, sizes) -> torch.Tensor:
 
 
 def moe_forward(cfg: ArchConfig, p: dict, x: torch.Tensor) -> torch.Tensor:
-    """Dropless MoE: router top-k -> sort tokens by expert -> grouped matmul.
+    """Dropless MoE: router top-k -> sort tokens by expert -> grouped matmul,
+    plus the shared experts.
 
     x: [B, S, D].  Expert weights: [E, D, F] / [E, F, D] (+gate for swiglu).
     """
+    b, s, d = x.shape
+    out = moe_routed(cfg, p, x)
+    if cfg.n_shared_experts:
+        sh = dict(wg=p["shared_wg"], wu=p["shared_wu"], wd=p["shared_wd"]) \
+            if cfg.gated_ffn else dict(wu=p["shared_wu"], wd=p["shared_wd"])
+        out = out + ffn_forward(cfg, sh, x).reshape(b * s, d)
+    return out.reshape(b, s, d).to(x.dtype)
+
+
+def moe_routed(cfg: ArchConfig, p: dict, x: torch.Tensor,
+               experts: Optional[Tuple[int, int]] = None) -> torch.Tensor:
+    """The routed experts of ``moe_forward``: [B * S, D] in the experts'
+    dtype.  ``experts`` ``(lo, hi)``: ``wu``/``wg``/``wd`` hold only those
+    experts (a tensor-parallel shard's block); routing is over all of them,
+    the rows routed elsewhere give zeros, and the output is this block's
+    partial sum."""
     if isinstance(p["wu"], tuple):
         raise ValueError("routed experts placed in device groups take the "
                          "expert-parallel path (launch/sharding."
@@ -383,6 +417,11 @@ def moe_forward(cfg: ArchConfig, p: dict, x: torch.Tensor) -> torch.Tensor:
     # and a permutation, so no backward adds into one row from many
     xs = xt[:, None, :].expand(n_tok, k, d).reshape(t, d)[order]   # [T, D]
     sizes = group_sizes(flat_exp, e)
+    if experts is not None:
+        # the block's experts hold one contiguous run of the sorted rows
+        lo, hi = experts
+        start, rows = sum(sizes[:lo]), sum(sizes[lo:hi])
+        xs, sizes = xs[start:start + rows], sizes[lo:hi]
 
     f = act_fn(cfg.act)
     if cfg.gated_ffn:
@@ -391,6 +430,9 @@ def moe_forward(cfg: ArchConfig, p: dict, x: torch.Tensor) -> torch.Tensor:
     else:
         hidden = f(grouped_matmul(xs, p["wu"], sizes))
     ys = grouped_matmul(hidden, p["wd"], sizes)                 # [T, D]
+    if experts is not None:
+        ys = torch.cat([ys.new_zeros((start, d)), ys,
+                        ys.new_zeros((t - start - rows, d))])
     gate_flat = gates.reshape(t)[order]
     ys = ys * gate_flat[:, None].to(ys.dtype)
 
@@ -403,9 +445,4 @@ def moe_forward(cfg: ArchConfig, p: dict, x: torch.Tensor) -> torch.Tensor:
     out = torch.zeros((n_tok, d), dtype=ys.dtype, device=x.device)
     for j in range(k):
         out = out + per_tok[:, j]
-
-    if cfg.n_shared_experts:
-        sh = dict(wg=p["shared_wg"], wu=p["shared_wu"], wd=p["shared_wd"]) \
-            if cfg.gated_ffn else dict(wu=p["shared_wu"], wd=p["shared_wd"])
-        out = out + ffn_forward(cfg, sh, x).reshape(n_tok, d)
-    return out.reshape(b, s, d).to(x.dtype)
+    return out

@@ -70,12 +70,15 @@ def ssd_chunked(xh: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
                                  device=xh.device))
 
     # per-head [B,C,Q,Q] decay matrix, one head at a time: the H axis of
-    # the decay is never materialized
+    # the decay is never materialized.  The masked (k > q) entries go to
+    # -inf before the exp: their exp(seg) overflows in a long chunk, and
+    # where(mask, exp(seg), 0)'s gradient is then 0 * inf = NaN (the
+    # reference's formulation; ROADMAP C7).  The values are the same.
     y_intra = []
     for hh in range(h):
         cum_h = cum[..., hh]                        # [B,C,Q]
         seg = cum_h[:, :, :, None] - cum_h[:, :, None, :]
-        L = torch.where(mask, torch.exp(seg), 0.0)
+        L = torch.exp(torch.where(mask, seg, -torch.inf))
         y_intra.append(torch.einsum("bcqk,bckp->bcqp", scores * L,
                                     xdt[..., hh, :]))
     y_intra = torch.stack(y_intra, dim=-2)                  # [B,C,Q,H,P]
@@ -106,15 +109,46 @@ def mamba_forward(cfg: ArchConfig, p: dict, x: torch.Tensor,
                   ) -> Tuple[torch.Tensor, Optional[dict]]:
     """One Mamba2 block.  x: [B, S, D].  Decode when ``cache`` is given
     (S == 1): conv window + SSM state recurrence."""
-    b, s, _ = x.shape
+    proj = torch.einsum("bsd,dc->bsc", x, p["in_proj"])
+    y, new_conv, new_ssm = mamba_mix(cfg, p, proj, cache)
+    y = rms_norm(y, p["out_norm"], cfg.norm_eps)
+    out = torch.einsum("bsc,cd->bsd", y, p["out_proj"])
+    new_cache = None
+    if cache is not None:
+        new_cache = dict(conv=new_conv.to(cache["conv"].dtype),
+                         ssm=new_ssm.to(cache["ssm"].dtype))
+    return out, new_cache
+
+
+def mamba_mix(cfg: ArchConfig, p: dict, proj: torch.Tensor,
+              cache: Optional[dict] = None,
+              heads: Optional[Tuple[int, int]] = None):
+    """The block from its input projection ``proj`` [B, S, C] (whole: the
+    columns ``[z | x | B | C | dt]``) to the gated SSD output, before the
+    norm: ``(y [B, S, h * P], new conv state, new SSM state)``, the states
+    None without ``cache``.  ``heads`` ``(h0, h1)``: run only those SSM
+    heads (a tensor-parallel shard's block): ``A_log``, ``D``, ``dt_bias``
+    and the cache's ``ssm`` hold only them, ``conv_w``, ``conv_b`` and the
+    cache's ``conv`` are whole, and the conv state returned holds the
+    heads' ``x`` columns and the whole ``B``/``C``."""
+    b, s, _ = proj.shape
     di, n, hdim = cfg.d_inner, cfg.ssm_state, cfg.ssm_head_dim
     h = cfg.ssm_heads
-    proj = torch.einsum("bsd,dc->bsc", x, p["in_proj"])
     z, xc, Bm, Cm, dt = torch.split(proj, [di, di, n, n, h], dim=-1)
-    conv_in = torch.cat([xc, Bm, Cm], dim=-1)
+    conv_w, conv_b = p["conv_w"], p["conv_b"]
     conv_state = cache["conv"] if cache is not None else None
-    conv_out, new_conv = _dw_conv(conv_in, p["conv_w"], conv_state)
-    conv_out = silu(conv_out + p["conv_b"])
+    if heads is not None:
+        h0, h1 = heads
+        c0, c1 = h0 * hdim, h1 * hdim
+        own = lambda t: torch.cat([t[..., c0:c1], t[..., di:]], dim=-1)
+        z, xc, dt = z[..., c0:c1], xc[..., c0:c1], dt[..., h0:h1]
+        conv_w, conv_b = own(conv_w), own(conv_b)
+        if conv_state is not None:
+            conv_state = own(conv_state)
+        h, di = h1 - h0, c1 - c0
+    conv_in = torch.cat([xc, Bm, Cm], dim=-1)
+    conv_out, new_conv = _dw_conv(conv_in, conv_w, conv_state)
+    conv_out = silu(conv_out + conv_b)
     xc, Bm, Cm = torch.split(conv_out, [di, n, n], dim=-1)
 
     A = -torch.exp(p["A_log"].float())                       # [H]
@@ -131,7 +165,7 @@ def mamba_forward(cfg: ArchConfig, p: dict, x: torch.Tensor,
         else:
             xh2, dt2, B2, C2 = xh, dt, Bm, Cm
         y = ssd_chunked(xh2, dt2, A, B2, C2, cfg.ssm_chunk)[:, :s]
-        new_ssm = None
+        new_ssm = new_conv = None
     else:
         # O(1) recurrence: state [B,H,P,N]
         st = cache["ssm"].float()
@@ -144,14 +178,7 @@ def mamba_forward(cfg: ArchConfig, p: dict, x: torch.Tensor,
         new_ssm = st
 
     y = y + xh * p["D"][None, None, :, None]
-    y = y.reshape(b, s, di) * silu(z)
-    y = rms_norm(y, p["out_norm"], cfg.norm_eps)
-    out = torch.einsum("bsc,cd->bsd", y, p["out_proj"])
-    new_cache = None
-    if cache is not None:
-        new_cache = dict(conv=new_conv.to(cache["conv"].dtype),
-                         ssm=new_ssm.to(cache["ssm"].dtype))
-    return out, new_cache
+    return y.reshape(b, s, di) * silu(z), new_conv, new_ssm
 
 
 def mamba_param_shapes(cfg: ArchConfig):

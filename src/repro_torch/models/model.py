@@ -339,9 +339,17 @@ def embed_inputs(cfg: ArchConfig, params, batch
         x = batch["frames"]
         pos = torch.arange(x.shape[1], device=x.device)[None, :]
         return x, pos, None
+    return finish_inputs(cfg, embed_tokens(params, batch["tokens"]), batch)
+
+
+def finish_inputs(cfg: ArchConfig, x: torch.Tensor, batch
+                  ) -> Tuple[torch.Tensor, torch.Tensor,
+                             Optional[torch.Tensor]]:
+    """``embed_inputs`` after the token lookup ``x``: the vision patches
+    scattered over their placeholders, and the positions (a partitioned
+    step looks the tokens up vocab-parallel, then scatters)."""
     tokens = batch["tokens"]
     b, s = tokens.shape
-    x = embed_tokens(params, tokens)
     if cfg.frontend == "vision" and "patch_embeds" in batch:
         # scatter precomputed patch embeddings over placeholder positions
         pe, pp = batch["patch_embeds"], batch["patch_pos"]
@@ -369,6 +377,31 @@ def masked_ce_sums(logits: torch.Tensor, labels: torch.Tensor,
     gold = torch.gather(logits, -1,
                         torch.clamp(labels, min=0).long()[..., None])[..., 0]
     return torch.sum((lse - gold) * mask), mask.sum()
+
+
+def vocab_parallel_ce_sums(logits, labels, masks, starts, psum, pmax):
+    """``masked_ce_sums`` with the vocab split over shards (a partitioned
+    step's ``model`` axis), one list entry a shard: each shard's logits
+    block [..., V / m], its labels and mask, and ``starts``, its block's
+    first vocab id.  ``psum`` / ``pmax`` take such a list and reduce it
+    over the shards that split one row's vocab.  The row max is detached
+    and maxed over them, the sum of exponentials and the gold logit (from
+    the shard that owns the label) summed; differentiation through the
+    ``psum`` is exact.  Returns each shard's (sum, count), equal on the
+    shards of one row."""
+    lf = [x.float() for x in logits]
+    mx = pmax([x.detach().amax(-1) for x in lf])
+    se = psum([torch.sum(torch.exp(x - m[..., None]), -1)
+               for x, m in zip(lf, mx)])
+    gold = []
+    for x, lab, lo in zip(lf, labels, starts):
+        ids = torch.clamp(lab, min=0).long() - lo
+        own = (ids >= 0) & (ids < x.shape[-1])
+        g = torch.gather(x, -1, torch.where(own, ids, 0)[..., None])[..., 0]
+        gold.append(torch.where(own, g, 0.0))
+    gold = psum(gold)
+    return [(torch.sum((torch.log(e) + m - g) * mask), mask.sum())
+            for e, m, g, mask in zip(se, mx, gold, masks)]
 
 
 def _masked_ce(logits: torch.Tensor, labels: torch.Tensor,

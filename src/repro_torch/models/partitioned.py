@@ -15,22 +15,57 @@ Per layer, the reference's scheme (DESIGN.md §6):
 
 * **FSDP**: each leaf is all-gathered over the data axes before use; the
   gather's gradient is a reduce-scatter back to the blocks' owners;
-* **TP (Megatron)**: attention (MHA, GQA, MQA) and the dense FFN run on the
-  shard's heads / hidden columns of ``wq``/``wk``/``wv``/``wu``/``wg``
-  (gathered over data only) and rows of ``wo``/``wd``; one ``psum`` over
-  ``model`` a block sums the partial outputs.  A shard whose q heads share
-  kv heads it does not hold whole (MQA, or kv heads ``model`` does not
-  divide) takes the whole ``wk``/``wv`` and attends with its own kv heads
-  (``layers.attn_forward``'s ``kv_heads``);
-* **every other leaf** (``embed``, ``lm_head``, the norms, MLA, mamba2, the
-  router, the shared experts, the MTP block) is gathered over every axis
-  of its spec, and its compute is replicated over ``model``;
-* **the routed experts** keep EP: each shard routes its token block
+* **TP (Megatron)** over ``model``: a shard computes with its own
+  ``model`` block of every leaf the specs split there, and one ``psum``
+  over ``model`` sums the partial outputs, kept in float32 and rounded
+  once (``layers.out_proj``):
+  - attention (MHA, GQA, MQA): the shard's heads of ``wq``/``wk``/``wv``
+    (and ``bq``/``bk``/``bv``) and rows of ``wo``.  A shard whose q heads
+    share kv heads it does not hold whole (MQA, or kv heads ``model`` does
+    not divide) takes the whole ``wk``/``wv`` and attends with its own kv
+    heads (``layers.attn_forward``'s ``kv_heads``);
+  - MLA: the shard's heads of ``wuq``/``wuk``/``wuv`` and rows of ``wo``;
+    the absorbed decode contracts every head over the whole latent, so
+    the ``ckv`` cache is gathered in and each shard keeps its block;
+  - the dense FFN and the shared experts: column-parallel ``wu``/``wg``,
+    row-parallel ``wd``;
+  - the routed experts without EP (the spec's ``("model", dp, None)``):
+    each shard runs the dropless layer over its own experts for every
+    token, routing replicated (``layers.moe_routed``);
+  - mamba2 over its SSM heads: ``in_proj`` column-parallel on its block,
+    then its output gathered over ``model`` (the columns ``[z | x | B | C
+    | dt]`` do not split on head boundaries; with fewer tokens a shard
+    than d_model this moves fewer bytes than gathering the weight); each
+    shard's heads of ``z``/``x``/``dt``, the whole ``B``/``C``, its
+    blocks of ``A_log``/``D``/``dt_bias``, the ``ssm`` cache and the rows
+    of ``out_proj``; ``out_norm``'s sum of squares is psum'd over
+    ``model``;
+  - ``embed`` and ``lm_head`` where ``model`` divides the vocab: the
+    lookup of each shard's vocab block, zero elsewhere, psum'd (one term
+    is nonzero, so it is the whole lookup bit for bit); the head gives
+    each shard its logits block and the cross-entropy is vocab-parallel
+    (``model.vocab_parallel_ce_sums``); MTP's ``proj`` is column-parallel,
+    its output gathered over ``model``;
+* **still gathered whole over ``model``**: MLA's ``wdq`` (its ``q_lora``
+  columns feed an RMS norm over the whole ``q_lora``), mamba2's ``conv_w``
+  and ``conv_b`` (a shard needs its heads' ``x`` channels and the whole
+  ``B``/``C``, not one contiguous block; 4 x C and C values), and any leaf
+  whose spec ``sanitize_spec`` left without ``model`` (a vocab, head count
+  or hidden width ``model`` does not divide: minicpm-2b's 122,753-entry
+  vocab), whose compute is then replicated over ``model``;
+* **the routed experts** under EP: each shard routes its token block
   (``moe_ep.TokenLayout``), the buffers cross ``ShardMesh.all_to_all`` and
   each shard's experts are its own block of the EP rule
   (``moe_ep.ep_groups``);
 * **the loss** is the reference's global mean: the masked CE sum and the
   mask count are psum'd over the data axes before they divide.
+
+Decode caches rest by ``cache_specs``; each layer reshards its leaves to
+the form its compute takes (the batch over the data axes, the heads over
+``model`` where TP) and back (``reshard``), reading from each spec which
+dim the data axes shard: the hybrid stack's shared-attention cache rests
+with the sequence on the data axes and ``hd`` on ``model``, as the
+reference places it (its spec counts two stacked axes where there is one).
 
 The gradient is exact differentiation of the loss as shard 0 holds it
 (every shard holds the same value).  A leaf that the spec replicates has
@@ -45,13 +80,15 @@ from __future__ import annotations
 from typing import Any, List, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from ..core.mesh import ShardMesh, axis_sizes, spec_entry_axes
 from .config import ArchConfig
-from .layers import (attn_forward, ffn_forward, mla_forward, moe_forward,
-                     rms_norm, weak)
-from .mamba2 import mamba_forward
-from .model import _maybe_remat, embed_inputs, layer_plan, masked_ce_sums
+from .layers import (attn_forward, ffn_forward, mla_forward, moe_routed,
+                     out_proj, rms_norm, weak)
+from .mamba2 import mamba_forward, mamba_mix
+from .model import (_maybe_remat, embed_inputs, finish_inputs, layer_plan,
+                    masked_ce_sums, vocab_parallel_ce_sums)
 from . import moe_ep
 
 Tree = Any
@@ -120,6 +157,14 @@ class Partitioned:
         self.msize = axis_sizes(mesh)["model"]
         mi = mesh.axis_names.index("model")
         self.model_idx = [mesh.coords(s)[mi] for s in range(mesh.size)]
+        self.vocab_tp = self._split(specs["lm_head"], 1)
+        # the spec entry of the batch the decode caches serve (the data
+        # axes, or None where they do not divide it): ``decode`` sets it
+        self.batch_entry = None
+
+    def _split(self, spec, d: int) -> bool:
+        """Whether ``model`` (of more than one shard) splits dim ``d``."""
+        return self.msize > 1 and "model" in spec_entry_axes(spec[d])
 
     # -- per-shard values ----------------------------------------------------
     def groups(self, vals: PerShard):
@@ -143,20 +188,32 @@ class Partitioned:
                 xs = self.mesh.all_gather(xs, axes, d, dim=0, tiled=True)
         return self.shards(xs)
 
-    def use_tree(self, tree: Tree, specs: Tree, keep=()) -> PerShard:
-        """``use`` over a dict of placed leaves: one dict a shard."""
+    def use_tree(self, tree: Tree, specs: Tree, keep=(),
+                 whole=()) -> PerShard:
+        """``use`` over a dict of placed leaves: one dict a shard; the
+        leaves named in ``whole`` are gathered over every axis."""
         if tree is None:
             return [None] * self.mesh.size
         out = [dict() for _ in range(self.mesh.size)]
         for k, v in tree.items():
-            vals = (self.use_tree(v, specs[k], keep) if isinstance(v, dict)
-                    else self.use(v, specs[k], keep))
+            kk = () if k in whole else keep
+            vals = (self.use_tree(v, specs[k], kk, whole)
+                    if isinstance(v, dict) else self.use(v, specs[k], kk))
             for o, x in zip(out, vals):
                 o[k] = x
         return out
 
     def psum(self, vals: PerShard, axes) -> PerShard:
         return self.shards(self.mesh.psum(self.groups(vals), axes, dim=0))
+
+    def pmax(self, vals: PerShard, axes) -> PerShard:
+        return self.shards(self.mesh.pmax(self.groups(vals), axes, dim=0))
+
+    def gather(self, vals: PerShard, d: int, axes=("model",)) -> PerShard:
+        """Each shard's value concatenated along its dim ``d`` over
+        ``axes`` (a tiled ``all_gather``; its gradient a reduce-scatter)."""
+        return self.shards(self.mesh.all_gather(self.groups(vals), axes, d,
+                                                dim=0, tiled=True))
 
     def _own(self, x: torch.Tensor, spec, s: int, keep) -> torch.Tensor:
         """Shard ``s``'s block of a value ``use`` gathered (the dims whose
@@ -165,28 +222,56 @@ class Partitioned:
                     for e in spec)
         return self.mesh.block_of(x, own, s)
 
+    def reshard(self, groups, src, dst):
+        """A placed value from spec ``src`` to spec ``dst``: gathered over
+        ``src``'s axes on each dim where the two differ, then each shard's
+        block of ``dst`` on those dims."""
+        same = [spec_entry_axes(a) == spec_entry_axes(b)
+                for a, b in zip(src, dst)]
+        for d, (a, eq) in enumerate(zip(src, same)):
+            if spec_entry_axes(a) and not eq:
+                groups = self.mesh.all_gather(groups, spec_entry_axes(a), d,
+                                              dim=0, tiled=True)
+        own = tuple(None if eq else b for b, eq in zip(dst, same))
+        if not any(spec_entry_axes(e) for e in own):
+            return groups
+        return self.groups([self.mesh.block_of(x, own, s)
+                            for s, x in enumerate(self.shards(groups))])
+
     # -- caches ---------------------------------------------------------------
-    def cache_in(self, cache, keep) -> PerShard:
-        """A layer's placed cache ``(tree, specs)`` for its compute: each
-        shard's dict, gathered over every axis but the batch's data axes
-        and ``keep``."""
+    def _compute_spec(self, name: str, spec, heads):
+        """The spec of a cache leaf as a layer computes with it: the batch
+        (dim 0) on the batch's data entry, the heads of ``k``/``v`` (dim 2)
+        and ``ssm`` (dim 1) on ``heads``, every other dim whole."""
+        out = [self.batch_entry] + [None] * (len(spec) - 1)
+        if name in ("k", "v"):
+            out[2] = heads
+        elif name == "ssm":
+            out[1] = heads
+        return tuple(out)
+
+    def cache_in(self, cache, heads=None) -> PerShard:
+        """A layer's placed cache ``(tree, specs)`` in its compute form
+        (``_compute_spec``): one dict a shard."""
         if cache is None:
             return [None] * self.mesh.size
         tree, specs = cache
-        return self.use_tree(tree, specs, keep + self.dp)
+        out = [dict() for _ in range(self.mesh.size)]
+        for k in tree:
+            vals = self.shards(self.reshard(
+                tree[k], specs[k], self._compute_spec(k, specs[k], heads)))
+            for o, x in zip(out, vals):
+                o[k] = x
+        return out
 
-    def cache_out(self, cache, new: PerShard, keep):
-        """The new per-shard caches back in placed form: each shard's own
-        block of what ``cache_in`` gathered."""
+    def cache_out(self, cache, new: PerShard, heads=None):
+        """The new per-shard caches, in compute form, back at rest."""
         if cache is None:
             return None
         _, specs = cache
-        keep = keep + self.dp
-
-        def one(k, spec):
-            return self.groups([self._own(n[k], spec, s, keep)
-                                for s, n in enumerate(new)])
-        return {k: one(k, specs[k]) for k in specs}
+        return {k: self.reshard(self.groups([n[k] for n in new]),
+                                self._compute_spec(k, specs[k], heads),
+                                specs[k]) for k in specs}
 
     # -- layers ---------------------------------------------------------------
     def _kv_heads(self, spec_wk) -> Optional[List[Tuple[int, int]]]:
@@ -210,13 +295,13 @@ class Partitioned:
 
     def _attn_tp(self, specs) -> Tuple[bool, Optional[list]]:
         """Whether attention runs tensor-parallel on this layer (``model``
-        shards the q heads of ``wq`` and ``wo``) and each shard's kv
-        heads (``_kv_heads``)."""
-        cfg = self.cfg
-        if cfg.mla or self.msize == 1:
-            return False, None
-        if not ("model" in spec_entry_axes(specs["wq"][1])
-                and "model" in spec_entry_axes(specs["wo"][0])):
+        shards the q heads of ``wq`` (MLA: ``wuq``, ``wuk``, ``wuv``) and
+        ``wo``) and each shard's kv heads (``_kv_heads``; None for MLA)."""
+        if self.cfg.mla:
+            return (all(self._split(specs[k], 1) for k in ("wuq", "wuk",
+                                                            "wuv"))
+                    and self._split(specs["wo"], 0)), None
+        if not (self._split(specs["wq"], 1) and self._split(specs["wo"], 0)):
             return False, None
         try:
             return True, self._kv_heads(specs["wk"])
@@ -227,84 +312,189 @@ class Partitioned:
               cache=None, cache_pos=None, pos3=None):
         """One block on every shard (``model._block_forward``'s program):
         returns the new per-shard hidden state and the new placed cache."""
-        cfg, n = self.cfg, self.mesh.size
-        res = lambda a: weak(cfg.residual_scale, a.dtype)
         if kind == "ssm":
-            ps = self.use_tree(lp, ls)
-            cs = self.cache_in(cache, ())
-            out, ncs = [], []
-            for i in range(n):
-                h, nc = mamba_forward(cfg, ps[i]["mamba"], rms_norm(
-                    xs[i], ps[i]["ln"], cfg.norm_eps), cs[i])
-                out.append(xs[i] + res(h) * h)
-                ncs.append(nc)
-            return out, self.cache_out(cache, ncs, ())
-        tp, kv = self._attn_tp(ls["attn"])
-        keep = ("model",) if tp else ()
-        pa = self.use_tree(lp["attn"], ls["attn"], keep)
+            return self.ssm(lp, ls, xs, cache)
+        cfg = self.cfg
+        res = lambda a: weak(cfg.residual_scale, a.dtype)
         ln1, ln2 = self.use(lp["ln1"], ls["ln1"]), self.use(lp["ln2"],
                                                             ls["ln2"])
-        cs = self.cache_in(cache, keep)
-        attn, ncs = [], []
-        for i in range(n):
-            h = rms_norm(xs[i], ln1[i], cfg.norm_eps)
-            if cfg.mla:
-                a, nc = mla_forward(cfg, pa[i], h, pos[i], cache=cs[i],
-                                    cache_pos=cache_pos)
-            else:
-                a, nc = attn_forward(cfg, pa[i], h, pos[i], cache=cs[i],
-                                     cache_pos=cache_pos, pos3=pos3[i],
-                                     kv_heads=None if kv is None else kv[i])
-            attn.append(a)
-            ncs.append(nc)
-        if tp:
-            attn = self.psum(attn, ("model",))
+        attn, nc = self.attention(
+            lp["attn"], ls["attn"],
+            [rms_norm(x, w, cfg.norm_eps) for x, w in zip(xs, ln1)], pos,
+            cache, cache_pos, pos3)
         xs = [x + res(a) * a for x, a in zip(xs, attn)]
         hs = [rms_norm(x, w, cfg.norm_eps) for x, w in zip(xs, ln2)]
         f = (self.moe(lp["ffn"], ls["ffn"], hs) if kind == "moe"
              else self.ffn(lp["ffn"], ls["ffn"], hs))
-        xs = [x + res(y) * y for x, y in zip(xs, f)]
-        return xs, self.cache_out(cache, ncs, keep)
+        return [x + res(y) * y for x, y in zip(xs, f)], nc
+
+    def attention(self, lp: Tree, ls: Tree, hs: PerShard, pos, cache=None,
+                  cache_pos=None, pos3=None):
+        """The attention layer (GQA or MLA) on every shard's normed hidden
+        state: (per-shard output, the new placed cache)."""
+        cfg, n = self.cfg, self.mesh.size
+        tp, kv = self._attn_tp(ls)
+        pa = self.use_tree(lp, ls, ("model",) if tp else (), whole=("wdq",))
+        heads = "model" if tp and kv is None and not cfg.mla else None
+        cs = self.cache_in(cache, heads)
+        out, ncs = [], []
+        for i in range(n):
+            if cfg.mla:
+                a, nc = mla_forward(cfg, pa[i], hs[i], pos[i], cache=cs[i],
+                                    cache_pos=cache_pos, partial=tp)
+            else:
+                a, nc = attn_forward(cfg, pa[i], hs[i], pos[i], cache=cs[i],
+                                     cache_pos=cache_pos,
+                                     pos3=None if pos3 is None else pos3[i],
+                                     kv_heads=None if kv is None else kv[i],
+                                     partial=tp)
+            out.append(a)
+            ncs.append(nc)
+        if tp:
+            out = self._sum_partials(out, hs)
+        return out, self.cache_out(cache, ncs, heads)
+
+    def _sum_partials(self, parts: PerShard, like: PerShard) -> PerShard:
+        """The shards' partial outputs (float32, ``layers.out_proj``)
+        psum'd over ``model`` and rounded once to the hidden dtype."""
+        return [y.to(h.dtype) for y, h in zip(self.psum(parts, ("model",)),
+                                               like)]
+
+    def _mamba_tp(self, ms) -> bool:
+        """Whether mamba2 runs over its SSM heads: ``model`` splits them
+        (``A_log``, ``D``, ``dt_bias``) and ``out_proj``'s rows."""
+        return (all(self._split(ms[k], -1) for k in ("A_log", "D",
+                                                      "dt_bias"))
+                and self._split(ms["out_proj"], 0))
+
+    def ssm(self, lp: Tree, ls: Tree, xs: PerShard, cache):
+        """A mamba2 block on every shard: over the shard's SSM heads where
+        ``model`` splits them, else replicated."""
+        cfg, n = self.cfg, self.mesh.size
+        res = lambda a: weak(cfg.residual_scale, a.dtype)
+        mp, ms = lp["mamba"], ls["mamba"]
+        hs = [rms_norm(x, w, cfg.norm_eps)
+              for x, w in zip(xs, self.use(lp["ln"], ls["ln"]))]
+        if not self._mamba_tp(ms):
+            ps = self.use_tree(mp, ms)
+            cs = self.cache_in(cache)
+            out, ncs = [], []
+            for i in range(n):
+                h, nc = mamba_forward(cfg, ps[i], hs[i], cs[i])
+                out.append(xs[i] + res(h) * h)
+                ncs.append(nc)
+            return out, self.cache_out(cache, ncs)
+        col = self._split(ms["in_proj"], 1)
+        w_in = self.use(mp["in_proj"], ms["in_proj"],
+                        ("model",) if col else ())
+        proj = [torch.einsum("bsd,dc->bsc", h, w) for h, w in zip(hs, w_in)]
+        if col:
+            proj = self.gather(proj, 2)
+        own_k, rest_k = ("A_log", "D", "dt_bias", "out_proj"), (
+            "conv_w", "conv_b", "out_norm")
+        own = self.use_tree({k: mp[k] for k in own_k},
+                            {k: ms[k] for k in own_k}, ("model",))
+        rest = self.use_tree({k: mp[k] for k in rest_k},
+                             {k: ms[k] for k in rest_k})
+        cs = self.cache_in(cache, "model")
+        hl, hdim = cfg.ssm_heads // self.msize, cfg.ssm_head_dim
+        ys, convs, ssms, sq = [], [], [], []
+        for i in range(n):
+            h0 = self.model_idx[i] * hl
+            y, cv, st = mamba_mix(cfg, {**own[i], **rest[i]}, proj[i], cs[i],
+                                  heads=(h0, h0 + hl))
+            ys.append(y)
+            convs.append(cv)
+            ssms.append(st)
+            sq.append(torch.sum(torch.square(y.float()), -1, keepdim=True))
+        # out_norm: an RMS norm over the whole d_inner
+        sq = self.psum(sq, ("model",))
+        out = []
+        for i in range(n):
+            c0 = self.model_idx[i] * hl * hdim
+            w = rest[i]["out_norm"][c0:c0 + hl * hdim]
+            y = (ys[i].float() * torch.rsqrt(sq[i] / cfg.d_inner
+                                             + cfg.norm_eps)
+                 * w.float()).to(ys[i].dtype)
+            out.append(out_proj("bsc,cd->bsd", y, own[i]["out_proj"], True))
+        out = self._sum_partials(out, xs)
+        xs = [x + res(h) * h for x, h in zip(xs, out)]
+        if cache is None:
+            return xs, None
+        # the conv state whole again: the heads' x columns gathered over
+        # model, beside the B/C columns every shard holds
+        xcols = self.gather([c[..., :hl * hdim] for c in convs], 2)
+        new = [dict(conv=torch.cat([x, c[..., hl * hdim:]], -1).to(
+                    cs[i]["conv"].dtype),
+                    ssm=st.to(cs[i]["ssm"].dtype))
+               for i, (x, c, st) in enumerate(zip(xcols, convs, ssms))]
+        return xs, self.cache_out(cache, new, "model")
 
     def ffn(self, lp: Tree, ls: Tree, hs: PerShard) -> PerShard:
         """The dense FFN: column-parallel ``wu``/``wg``, row-parallel
         ``wd`` and a psum over ``model`` where ``model`` shards the hidden
         width, else replicated."""
-        tp = self.msize > 1 and "model" in spec_entry_axes(ls["wu"][-1])
+        tp = self._split(ls["wu"], -1)
         ps = self.use_tree(lp, ls, ("model",) if tp else ())
-        out = [ffn_forward(self.cfg, p, h) for p, h in zip(ps, hs)]
-        return self.psum(out, ("model",)) if tp else out
+        out = [ffn_forward(self.cfg, p, h, tp) for p, h in zip(ps, hs)]
+        return self._sum_partials(out, hs) if tp else out
 
     def moe(self, lp: Tree, ls: Tree, hs: PerShard) -> PerShard:
-        """The MoE block: EP over the routed experts where the step engaged
-        it (``moe_ep.get_ep_mesh``), the router and the shared experts
-        replicated; else the dropless layer, replicated."""
+        """The MoE block: the routed experts under EP where the step
+        engaged it (``moe_ep.get_ep_mesh``), else the dropless layer over
+        each shard's own experts where ``model`` splits them (else whole);
+        the shared experts tensor-parallel where ``model`` splits their
+        hidden width.  The partial outputs take one psum over ``model``."""
+        cfg = self.cfg
+        names = [k for k in ("wu", "wg", "wd") if k in lp]
+        router = self.use(lp["router"], ls["router"])
+        parts, wholes = [], []
+        if moe_ep.get_ep_mesh() is not None:
+            wholes.append(self._ep({k: lp[k] for k in names}, hs, router))
+        else:
+            tp = self._split(ls["wu"], 0)
+            pe = self.use_tree({k: lp[k] for k in names},
+                               {k: ls[k] for k in names},
+                               ("model",) if tp else ())
+            eb = cfg.n_experts // self.msize
+            out = []
+            for i, (p, h, r) in enumerate(zip(pe, hs, router)):
+                blk = ((self.model_idx[i] * eb, (self.model_idx[i] + 1) * eb)
+                       if tp else None)
+                out.append(moe_routed(cfg, dict(p, router=r), h, blk)
+                           .reshape(h.shape))
+            (parts if tp else wholes).append(out)
+        if cfg.n_shared_experts:
+            sk = [k for k in lp if k.startswith("shared_")]
+            tp = self._split(ls["shared_wu"], 1)
+            ps = self.use_tree({k[len("shared_"):]: lp[k] for k in sk},
+                               {k[len("shared_"):]: ls[k] for k in sk},
+                               ("model",) if tp else ())
+            (parts if tp else wholes).append(
+                [ffn_forward(cfg, p, h, tp) for p, h in zip(ps, hs)])
+        ys = (self._sum_partials([sum(t[1:], t[0]) for t in zip(*parts)],
+                                 hs) if parts else None)
+        for w in wholes:
+            ys = w if ys is None else [a + b for a, b in zip(ys, w)]
+        return [y.to(h.dtype) for y, h in zip(ys, hs)]
+
+    def _ep(self, experts: Tree, hs: PerShard, router: PerShard) -> PerShard:
+        """The routed experts under EP: each shard routes its block of the
+        sequence (all of it where ``model`` does not divide it), the
+        outputs gathered back over ``model``."""
         cfg, mesh = self.cfg, self.mesh
-        if moe_ep.get_ep_mesh() is None:
-            return [moe_forward(cfg, p, h)
-                    for p, h in zip(self.use_tree(lp, ls), hs)]
-        experts = {k: v for k, v in lp.items() if k in ("wu", "wg", "wd")}
-        rest = {k: v for k, v in lp.items() if k not in experts}
-        ps = self.use_tree(rest, {k: ls[k] for k in rest})
         b, s, d = hs[0].shape
         ns = self.msize if s % self.msize == 0 and s >= self.msize else 1
         sl = s // ns
         xl = [(h.narrow(1, self.model_idx[i] * sl, sl) if ns > 1 else h)
               .reshape(b * sl, d) for i, h in enumerate(hs)]
-        logits = [torch.einsum("td,de->te", x.float(), p["router"].float())
-                  for x, p in zip(xl, ps)]
+        logits = [torch.einsum("td,de->te", x.float(), r.float())
+                  for x, r in zip(xl, router)]
         outs = moe_ep.ep_groups(cfg, mesh, self.groups(xl),
                                 self.groups(logits), experts)
         ys = [o.reshape(b, sl, d).to(hs[0].dtype)
               for o in self.shards(outs)]
-        if ns > 1:
-            ys = self.shards(mesh.all_gather(self.groups(ys), ("model",), 1,
-                                             dim=0, tiled=True))
-        if cfg.n_shared_experts:
-            ys = [y + ffn_forward(cfg, {k[len("shared_"):]: p[k] for k in p
-                                        if k.startswith("shared_")}, h)
-                  for y, p, h in zip(ys, ps, hs)]
-        return ys
+        return self.gather(ys, 1) if ns > 1 else ys
 
     def run_stacks(self, params, specs, xs, pos, pos3, caches=None,
                    cache_pos=None, remat="none"):
@@ -317,22 +507,26 @@ class Partitioned:
                 continue
             layers = _unstack(params["stacks"][kind], specs["stacks"][kind],
                               count)
-            if caches is not None and kind == "hybrid_group":
-                raise NotImplementedError(
-                    "the partitioned decode of a hybrid stack (its shared "
-                    "attention cache's spec shards the sequence)")
             lcs = (_unstack(caches[kind][0], caches[kind][1], count)
                    if caches is not None else [None] * count)
             if kind == "hybrid_group":
                 per = cfg.attn_every
 
-                def body(h, lp, _lc):
-                    for sp in _unstack(lp[0], lp[1], per):
-                        h, _ = self.block("ssm", sp[0], sp[1], h, pos)
-                    h, _ = self.block("dense", params["shared_attn"],
-                                      specs["shared_attn"], h, pos,
-                                      pos3=pos3)
-                    return list(_RecomputeHere.apply(*h)), None
+                def body(h, lp, lc):
+                    scs = (_unstack(lc[0]["ssm"], lc[1]["ssm"], per)
+                           if lc is not None else [None] * per)
+                    ncs = []
+                    for sp, sc in zip(_unstack(lp[0], lp[1], per), scs):
+                        h, nc = self.block("ssm", sp[0], sp[1], h, pos, sc)
+                        ncs.append(nc)
+                    h, nat = self.block(
+                        "dense", params["shared_attn"], specs["shared_attn"],
+                        h, pos, None if lc is None else (lc[0]["attn"],
+                                                         lc[1]["attn"]),
+                        cache_pos, pos3)
+                    nc = (None if lc is None else
+                          dict(ssm=self._stack_layers(ncs), attn=nat))
+                    return list(_RecomputeHere.apply(*h)), nc
             else:
                 def body(h, lp, lc, kind=kind):
                     h, nc = self.block(kind, lp[0], lp[1], h, pos, lc,
@@ -344,10 +538,17 @@ class Partitioned:
                 xs, nc = body(xs, lp, lc)
                 outs.append(nc)
             if caches is not None:
-                new[kind] = {k: tuple(torch.stack([o[k][g] for o in outs], 1)
-                                      for g in range(self.mesh.n_groups))
-                             for k in outs[0]}
+                new[kind] = self._stack_layers(outs)
         return xs, new
+
+    def _stack_layers(self, outs):
+        """Per-layer placed caches -> one placed tree stacked on the
+        layer axis (dim 1 of each group tensor)."""
+        if isinstance(outs[0], dict):
+            return {k: self._stack_layers([o[k] for o in outs])
+                    for k in outs[0]}
+        return tuple(torch.stack([o[g] for o in outs], 1)
+                     for g in range(self.mesh.n_groups))
 
     # -- inputs and outputs ---------------------------------------------------
     def _batch(self, batch) -> PerShard:
@@ -358,75 +559,102 @@ class Partitioned:
                 o[k] = x
         return out
 
+    def lookup(self, params, tokens: PerShard) -> PerShard:
+        """Each shard's token embeddings: vocab-parallel where ``model``
+        splits ``embed``'s rows (each shard looks up the tokens of its
+        block, zero elsewhere, one psum over ``model``: bitwise the whole
+        lookup), else the whole table's."""
+        spec = self.specs["embed"]
+        if not self._split(spec, 0):
+            return [F.embedding(t.long(), e) for t, e in zip(
+                tokens, self.use(params["embed"], spec))]
+        out = []
+        for i, (t, e) in enumerate(zip(tokens, self.use(
+                params["embed"], spec, ("model",)))):
+            ids = t.long() - self.model_idx[i] * e.shape[0]
+            own = (ids >= 0) & (ids < e.shape[0])
+            x = F.embedding(torch.where(own, ids, 0), e)
+            out.append(torch.where(own[..., None], x, 0.0))
+        return self.psum(out, ("model",))
+
     def embed(self, params, batch: PerShard):
         """Each shard's ``model.embed_inputs``: (hidden, pos, pos3)."""
-        emb = (self.use(params["embed"], self.specs["embed"])
-               if "embed" in params else [None] * self.mesh.size)
-        got = [embed_inputs(self.cfg, {"embed": e}, b)
-               for e, b in zip(emb, batch)]
+        if self.cfg.frontend == "audio":         # frames in: no lookup
+            got = [embed_inputs(self.cfg, {}, b) for b in batch]
+        else:
+            got = [finish_inputs(self.cfg, x, b) for x, b in zip(
+                self.lookup(params, [b["tokens"] for b in batch]), batch)]
         return [g[0] for g in got], [g[1] for g in got], [g[2] for g in got]
 
     def _head(self, params, hs: PerShard) -> PerShard:
+        """The logits: each shard's vocab block where ``vocab_tp``."""
         cfg = self.cfg
         fn = self.use(params["final_norm"], self.specs["final_norm"])
-        lm = self.use(params["lm_head"], self.specs["lm_head"])
+        lm = self.use(params["lm_head"], self.specs["lm_head"],
+                      ("model",) if self.vocab_tp else ())
         return [torch.einsum("bsd,dv->bsv", rms_norm(h, f, cfg.norm_eps), w)
                 for h, f, w in zip(hs, fn, lm)]
 
     def _own_logits(self, logits: PerShard, spec):
-        """The per-shard logits (replicated over ``model``) placed by the
-        logits' spec: each shard's vocab block where ``model`` shards it."""
+        """The per-shard logits placed by the logits' spec: each shard's
+        own block where ``vocab_tp``, else its vocab block of the whole
+        logits (replicated over ``model``)."""
+        if self.vocab_tp:
+            return self.groups(logits)
         return self.groups([self._own(x, spec, s, self.dp)
                             for s, x in enumerate(logits)])
 
-    def _global_mean(self, sums: PerShard, counts: PerShard):
-        tot = self.psum(sums, self.dp)
-        cnt = self.psum(counts, self.dp)
+    def _ce(self, logits: PerShard, labels: PerShard, masks: PerShard):
+        """The masked CE's global mean, on every shard."""
+        if self.vocab_tp:
+            starts = [self.model_idx[s] * x.shape[-1]
+                      for s, x in enumerate(logits)]
+            got = vocab_parallel_ce_sums(
+                logits, labels, masks, starts,
+                lambda v: self.psum(v, ("model",)),
+                lambda v: self.pmax(v, ("model",)))
+        else:
+            got = [masked_ce_sums(x, lab, m)
+                   for x, lab, m in zip(logits, labels, masks)]
+        tot = self.psum([t for t, _ in got], self.dp)
+        cnt = self.psum([c for _, c in got], self.dp)
         return [t / torch.clamp(c, min=1) for t, c in zip(tot, cnt)]
 
     def loss(self, params, batch) -> torch.Tensor:
         """``model.loss_fn`` partitioned: the loss as shard 0 holds it (on
         ``mesh.device``)."""
-        cfg, n = self.cfg, self.mesh.size
+        cfg = self.cfg
         bs = self._batch(batch)
         xs, pos, pos3 = self.embed(params, bs)
         hs, _ = self.run_stacks(params, self.specs, xs, pos, pos3,
                                 remat=self.remat)
-        logits = self._head(params, hs)
-        sums, counts, masks = [], [], []
-        for lg, b in zip(logits, bs):
-            mask = b["labels"] >= 0
-            t, c = masked_ce_sums(lg, b["labels"], mask)
-            sums.append(t)
-            counts.append(c)
-            masks.append(mask)
-        ce = self._global_mean(sums, counts)
+        labels = [b["labels"] for b in bs]
+        masks = [lab >= 0 for lab in labels]
+        ce = self._ce(self._head(params, hs), labels, masks)
         if cfg.mtp:
-            mp = self.use_tree({k: v for k, v in params["mtp"].items()
-                                if k != "block"}, self.specs["mtp"])
-            emb = self.use(params["embed"], self.specs["embed"])
-            hm = []
-            for i in range(n):
-                emb_next = torch.roll(torch.nn.functional.embedding(
-                    bs[i]["tokens"].long(), emb[i]), -1, 1)
-                hcat = torch.cat([rms_norm(hs[i], mp[i]["norm1"],
-                                           cfg.norm_eps),
-                                  rms_norm(emb_next, mp[i]["norm2"],
-                                           cfg.norm_eps)], dim=-1)
-                hm.append(torch.einsum("bsd,dk->bsk", hcat, mp[i]["proj"]))
-            hm, _ = self.block("moe" if cfg.is_moe else "dense",
-                               params["mtp"]["block"],
-                               self.specs["mtp"]["block"], hm, pos)
-            lm = self._head(params, hm)
-            s2, c2 = [], []
-            for lg, b, mask in zip(lm, bs, masks):
-                lbl2 = torch.roll(b["labels"], -1, 1)
-                mask2 = mask & torch.roll(mask, -1, 1)
-                mask2[:, -1] = False
-                t, c = masked_ce_sums(lg, lbl2, mask2)
-                s2.append(t)
-                c2.append(c)
-            ce = [a + 0.1 * b for a, b in zip(ce, self._global_mean(s2, c2))]
+            mp, ms = params["mtp"], self.specs["mtp"]
+            norms = self.use_tree({k: mp[k] for k in ("norm1", "norm2")}, ms)
+            emb = self.lookup(params, [b["tokens"] for b in bs])
+            hcat = [torch.cat([rms_norm(h, p["norm1"], cfg.norm_eps),
+                               rms_norm(torch.roll(e, -1, 1), p["norm2"],
+                                        cfg.norm_eps)], dim=-1)
+                    for h, e, p in zip(hs, emb, norms)]
+            col = self._split(ms["proj"], 1)
+            hm = [torch.einsum("bsd,dk->bsk", h, w) for h, w in zip(
+                hcat, self.use(mp["proj"], ms["proj"],
+                               ("model",) if col else ()))]
+            if col:
+                hm = self.gather(hm, 2)
+            hm, _ = self.block("moe" if cfg.is_moe else "dense", mp["block"],
+                               ms["block"], hm, pos)
+            lbl2 = [torch.roll(lab, -1, 1) for lab in labels]
+            mask2 = []
+            for mask in masks:
+                m2 = mask & torch.roll(mask, -1, 1)
+                m2[:, -1] = False
+                mask2.append(m2)
+            ce = [a + 0.1 * b for a, b in zip(
+                ce, self._ce(self._head(params, hm), lbl2, mask2))]
         return ce[0]
 
     def prefill(self, params, batch, logits_spec):
@@ -437,14 +665,13 @@ class Partitioned:
         return self._own_logits(self._head(params, hs), logits_spec)
 
     def decode(self, params, caches, cache_specs, tokens, pos: int,
-               logits_spec):
+               logits_spec, batch_entry):
         """``model.decode_step`` partitioned: (placed logits, new placed
-        caches)."""
+        caches).  ``batch_entry``: the tokens' batch spec entry (the data
+        axes, or None where they do not divide the batch)."""
         cfg = self.cfg
-        toks = self.shards(tokens)
-        emb = self.use(params["embed"], self.specs["embed"])
-        xs = [torch.nn.functional.embedding(t.long(), e)
-              for t, e in zip(toks, emb)]
+        self.batch_entry = batch_entry
+        xs = self.lookup(params, self.shards(tokens))
         posv = [torch.full((1, 1), int(pos), dtype=torch.int32,
                            device=x.device) for x in xs]
         pos3 = [p[:, None, :].expand(x.shape[0], 3, 1) if cfg.mrope else None

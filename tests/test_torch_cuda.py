@@ -1175,3 +1175,91 @@ def test_autotune_disk_round_trip_on_card(tmp_path, monkeypatch):
     assert autotune.bench_seconds() == 0.0
     for x, y in zip(first, second):
         assert torch.equal(x, y)
+
+
+def test_vocab_parallel_ce_on_card():
+    """``model.vocab_parallel_ce_sums`` over four vocab blocks on the card
+    against ``masked_ce_sums`` of the whole logits on the card: the sum
+    within 1e-6 relative, the gradient within 1e-6."""
+    from repro_torch.models.model import (masked_ce_sums,
+                                          vocab_parallel_ce_sums)
+    dev = need_card()
+    gen = torch.Generator(device=dev).manual_seed(3)
+    v, m = 1024, 4
+    logits = torch.randn((4, 64, v), generator=gen, device=dev) * 4
+    labels = torch.randint(-1, v, (4, 64), generator=gen, device=dev,
+                           dtype=torch.int32)
+    mask = labels >= 0
+    whole = logits.clone().requires_grad_()
+    t, c = masked_ce_sums(whole, labels, mask)
+    (gw,) = torch.autograd.grad(t, whole)
+    t = t.detach()
+    blocks = [b.clone().requires_grad_() for b in logits.split(v // m, -1)]
+
+    def reduce(op):
+        return lambda vals: [op(torch.stack(vals), 0)] * len(vals)
+
+    got = vocab_parallel_ce_sums(
+        blocks, [labels] * m, [mask] * m, [i * (v // m) for i in range(m)],
+        reduce(torch.sum), reduce(torch.amax))
+    assert abs(float(got[0][0].detach()) - float(t)) <= 1e-6 * abs(float(t))
+    assert int(got[0][1]) == int(c)
+    gb = torch.autograd.grad(got[0][0], blocks)
+    torch.testing.assert_close(torch.cat(gb, -1), gw, rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("decode", [False, True], ids=["chunked", "decode"])
+def test_mamba2_over_heads_on_card(decode):
+    """mamba2-2.7b's smoke config, float32, layer 0 through the partitioned
+    program's mamba2 over its SSM heads on a (2, 4) mesh on the card
+    against the whole layer on the card: every shard's rows, and in decode
+    both new cache leaves, within 1e-4 of the largest magnitude."""
+    from repro_torch.ckpt.checkpoint import _flatten
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.sharding import (cache_specs, param_specs,
+                                             place_cache, place_params)
+    from repro_torch.models import init_cache, init_params
+    from repro_torch.models.model import _block_forward
+    from repro_torch.models.partitioned import Partitioned, _unstack
+    dev = need_card()
+    cfg = get_arch("mamba2-2.7b").smoke()
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(4),
+                         dtype=torch.float32, device=dev)
+    mesh = ShardMesh((2, 4), ("data", "model"), device=dev)
+    specs = param_specs(params, mesh)
+    plan = Partitioned(cfg, mesh, specs)
+    n = cfg.n_layers
+    lp, ls = _unstack(place_params(params, mesh, specs)["stacks"]["ssm"],
+                      specs["stacks"]["ssm"], n)[0]
+    whole = {k: ({j: w[0] for j, w in v.items()} if isinstance(v, dict)
+                 else v[0]) for k, v in params["stacks"]["ssm"].items()}
+    s = 1 if decode else 32
+    gen = torch.Generator(device=dev).manual_seed(4)
+    x = torch.randn((8, s, cfg.d_model), generator=gen, device=dev)
+    rows = lambda t, i: mesh.block_of(t, (("data",),), i)
+    xs = [rows(x, i) for i in range(mesh.size)]
+    if not decode:
+        pos = torch.arange(s, device=dev)[None, :]
+        got, _ = plan.block("ssm", lp, ls, xs, [pos] * mesh.size)
+        want, _ = _block_forward(cfg, whole, x, pos, "ssm")
+    else:
+        cache = init_cache(cfg, 8, 16, dtype=torch.float32, device=dev)
+        cache = {k: {j: torch.randn(w.shape, generator=gen, device=dev) * 0.1
+                     for j, w in v.items()} for k, v in cache.items()}
+        cs = cache_specs(cache, mesh, 8)
+        lc = _unstack(place_cache(cache, mesh, 8)["ssm"], cs["ssm"], n)[0]
+        plan.batch_entry = ("data",)
+        posv = torch.full((1, 1), 5, dtype=torch.int32, device=dev)
+        got, nc = plan.block("ssm", lp, ls, xs, [posv] * mesh.size, cache=lc,
+                             cache_pos=5)
+        want, wc = _block_forward(cfg, whole, x, posv, "ssm",
+                                  cache={k: v[0] for k, v in
+                                         cache["ssm"].items()}, cache_pos=5)
+        for k in wc:
+            got_c = mesh.assemble(nc[k], lc[1][k])
+            err = float((got_c - wc[k]).abs().max())
+            assert err <= 1e-4 * float(wc[k].abs().max()), (k, err)
+    for i, y in enumerate(got):
+        want_i = rows(want, i)
+        err = float((y - want_i).abs().max())
+        assert err <= 1e-4 * float(want_i.abs().max()), (i, err)

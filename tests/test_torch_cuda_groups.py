@@ -383,3 +383,54 @@ def test_grouped_compressed_psum_on_cards(card, ep_devices):
             joined = mesh.join(tuple(t[k] for t in part))
             assert torch.equal(joined, ref[k]), k
             assert [t[k].device for t in part] == list(mesh.devices)
+
+
+def test_partitioned_hybrid_train_and_decode_on_cards(card, ep_devices):
+    """zamba2-2.7b's smoke config (mamba2 over its heads, the shared
+    attention block, the vocab-parallel head), bf16: step 0's loss and
+    every gradient bitwise with one group, none NaN, three steps' losses,
+    params and state bitwise; one decode step's logits and new caches
+    (the shared attention's cache at rest as the reference places it)
+    bitwise with one group."""
+    from repro_torch.ckpt.checkpoint import _flatten
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.sharding import (cache_specs, gather_params,
+                                             param_specs, place_params)
+    from repro_torch.launch.steps import build_decode_step
+    from repro_torch.models import ShapeCfg, init_cache, init_params, moe_ep
+    cfg = get_arch("zamba2-2.7b").smoke()
+    params = init_params(cfg, torch.Generator(device=card).manual_seed(6),
+                         device=card)
+    toks = torch.randint(0, cfg.vocab, (8, 33), generator=torch.Generator(
+        device=card).manual_seed(6), device=card, dtype=torch.int32)
+    batch = dict(tokens=toks[:, :-1].contiguous(),
+                 labels=toks[:, 1:].contiguous())
+    (l1, g1, ls1, p1, s1, _, _), (lg, gg, lsg, pg, sg, placed, mesh) = \
+        _partitioned_runs(card, ep_devices, cfg, params, batch, 3)
+    assert torch.equal(lg, l1) and bool(torch.isfinite(lg))
+    for (path, a), (_, b) in zip(_flatten(gg), _flatten(g1)):
+        assert _same_bits(a, b), path
+        assert bool(torch.isfinite(a.float()).all()), path
+    assert torch.equal(torch.stack(lsg), torch.stack(ls1))
+    for (path, a), (_, b) in zip(_flatten([pg, sg]), _flatten([p1, s1])):
+        assert _same_bits(a.reshape(-1), b.reshape(-1)), path
+    dshape = ShapeCfg("d", 16, 8, "decode")
+    cache = init_cache(cfg, 8, 16, device=card)
+    runs = []
+    try:
+        for devs in ([card], ep_devices):
+            m = _ep_mesh(devs)
+            fn, (pst, cst, _, _) = build_decode_step(cfg, dshape, m)
+            c = cache
+            outs = []
+            for pos in range(3):
+                dl, c = fn(place_params(params, m, param_specs(pst, m)), c,
+                           toks[:, pos:pos + 1], pos)
+                outs.append(m.assemble(dl, (("data",), None, "model")))
+            runs.append((outs, gather_params(c, m, cache_specs(cst, m, 8))))
+    finally:
+        moe_ep.set_ep_mesh(None, ("data",))
+    (o1, c1), (og, cg) = runs
+    assert all(torch.equal(a, b) for a, b in zip(og, o1))
+    for (path, a), (_, b) in zip(_flatten(cg), _flatten(c1)):
+        assert _same_bits(a, b), path

@@ -6,7 +6,7 @@ build_train_step``).
 Every grouping runs on the CPU (``devices=["cpu"] * G``).  Held here, for
 the smoke configs of both MoE archs (moonshot-v1-16b-a3b; deepseek-v3-671b,
 whose MTP block holds experts outside the layer stacks, and whose MLA
-attention runs replicated over ``model``), float32 params:
+attention runs over its heads on ``model``), float32 params:
 
 * ``place_params`` holds every leaf (params and AdamW moments) as G group
   stacks of its shards' blocks; a routed-expert leaf's block is the
