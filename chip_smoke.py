@@ -3,7 +3,7 @@
 
 Run from the repository root:  python3 chip_smoke.py [--seed N]
 (``--phase NAME`` runs one model-layer phase alone: mamba, ep, partitioned,
-partitioned_hybrid or serve_padded.)
+partitioned_hybrid, sp, decode_donated or serve_padded.)
 
 1. Prints the card (nvidia-smi name and power limit, torch's device name).
 2. Builds the CUDA kernels from ``src/repro_torch/csrc`` (timed as set-up).
@@ -175,8 +175,18 @@ partitioned_hybrid or serve_padded.)
    (``e2e partitioned hybrid``); and deepseek-v3-671b's MLA layer alone at
    its published widths, batch 2 x 128, on the same mesh: forward, every
    gradient and one absorbed decode step bitwise with one group and within
-   the bf16 bar of the whole layer (``e2e partitioned mla``).  minicpm-2b,
-   2 layers, float32:
+   the bf16 bar of the whole layer (``e2e partitioned mla``).  The
+   sequence-sharded carry and donation (``e2e partitioned sp``):
+   minicpm-2b, 8 layers, batch 2 x 4,096 (train_4k's length) on the same
+   mesh and groups, with ``seq_shard_acts`` on and off: step 0's loss
+   bitwise, gradients, 3 steps' losses and params within the bf16 bar;
+   per card the bytes at rest of params, moments and gradients, the
+   allocation held from the loss to the backward, and each step's peak
+   allocation beside the same step without donation.  The donating decode
+   (``e2e decode donated``): minicpm-2b, 4 layers, bf16, batch 4 against a
+   32,768-deep cache: logits and cache bitwise with ``models.decode_step``,
+   the step's peak allocation above what it found under one layer's cache,
+   tokens/s beside ``decode_step``'s.  minicpm-2b, 2 layers, float32:
    ``build_decode_step`` on ``MeshSpec({"data": 1, "model": 16})`` pads 36
    heads to 48, each step's logits within 2e-4 of the unpadded decode, with
    tokens/s of both and decode_32k's per-device KV-cache bytes from
@@ -2143,7 +2153,8 @@ def train_phase(card, cuda, launches, seed) -> None:
     import shutil
     import tempfile
     from repro_torch import reset_launches
-    from repro_torch.ckpt.checkpoint import _flatten, _unflatten
+    from repro_torch.ckpt.checkpoint import (_flatten, _unflatten,
+                                            clone_tree)
     from repro_torch.data import PipelineConfig, StreamingPipeline
     from repro_torch.launch.train import make_train_step
     from repro_torch.models import init_params, loss_fn
@@ -2173,10 +2184,12 @@ def train_phase(card, cuda, launches, seed) -> None:
     n_params = sum(p.numel() for _, p in _flatten(params0))
 
     def loop(ckpt_dir):
+        # the step donates: each loop starts from its own copy
         return TrainLoop(TrainLoopConfig(
             ckpt_dir=ckpt_dir, ckpt_every=TRAIN_CKPT_EVERY,
             max_steps=TRAIN_STEPS, data_seed=seed, keep_last=1),
-            timed_step, lambda i, rng: pipe.batch_for_step(i), params0, opt0)
+            timed_step, lambda i, rng: pipe.batch_for_step(i),
+            clone_tree(params0), clone_tree(opt0))
 
     tmp = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
     try:
@@ -2370,7 +2383,7 @@ def ep_phase(card, cuda, seed) -> None:
     within 1e-4 of the largest magnitude; then 20 steps of ``build_train_step`` (batch 8 x
     512, bf16 params, bf16 AdamW state) and the busy share of one profiled
     step."""
-    from repro_torch.ckpt.checkpoint import _flatten
+    from repro_torch.ckpt.checkpoint import _flatten, clone_tree
     from repro_torch.launch.mesh import make_host_mesh
     from repro_torch.launch.steps import StepConfig, build_train_step
     from repro_torch.models import ShapeCfg, init_params, layers, moe_ep
@@ -2441,7 +2454,7 @@ def ep_phase(card, cuda, seed) -> None:
                      labels=tokens[:, 1:].contiguous())
         c6_check(cfg, params, batch, cuda)
         losses, step_s = [], []
-        p, st_ = params, state
+        p, st_ = clone_tree(params), state      # the step donates them
         for _ in range(EP_STEPS):
             torch.cuda.synchronize()
             t1 = time.perf_counter()
@@ -2765,7 +2778,7 @@ def partitioned_phase(card, cuda, seed, name="minicpm-2b", n_layers=2,
     the largest magnitude, and in bf16 to the repo's bf16 bar, norm-relative
     max(2e-2, 3 x the unpartitioned bf16 run's distance from its float32
     run)."""
-    from repro_torch.ckpt.checkpoint import _flatten
+    from repro_torch.ckpt.checkpoint import _flatten, clone_tree
     from repro_torch.launch.mesh import MeshSpec, make_host_mesh
     from repro_torch.launch.sharding import (cache_specs, gather_params,
                                              param_specs, per_device_bytes,
@@ -2843,8 +2856,8 @@ def partitioned_phase(card, cuda, seed, name="minicpm-2b", n_layers=2,
         losses = {}
         times = {}
         for key, f, p, s_, b in (
-                ("whole", wfn, params, adamw_init(params, step_cfg.optimizer),
-                 batch),
+                ("whole", wfn, clone_tree(params),
+                 adamw_init(params, step_cfg.optimizer), batch),
                 ("part", fn, pm, st, place_batch(batch, mesh))):
             ls, ts = [], []
             for _ in range(PART_STEPS):
@@ -2979,6 +2992,277 @@ def partitioned_phase(card, cuda, seed, name="minicpm-2b", n_layers=2,
           f"{PART_BATCH * PART_DECODE / dec_s['part']} against "
           f"{PART_BATCH * PART_DECODE / dec_s['whole']} ({bars}) | {card}")
     print(f"{tag} phase: {time.perf_counter() - t0:.1f} s")
+
+
+def to_cpu(tree):
+    from repro_torch.ckpt.checkpoint import _flatten, _unflatten
+    return _unflatten(tree, iter(x.cpu() for _, x in _flatten(tree)))
+
+
+def card_bytes(tree, cards) -> list:
+    """The bytes of ``tree``'s tensors on each card of ``cards``."""
+    from repro_torch.ckpt.checkpoint import _flatten
+    out = {d: 0 for d in cards}
+    for _, x in _flatten(tree):
+        out[x.device] += x.numel() * x.element_size()
+    return [out[d] for d in cards]
+
+
+def peak_over(fn, cards) -> tuple:
+    """``fn()``'s result, and per card the allocation before it and the
+    peak allocation while it ran (``torch.cuda.max_memory_allocated``);
+    what no one holds any more is collected first."""
+    import gc
+    gc.collect()
+    sync()
+    base = [torch.cuda.memory_allocated(d) for d in cards]
+    for d in cards:
+        torch.cuda.reset_peak_memory_stats(d)
+    out = fn()
+    sync()
+    return out, base, [torch.cuda.max_memory_allocated(d) for d in cards]
+
+
+SP_LAYERS, SP_BATCH, SP_SEQ, SP_STEPS = 8, 2, 4096, 3
+
+
+def sp_phase(card, cuda, seed) -> None:
+    """The sequence-sharded layer carry (``StepConfig.seq_shard_acts``) and
+    the donating train step at the reference's train_4k sequence length:
+    minicpm-2b at its published widths, 8 layers, bf16 params, f32 AdamW
+    state, batch 2 x 4,096, remat full, on the partitioned phase's (data 2,
+    model 2) mesh in four groups (``partitioned_groups``).  With the carry
+    sharded and whole: step 0's loss bitwise, every gradient leaf within
+    the bf16 bar (2e-2 norm-relative; the backward sums the shards'
+    gradients at other points), 3 steps' losses and params within it too;
+    per card, the bytes at rest of params, moments and gradients, the
+    allocation held from the loss to the backward (the saved carry), and
+    the peak allocation of a donated step beside that of the same step
+    without donation (the functional ``adamw_update`` on the same
+    gradients: a copy of params and moments beside the inputs, as the
+    program before donation held) (``e2e partitioned sp`` line)."""
+    from repro_torch.ckpt.checkpoint import _flatten, _unflatten
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.sharding import (gather_params, param_specs,
+                                             place_batch, place_params)
+    from repro_torch.launch.steps import StepConfig, build_train_step
+    from repro_torch.models import ShapeCfg, init_params, moe_ep
+    from repro_torch.optim import (AdamWConfig, adamw_init, adamw_update,
+                                   adamw_update_, wsd_schedule)
+    t0 = time.perf_counter()
+    cfg = cut("minicpm-2b", SP_LAYERS)
+    devs = partitioned_groups(cuda)
+    mesh = (make_host_mesh(model=2, data=2) if len(set(devs)) > 1 else
+            make_host_mesh(model=2, data=2, devices=devs))
+    cards = list(dict.fromkeys(mesh.devices))
+    label = (f"partitioned sp G={mesh.n_groups} devices="
+             f"{[str(d) for d in devs]}")
+    params = init_params(cfg, torch.Generator(device=cuda).manual_seed(seed),
+                         device=cuda)
+    opt = AdamWConfig(state_dtype=torch.float32)
+    shape = ShapeCfg("train_4k", SP_SEQ, SP_BATCH, "train")
+    toks = torch.from_numpy(np.random.default_rng(seed).integers(
+        0, cfg.vocab, (SP_BATCH, SP_SEQ + 1)).astype(np.int32)).to(cuda)
+    batch = dict(tokens=toks[:, :-1].contiguous(),
+                 labels=toks[:, 1:].contiguous())
+    runs = {}
+    try:
+        for sp in (True, False):
+            fn, structs = build_train_step(cfg, shape, mesh, StepConfig(
+                seq_shard_acts=sp, optimizer=opt))
+            if fn.plan.seq_sharded(SP_SEQ) != sp:
+                raise AssertionError(f"{label}: seq_sharded is not {sp}")
+            ps = param_specs(structs[0], mesh)
+            pm = place_params(params, mesh, ps)
+            st = place_params(adamw_init(params, opt), mesh,
+                              param_specs(structs[1], mesh))
+            pb = place_batch(batch, mesh)
+            r = dict(rest=[card_bytes(t, cards)
+                           for t in (pm, st["m"], st["v"])])
+            # the saved activations: held from the loss to the backward
+            leaves = [t.detach().requires_grad_() for _, t in _flatten(pm)]
+            loss, base, _ = peak_over(lambda: fn.plan.loss(
+                _unflatten(pm, iter(leaves)), pb), cards)
+            r["saved"] = [torch.cuda.memory_allocated(d) - b
+                          for d, b in zip(cards, base)]
+            del loss, leaves
+            r["loss0"], grads = fn.plan.loss_and_grads(pm, pb)
+            # on the host, out of the other run's allocation
+            r["grads"] = to_cpu(gather_params(grads, mesh, ps))
+            r["rest"].append(card_bytes(grads, cards))
+            del grads
+            if sp:
+                # the step before donation: the same gradients, then new
+                # params and moments beside the inputs
+                def functional():
+                    loss, grads = fn.plan.loss_and_grads(pm, pb)
+                    lr = wsd_schedule(st["step"], warmup=2000,
+                                      stable=50_000, decay=5_000)
+                    with torch.no_grad():
+                        return adamw_update(pm, grads, st, opt, lr_scale=lr,
+                                            gnorm=fn.plan.global_norm(grads))
+                new, r["kept_base"], r["peak_kept"] = peak_over(functional,
+                                                                cards)
+                del new
+            losses, step_s = [], []
+            for i in range(SP_STEPS):
+                t1 = time.perf_counter()
+                (p2, s2, loss), base, peak = peak_over(
+                    lambda: fn(pm, st, pb), cards)
+                step_s.append(time.perf_counter() - t1)
+                if p2 is not pm or s2 is not st:
+                    raise AssertionError(f"{label}: the step did not give "
+                                         f"back its donated inputs")
+                losses.append(float(loss))
+                del p2, s2, loss
+            r.update(losses=losses, base=base, peak=peak, step_s=step_s,
+                     params=to_cpu(gather_params(pm, mesh, ps)))
+            if sp:
+                # the update alone, the gradients held: new trees beside
+                # the inputs (adamw_update) against in place (adamw_update_)
+                loss, grads = fn.plan.loss_and_grads(pm, pb)
+                gn = fn.plan.global_norm(grads)
+                lr = wsd_schedule(st["step"], warmup=2000, stable=50_000,
+                                  decay=5_000)
+                with torch.no_grad():
+                    new, b1, p1 = peak_over(lambda: adamw_update(
+                        pm, grads, st, opt, lr_scale=lr, gnorm=gn), cards)
+                    del new
+                    same, b2, p2 = peak_over(lambda: adamw_update_(
+                        pm, grads, st, opt, lr_scale=lr, gnorm=gn), cards)
+                r["update"] = ([p - b for p, b in zip(p1, b1)],
+                               [p - b for p, b in zip(p2, b2)])
+                del grads, same
+            runs[sp] = r
+            del pm, st, pb
+    finally:
+        moe_ep.set_ep_mesh(None, ("data",))
+    on, off = runs[True], runs[False]
+    assert_equal(on["loss0"], off["loss0"], f"{label}: step 0 loss, carry "
+                 f"sharded vs whole")
+    grad_rel = max(norm_rel(a, b) for (_, a), (_, b) in zip(
+        _flatten(on["grads"]), _flatten(off["grads"])))
+    par = [(a, b) for (_, a), (_, b) in zip(_flatten(on["params"]),
+                                            _flatten(off["params"]))]
+    par_rel = max(norm_rel(a, b) for a, b in par)
+    par_diff = sum(int((a != b).sum()) for a, b in par)
+    n_par = sum(a.numel() for a, _ in par)
+    loss_err = max(abs(a - b) for a, b in zip(on["losses"], off["losses"]))
+    if (grad_rel > LOSS_BF16_TOL or par_rel > LOSS_BF16_TOL
+            or loss_err > LOSS_BF16_TOL * abs(off["losses"][-1])
+            or not all(np.isfinite(on["losses"]))):
+        raise AssertionError(f"{label}: grads {grad_rel}, params {par_rel}, "
+                             f"losses {on['losses']} vs {off['losses']}")
+    carry = SP_BATCH // 2 * SP_SEQ * cfg.d_model * 2      # one shard, bf16
+    sub = lambda xs, ys: [x - y for x, y in zip(xs, ys)]
+    gib = lambda xs: "/".join(f"{x / 2**30:.3f}" for x in xs)
+    print(f"e2e {label} {widths(cfg)}, bf16 params, f32 AdamW state, "
+          f"remat full) batch {SP_BATCH} x seq {SP_SEQ} (train_4k's length)"
+          f" | carry sharded vs whole: step 0 loss bitwise ({float(on['loss0'])}"
+          f"), gradients max norm-relative {grad_rel}, after {SP_STEPS} "
+          f"steps losses max abs diff {loss_err} ({on['losses']}), params "
+          f"norm-relative {par_rel} ({par_diff} of {n_par} elements differ)"
+          f" | per card {[str(d) for d in cards]} GiB: at rest params "
+          f"{gib(on['rest'][0])} m {gib(on['rest'][1])} v "
+          f"{gib(on['rest'][2])} grads {gib(on['rest'][3])}; held from the "
+          f"loss to the backward sharded {gib(on['saved'])} whole "
+          f"{gib(off['saved'])} (the carry a layer and shard: whole "
+          f"{carry} B, sharded {carry // 2} B, {SP_LAYERS} layers x 4 "
+          f"shards); a step's peak above the allocation before it "
+          f"(sharded {gib(on['base'])}, whole {gib(off['base'])}): sharded "
+          f"{gib(sub(on['peak'], on['base']))} whole "
+          f"{gib(sub(off['peak'], off['base']))}, without donation "
+          f"(adamw_update: new params and moments beside the inputs) "
+          f"{gib(sub(on['peak_kept'], on['kept_base']))}; the update "
+          f"alone, "
+          f"gradients held: adamw_update {gib(on['update'][0])} "
+          f"adamw_update_ (in place) {gib(on['update'][1])} | steps_per_s "
+          f"sharded "
+          f"{(SP_STEPS - 1) / sum(on['step_s'][1:])} whole "
+          f"{(SP_STEPS - 1) / sum(off['step_s'][1:])} | {card}")
+    print(f"sp phase: {time.perf_counter() - t0:.1f} s")
+
+
+DON_LAYERS, DON_BATCH, DON_CACHE, DON_STEPS = 4, 4, 32768, 16
+
+
+def donate_decode_phase(card, cuda, seed) -> None:
+    """The donating decode step (``build_decode_step``'s ``serve``: the new
+    position written into the cache it is given) on one card: minicpm-2b at
+    its published widths, 4 layers, bf16, batch 4 against a 32,768-deep
+    cache (decode_32k's depth) of random history: its logits and every
+    cache leaf bitwise with ``models.decode_step`` (functional: the step on
+    a copy of the cache) on the same inputs; the step's peak allocation
+    above the allocation before it, under one layer's cache, beside
+    decode_step's; tokens/s of both over 16 steps (``e2e decode donated``
+    line)."""
+    from repro_torch.ckpt.checkpoint import _flatten
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.steps import StepConfig, build_decode_step
+    from repro_torch.models import ShapeCfg, decode_step, init_cache, \
+        init_params
+    t0 = time.perf_counter()
+    cfg = cut("minicpm-2b", DON_LAYERS)
+    params = init_params(cfg, torch.Generator(device=cuda).manual_seed(seed),
+                         device=cuda)
+    serve, _ = build_decode_step(cfg, ShapeCfg(
+        "decode_32k", DON_CACHE, DON_BATCH, "decode"),
+        make_host_mesh(device=cuda), StepConfig(serving_head_pad=False))
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    cache = init_cache(cfg, DON_BATCH, DON_CACHE, device=cuda)
+    for _, x in _flatten(cache):
+        x.copy_(torch.randn(x.shape, generator=gen, device=cuda) * 0.1)
+    whole = sum(x.numel() * x.element_size() for _, x in _flatten(cache))
+    layer = whole // DON_LAYERS
+    toks = torch.randint(0, cfg.vocab, (DON_BATCH, 2 * DON_STEPS + 3),
+                         generator=gen, device=cuda, dtype=torch.int32)
+    pos0 = DON_CACHE // 2
+    with torch.no_grad():
+        want, new = decode_step(cfg, params, cache, toks[:, :1], pos0)
+    got, out = serve(params, cache, toks[:, :1], pos0)
+    if out is not cache:
+        raise AssertionError("decode donated: the step did not give back "
+                             "its cache")
+    assert_equal(got, want, "decode donated: logits")
+    for (path, a), (_, b) in zip(_flatten(out), _flatten(new)):
+        assert_equal(a, b, f"decode donated: cache {'/'.join(path)}")
+    del new
+    (_, cache), base, peak = peak_over(
+        lambda: serve(params, cache, toks[:, 1:2], pos0 + 1), [cuda])
+    extra = peak[0] - base[0]
+    if extra >= layer:
+        raise AssertionError(f"decode donated: {extra} B above the "
+                             f"allocation, one layer's cache is {layer} B")
+
+    def functional():
+        with torch.no_grad():
+            return decode_step(cfg, params, cache, toks[:, 2:3], pos0 + 2)
+    kept, base_f, peak_f = peak_over(functional, [cuda])
+    del kept
+    rates = {}
+    for name, step in (("donated", serve), ("decode_step", lambda *a: (
+            decode_step(cfg, *a)))):
+        c, wall = cache, []
+        for i in range(DON_STEPS):
+            sync()
+            t1 = time.perf_counter()
+            with torch.no_grad():
+                _, c = step(params, c, toks[:, 3 + i:4 + i], pos0 + 3 + i)
+            sync()
+            wall.append(time.perf_counter() - t1)
+        rates[name] = DON_BATCH * (DON_STEPS - 1) / sum(wall[1:])
+        del c
+    print(f"e2e decode donated minicpm-2b (d_model {cfg.d_model}, "
+          f"{cfg.n_heads} heads MHA, vocab {cfg.vocab}, {depth(cfg)}, bf16) "
+          f"batch {DON_BATCH}, cache {DON_CACHE} deep ({whole} B, one layer "
+          f"{layer} B) at position {pos0}: logits and every cache leaf "
+          f"bitwise with models.decode_step | peak above the allocation "
+          f"before the step: donated {extra} B (under one layer's cache), "
+          f"decode_step (a copy of the cache first) "
+          f"{peak_f[0] - base_f[0]} B | tokens_per_s donated "
+          f"{rates['donated']} decode_step {rates['decode_step']} (steps "
+          f"1-{DON_STEPS - 1}) | {card}")
+    print(f"decode donated phase: {time.perf_counter() - t0:.1f} s")
 
 
 MLA_BATCH, MLA_SEQ = 2, 128
@@ -3476,6 +3760,7 @@ def examples_phase(card) -> None:
 ALONE = {"mamba": mamba_phase, "ep": ep_phase,
          "partitioned": partitioned_phase,
          "partitioned_hybrid": partitioned_hybrid_phase,
+         "sp": sp_phase, "decode_donated": donate_decode_phase,
          "serve_padded": serve_padded_phase}
 
 
@@ -3532,6 +3817,8 @@ def main() -> int:
     ep_phase(card, cuda, args.seed)
     partitioned_phase(card, cuda, args.seed)
     partitioned_hybrid_phase(card, cuda, args.seed)
+    sp_phase(card, cuda, args.seed)
+    donate_decode_phase(card, cuda, args.seed)
     serve_padded_phase(card, cuda, args.seed)
     dryrun_phase()
     service_attribution_phase(stream, card, cuda, launches)

@@ -23,7 +23,7 @@ from repro_torch.configs import get_arch
 from repro_torch.data import PipelineConfig, StreamingPipeline
 from repro_torch.kernels.runtime import resolve_device
 from repro_torch.models import init_params, loss_fn
-from repro_torch.optim import AdamWConfig, adamw_init, adamw_update, \
+from repro_torch.optim import AdamWConfig, adamw_init, adamw_update_, \
     wsd_schedule
 from repro_torch.runtime import TrainLoop, TrainLoopConfig
 
@@ -73,10 +73,11 @@ def main(argv=None, cfg=None):
         grads = torch.autograd.grad(loss, leaves)
         lr = wsd_schedule(opt_state["step"], warmup=20,
                           stable=args.steps - 80, decay=60)
-        with torch.no_grad():
-            p2, s2 = adamw_update(params, _unflatten(params, iter(grads)),
-                                  opt_state, opt_cfg, lr_scale=lr)
-        return p2, s2, loss.detach()
+        with torch.no_grad():     # params and state donated: in place
+            params, opt_state = adamw_update_(
+                params, _unflatten(params, iter(grads)), opt_state, opt_cfg,
+                lr_scale=lr)
+        return params, opt_state, loss.detach()
 
     shutil.rmtree(args.ckpt_dir, ignore_errors=True)
     loop = TrainLoop(

@@ -79,6 +79,12 @@ def _unflatten(tree, leaves):
     return next(leaves)
 
 
+def clone_tree(tree):
+    """A copy of every leaf of ``tree`` (every group tensor of a placed
+    tree): what a caller keeps of an input that a step donates."""
+    return _unflatten(tree, iter(x.clone() for _, x in _flatten(tree)))
+
+
 def _path_str(path) -> str:
     return "/".join(path)
 

@@ -19,7 +19,10 @@ divide them by the device count.  The collectives counted are the
 program's own (the EP all-to-alls, forward and backward); the partitioner's
 implicit ones (FSDP gathers, gradient reductions) are not in an eager
 program and are not counted.  ``trace_s`` takes the place of ``lower_s``
-and ``compile_s``.
+and ``compile_s``.  The traced program is the one-device one (a
+``MeshSpec`` has no shards to run), which has a single layer carry:
+``seq_shard_acts`` is reported, and changes nothing traced (the
+partitioned program shards the carry, ``models/partitioned.py``).
 
 Usage:
   python -m repro_torch.launch.dryrun --arch granite-34b --shape train_4k

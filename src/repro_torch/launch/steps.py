@@ -8,8 +8,12 @@ traces a step on them.  ``build_train_step``, ``build_prefill_step`` and
 ``build_decode_step`` return ``(fn, structs)``; ``fn`` runs eagerly where
 its inputs lie.
 
-Of ``StepConfig``, ``remat``, ``expert_parallel``, ``serving_head_pad``,
-``kv_chunk`` and ``optimizer`` shape the step.
+Every field of ``StepConfig`` shapes the step.  The steps donate as the
+reference's jits do (``donate_argnums``): the train step writes the new
+params and AdamW state into the trees it is given and returns them, and the
+decode step writes the new position into the cache it is given and returns
+it.  A donated input belongs to the step: a caller that still needs it
+clones it first.  The prefill step donates nothing.
 
 On a ``ShardMesh`` of more than one shard the steps run the reference's
 jit shardings: given params, AdamW state, batch and decode cache at rest
@@ -23,9 +27,12 @@ it is engaged.  On a one-shard mesh (``make_host_mesh(device=...)``'s
 default) there is nothing to place and the program is that one-device
 program.  On a ``MeshSpec`` (the dry run) the builders trace it too, and
 the dry run reads per-device bytes from the specs.  ``seq_shard_acts``
-(the reference's sequence-sharding constraint on the layer carry) and
-buffer donation have no counterpart: the field is kept, and only the dry
-run reads it (it reports the setting).
+(the reference's Megatron sequence sharding of the layer carry) applies to
+the partitioned train and prefill steps: between blocks each shard keeps
+its ``[B/dp, S/m, D]`` block of the carry (``Partitioned``), where the
+reference's rule admits it (``model`` divides S and S >= m).  The one-device
+program, and so the dry run's trace on a ``MeshSpec``, has one carry and
+nothing to shard; the dry run reports the setting.
 """
 from __future__ import annotations
 
@@ -36,12 +43,12 @@ import torch
 
 from ..ckpt.checkpoint import _flatten, _unflatten
 from ..core.mesh import ShardMesh, axis_sizes
-from ..models import (ArchConfig, ShapeCfg, decode_step, forward, loss_fn,
+from ..models import (ArchConfig, ShapeCfg, decode_step_, forward, loss_fn,
                       meta_cache, meta_params)
 from ..models import layers, moe_ep
 from ..models.partitioned import Partitioned
 from ..models.serving import serving_padded
-from ..optim import AdamWConfig, adamw_init, adamw_update, wsd_schedule
+from ..optim import AdamWConfig, adamw_init, adamw_update_, wsd_schedule
 from .mesh import dp_axes
 from .sharding import (batch_specs, cache_specs, is_placed, param_specs,
                        place_batch, place_cache, sanitize_spec)
@@ -52,8 +59,8 @@ N_PATCHES = 256  # vision stub: patches per sample in vlm cells
 @dataclasses.dataclass(frozen=True)
 class StepConfig:
     remat: str = "full"
-    seq_shard_acts: bool = True       # sequence sharding of the layer carry
-                                      # (read by the dry run only)
+    seq_shard_acts: bool = True       # Megatron-style sequence sharding of
+                                      # the layer carry (train/prefill only)
     expert_parallel: bool = True      # EP MoE (vs the dropless path)
     serving_head_pad: bool = True     # decode: pad/replicate kv heads so
                                       # the cache shards on the model axis
@@ -135,7 +142,8 @@ def _plan(cfg: ArchConfig, mesh, params_s, step_cfg: StepConfig):
     if not isinstance(mesh, ShardMesh) or mesh.size == 1:
         return None
     return Partitioned(cfg, mesh, param_specs(params_s, mesh),
-                       remat=step_cfg.remat)
+                       remat=step_cfg.remat,
+                       seq_shard=step_cfg.seq_shard_acts)
 
 
 def _placed(plan, params) -> bool:
@@ -153,9 +161,11 @@ def _batch_in(plan, batch, global_batch: int):
 def build_train_step(cfg: ArchConfig, shape: ShapeCfg, mesh,
                      step_cfg: StepConfig = StepConfig()):
     """Returns ``(step, (params_struct, opt_struct, batch_struct))``;
-    ``step(params, opt_state, batch) -> (params, opt_state, loss)``, its
-    inputs left as they were (placed params give placed results, the loss
-    on ``mesh.device``)."""
+    ``step(params, opt_state, batch) -> (params, opt_state, loss)``.  The
+    params and AdamW state are donated: the step writes the new values into
+    them, leaf by leaf after the gradients are taken, and returns the same
+    trees (placed params give placed results, the loss on
+    ``mesh.device``)."""
     _configure_ep(cfg, mesh, step_cfg)
     opt = step_cfg.optimizer
     params_s = abstract_params(cfg)
@@ -168,19 +178,19 @@ def build_train_step(cfg: ArchConfig, shape: ShapeCfg, mesh,
             loss, grads = plan.loss_and_grads(
                 params, _batch_in(plan, batch, shape.global_batch))
             with torch.no_grad():
-                new_params, new_state = adamw_update(
+                params, opt_state = adamw_update_(
                     params, grads, opt_state, opt, lr_scale=lr,
                     gnorm=plan.global_norm(grads))
-            return new_params, new_state, loss
+            return params, opt_state, loss
         leaves = [p.detach().requires_grad_() for _, p in _flatten(params)]
         loss = loss_fn(cfg, _unflatten(params, iter(leaves)), batch,
                        remat=step_cfg.remat)
         grads = torch.autograd.grad(loss, leaves)
         with torch.no_grad():
-            new_params, new_state = adamw_update(
+            params, opt_state = adamw_update_(
                 params, _unflatten(params, iter(grads)), opt_state, opt,
                 lr_scale=lr)
-        return new_params, new_state, loss.detach()
+        return params, opt_state, loss.detach()
 
     train_step.plan = plan
     return train_step, (params_s, abstract_opt_state(cfg, opt),
@@ -217,7 +227,9 @@ def build_decode_step(cfg: ArchConfig, shape: ShapeCfg, mesh,
     cache_struct, tokens_struct, pos_struct))``; ``serve(params, caches,
     tokens, pos) -> (logits, caches)`` with ``pos`` an int (placed params
     give placed logits and caches; a whole cache or whole tokens are placed
-    on entry)."""
+    on entry).  The cache is donated: the new position is written into it
+    in place and it comes back (a whole cache given with placed params is
+    placed, and the placed copy comes back)."""
     _configure_ep(cfg, mesh, step_cfg,
                   tokens_per_device=max(shape.global_batch
                                         // _dp_size(mesh), 1))
@@ -242,7 +254,7 @@ def build_decode_step(cfg: ArchConfig, shape: ShapeCfg, mesh,
                 return plan.decode(params, caches, cspecs, tokens, int(pos),
                                    logits_spec(cfg, shape, mesh,
                                                decode=True), tspec[0])
-            return decode_step(cfg, params, caches, tokens, int(pos))
+            return decode_step_(cfg, params, caches, tokens, int(pos))
 
     serve.plan = plan
     return serve, (params_s, cache_s, tokens_s, _meta((), torch.int32))

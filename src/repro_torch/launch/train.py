@@ -20,15 +20,16 @@ from ..configs import get_arch
 from ..data import PipelineConfig, StreamingPipeline
 from ..kernels.runtime import resolve_device
 from ..models import ArchConfig, init_params, loss_fn
-from ..optim import AdamWConfig, adamw_init, adamw_update, wsd_schedule
+from ..optim import AdamWConfig, adamw_init, adamw_update_, wsd_schedule
 from ..runtime import TrainLoop, TrainLoopConfig
 
 
 def make_train_step(cfg: ArchConfig, opt_cfg: AdamWConfig, total_steps: int):
     """The launcher's step: loss and grads of every leaf (remat "dots"),
     the WSD rate of the optimizer's step count, one AdamW update.
-    ``step(params, opt_state, batch) -> (params, opt_state, loss)``; inputs
-    unchanged."""
+    ``step(params, opt_state, batch) -> (params, opt_state, loss)``; the
+    params and AdamW state are donated (the reference's ``donate_argnums=
+    (0, 1)``): written in place, leaf by leaf, and returned."""
     def train_step(params, opt_state, batch):
         leaves = [p.detach().requires_grad_() for _, p in _flatten(params)]
         loss = loss_fn(cfg, _unflatten(params, iter(leaves)), batch,
@@ -38,9 +39,10 @@ def make_train_step(cfg: ArchConfig, opt_cfg: AdamWConfig, total_steps: int):
                           stable=int(total_steps * 0.7),
                           decay=max(total_steps // 5, 1))
         with torch.no_grad():
-            p2, s2 = adamw_update(params, _unflatten(params, iter(grads)),
-                                  opt_state, opt_cfg, lr_scale=lr)
-        return p2, s2, loss.detach()
+            params, opt_state = adamw_update_(
+                params, _unflatten(params, iter(grads)), opt_state, opt_cfg,
+                lr_scale=lr)
+        return params, opt_state, loss.detach()
     return train_step
 
 

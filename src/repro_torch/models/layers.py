@@ -210,10 +210,12 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 def _write_cache(buf: torch.Tensor, new: torch.Tensor, pos: int
                  ) -> torch.Tensor:
-    """``lax.dynamic_update_slice_in_dim(buf, new, pos, axis=1)``: a new
-    tensor, the caller's left as it was."""
-    return torch.slice_scatter(buf, new.to(buf.dtype), dim=1, start=pos,
-                               end=pos + new.shape[1])
+    """``lax.dynamic_update_slice_in_dim(buf, new, pos, axis=1)`` into
+    ``buf`` itself, which comes back: the cache belongs to the decode step
+    (the reference's ``donate_argnums``), and the rest of it is not
+    copied."""
+    buf.narrow(1, pos, new.shape[1]).copy_(new)
+    return buf
 
 
 # ---------------------------------------------------------------------------
@@ -225,12 +227,12 @@ def attn_forward(cfg: ArchConfig, p: dict, x: torch.Tensor, pos: torch.Tensor,
                  kv_heads: Optional[Tuple[int, int]] = None,
                  partial: bool = False
                  ) -> Tuple[torch.Tensor, Optional[dict]]:
-    """x: [B, S, D].  With ``cache``, writes new kv at ``cache_pos`` and
-    attends over the cache (decode / incremental prefill).  The head
-    counts are the weights' own, so a tensor-parallel shard runs this on
-    its heads' columns of ``wq``/``wk``/``wv`` and rows of ``wo`` (its
-    output is then a partial sum, float32 with ``partial``: see
-    ``out_proj``).  ``kv_heads`` ``(lo, hi)``: the kv heads its q heads
+    """x: [B, S, D].  With ``cache``, writes new kv at ``cache_pos`` (into
+    ``cache`` itself) and attends over the cache (decode / incremental
+    prefill).  The head counts are the weights' own, so a tensor-parallel
+    shard runs this on its heads' columns of ``wq``/``wk``/``wv`` and rows
+    of ``wo`` (its output is then a partial sum, float32 with ``partial``:
+    see ``out_proj``).  ``kv_heads`` ``(lo, hi)``: the kv heads its q heads
     attend to, where ``wk``/``wv`` (and the cache) hold more."""
     s = x.shape[1]
     q = torch.einsum("bsd,dhk->bshk", x, p["wq"])
@@ -269,7 +271,8 @@ def mla_forward(cfg: ArchConfig, p: dict, x: torch.Tensor, pos: torch.Tensor,
                 cache: Optional[dict] = None, cache_pos: Optional[int] = None,
                 partial: bool = False
                 ) -> Tuple[torch.Tensor, Optional[dict]]:
-    """The head count is ``wuq``'s own, so a tensor-parallel shard runs
+    """With ``cache``, the new latent is written into ``cache`` itself.  The
+    head count is ``wuq``'s own, so a tensor-parallel shard runs
     this on its heads of ``wuq``/``wuk``/``wuv`` and rows of ``wo`` (its
     output is then a partial sum, float32 with ``partial``); the latent is
     whole on every shard."""

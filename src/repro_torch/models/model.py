@@ -21,6 +21,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
+from ..ckpt.checkpoint import clone_tree
 from ..kernels.runtime import resolve_device
 from .config import ArchConfig
 from .layers import (attn_forward, ffn_forward, mla_forward, moe_forward,
@@ -272,43 +273,54 @@ def _unstack(tree, n: int):
     return list(torch.unbind(tree, 0))
 
 
-def _restack(trees):
-    if trees[0] is None:
-        return None
-    if isinstance(trees[0], dict):
-        return {k: _restack([t[k] for t in trees]) for k in trees[0]}
-    return torch.stack(trees, 0)
+def write_into(dst, src) -> None:
+    """Each leaf of the cache tree ``src`` copied into the same leaf of
+    ``dst``, but where it already is that leaf's storage (written in place
+    by ``layers._write_cache``)."""
+    if isinstance(dst, dict):
+        for k in dst:
+            write_into(dst[k], src[k])
+    elif not _aliases(dst, src):
+        dst.copy_(src)
+
+
+def _aliases(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Whether ``a`` and ``b`` view the same elements (never on ``meta``,
+    which has no storage to compare)."""
+    if a is b:
+        return True
+    return (a.device == b.device and a.device.type != "meta"
+            and a.data_ptr() == b.data_ptr() and a.shape == b.shape
+            and a.stride() == b.stride() and a.dtype == b.dtype)
 
 
 def _run_stacks(cfg: ArchConfig, params, x, pos, *, caches=None,
                 cache_pos=None, pos3=None, remat="full"):
-    """Run the layer stacks in order; returns (x, new_caches)."""
-    new_caches = {} if caches is not None else None
+    """Run the layer stacks in order; returns (x, caches): each layer's new
+    cache is written into ``caches`` (attention writes its new position
+    there itself)."""
     for kind, count in layer_plan(cfg):
         if count == 0:
             continue
         layers = _unstack(params["stacks"][kind], count)
         lcs = _unstack(caches[kind] if caches is not None else None, count)
-        outs = []
         if kind == "hybrid_group":
             per = cfg.attn_every
 
             def group_body(h, gp, gc):
-                ncs = []
                 for lp, lc in zip(_unstack(gp, per),
                                   _unstack(gc["ssm"] if gc is not None
                                            else None, per)):
                     h, nc = _block_forward(cfg, lp, h, pos, "ssm", cache=lc,
                                            cache_pos=cache_pos)
-                    ncs.append(nc)
+                    if lc is not None:
+                        write_into(lc, nc)
                 # shared attention block (same weights every group)
-                h, nat = _block_forward(
+                h, _ = _block_forward(
                     cfg, params["shared_attn"], h, pos, "dense",
                     cache=gc["attn"] if gc is not None else None,
                     cache_pos=cache_pos, pos3=pos3)
-                nc_out = (dict(ssm=_restack(ncs), attn=nat)
-                          if gc is not None else None)
-                return h, nc_out
+                return h, gc
 
             body = _maybe_remat(group_body, remat)
         else:
@@ -319,10 +331,9 @@ def _run_stacks(cfg: ArchConfig, params, x, pos, *, caches=None,
             body = _maybe_remat(body_fn, remat)
         for lp, lc in zip(layers, lcs):
             x, nc = body(x, lp, lc)
-            outs.append(nc)
-        if caches is not None:
-            new_caches[kind] = _restack(outs)
-    return x, new_caches
+            if lc is not None:
+                write_into(lc, nc)
+    return x, caches
 
 
 def embed_tokens(params, tokens: torch.Tensor) -> torch.Tensor:
@@ -493,7 +504,15 @@ def decode_step(cfg: ArchConfig, params, caches, tokens: torch.Tensor,
                 pos: int) -> Tuple[torch.Tensor, Tree]:
     """One token step.  tokens: [B, 1]; pos: the cache fill (an int).
     Returns (logits [B, 1, V], new caches); the caller's caches are left as
-    they were."""
+    they were (``decode_step_`` on a copy of them)."""
+    return decode_step_(cfg, params, clone_tree(caches), tokens, pos)
+
+
+def decode_step_(cfg: ArchConfig, params, caches, tokens: torch.Tensor,
+                 pos: int) -> Tuple[torch.Tensor, Tree]:
+    """``decode_step`` with the caches donated (the reference's
+    ``donate_argnums=(1,)``): the new position is written into ``caches``
+    in place, and ``(logits, caches)`` comes back."""
     x = embed_tokens(params, tokens)
     posv = torch.full((1, 1), int(pos), dtype=torch.int32, device=x.device)
     pos3 = posv[:, None, :].expand(x.shape[0], 3, 1) if cfg.mrope else None

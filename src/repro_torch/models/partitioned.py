@@ -60,12 +60,31 @@ Per layer, the reference's scheme (DESIGN.md §6):
 * **the loss** is the reference's global mean: the masked CE sum and the
   mask count are psum'd over the data axes before they divide.
 
-Decode caches rest by ``cache_specs``; each layer reshards its leaves to
-the form its compute takes (the batch over the data axes, the heads over
-``model`` where TP) and back (``reshard``), reading from each spec which
-dim the data axes shard: the hybrid stack's shared-attention cache rests
-with the sequence on the data axes and ``hd`` on ``model``, as the
-reference places it (its spec counts two stacked axes where there is one).
+**Sequence parallelism** (``seq_shard``, ``StepConfig.seq_shard_acts``;
+the reference constrains the layer carry to ``P(dp, "model", None)``): in
+the train and prefill steps, where ``model`` divides the sequence, each
+shard keeps only its ``[B/dp, S/m, D]`` block of the carry between blocks.
+The norms and residual adds run on the block; each layer's normed input is
+all-gathered along S over ``model`` (attention, MLA, mamba2's projection,
+conv and SSD, the FFN, the dropless and shared experts; the EP experts
+route the block as it is, ``moe_ep.TokenLayout``'s own), and the TP
+partials are reduce-scattered along S instead of psum'd.  Both sum the
+same stack over the mesh dims, so the forward is bitwise the program with
+the carry whole; the backward sums the shards' gradients at other points
+(float32 roundings apart, ROADMAP C).  The vocab-parallel lookup ends as
+a reduce-scatter onto the block (a whole table looks up the block's tokens;
+vision patches are scattered into the whole sequence first); the head, the
+cross-entropy and MTP take the carry gathered back.
+
+Decode caches rest by ``cache_specs`` and are donated: each layer reshards
+its leaves to the form its compute takes (the batch over the data axes,
+the heads over ``model`` where TP), reading from each spec which dim the
+data axes shard, and writes the new position back into the placed cache
+(``cache_out``).  Where a leaf rests as it computes, the layer writes into
+a view of it; else only the new position's rows go back (the hybrid
+stack's shared-attention cache rests with the sequence on the data axes
+and ``hd`` on ``model``, as the reference places it: its spec counts two
+stacked axes where there is one).
 
 The gradient is exact differentiation of the loss as shard 0 holds it
 (every shard holds the same value).  A leaf that the spec replicates has
@@ -88,7 +107,7 @@ from .layers import (attn_forward, ffn_forward, mla_forward, moe_routed,
                      out_proj, rms_norm, weak)
 from .mamba2 import mamba_forward, mamba_mix
 from .model import (_maybe_remat, embed_inputs, finish_inputs, layer_plan,
-                    masked_ce_sums, vocab_parallel_ce_sums)
+                    masked_ce_sums, vocab_parallel_ce_sums, write_into)
 from . import moe_ep
 
 Tree = Any
@@ -147,11 +166,12 @@ class Partitioned:
     (``launch/sharding.param_specs``, under the EP mesh the step set)."""
 
     def __init__(self, cfg: ArchConfig, mesh: ShardMesh, specs: Tree,
-                 remat: str = "full"):
+                 remat: str = "full", seq_shard: bool = True):
         if "model" not in mesh.axis_names:
             raise ValueError(f"the partitioned step needs a 'model' axis, "
                              f"got {mesh.axis_names}")
         self.cfg, self.mesh, self.specs, self.remat = cfg, mesh, specs, remat
+        self.seq_shard = seq_shard
         self.dp = (("pod", "data") if "pod" in mesh.axis_names
                    else ("data",))
         self.msize = axis_sizes(mesh)["model"]
@@ -165,6 +185,14 @@ class Partitioned:
     def _split(self, spec, d: int) -> bool:
         """Whether ``model`` (of more than one shard) splits dim ``d``."""
         return self.msize > 1 and "model" in spec_entry_axes(spec[d])
+
+    def seq_sharded(self, s: int) -> bool:
+        """Whether the layer carry of an ``s``-long sequence rests as each
+        shard's sequence block over ``model`` between blocks: with
+        ``seq_shard`` (``StepConfig.seq_shard_acts``), by the reference's
+        rule (``_constrain_maker``: ``model`` divides ``s``, ``s`` >= m)."""
+        m = self.msize
+        return self.seq_shard and m > 1 and s % m == 0 and s >= m
 
     # -- per-shard values ----------------------------------------------------
     def groups(self, vals: PerShard):
@@ -215,6 +243,23 @@ class Partitioned:
         return self.shards(self.mesh.all_gather(self.groups(vals), axes, d,
                                                 dim=0, tiled=True))
 
+    def whole_seq(self, vals: PerShard, sp: bool) -> PerShard:
+        """A carry's sequence blocks gathered along S over ``model`` where
+        ``sp``, else the values as they are."""
+        return self.gather(vals, 1) if sp else vals
+
+    def seq_block(self, vals: PerShard, sp: bool) -> PerShard:
+        """Each shard's own sequence block of a value it holds whole, where
+        ``sp`` (a copy, so the whole value need not live on), else the
+        values as they are."""
+        if not sp:
+            return vals
+        out = []
+        for i, x in enumerate(vals):
+            n = x.shape[1] // self.msize
+            out.append(x.narrow(1, self.model_idx[i] * n, n).clone())
+        return out
+
     def _own(self, x: torch.Tensor, spec, s: int, keep) -> torch.Tensor:
         """Shard ``s``'s block of a value ``use`` gathered (the dims whose
         axes are not in ``keep``)."""
@@ -264,14 +309,50 @@ class Partitioned:
                 o[k] = x
         return out
 
-    def cache_out(self, cache, new: PerShard, heads=None):
-        """The new per-shard caches, in compute form, back at rest."""
+    def cache_out(self, cache, new: PerShard, heads=None, pos=None,
+                  rows=1):
+        """The new per-shard caches, in compute form, written into the
+        placed cache at rest, which comes back (the decode step donates its
+        cache).  Where a leaf's compute form is its form at rest,
+        ``cache_in`` gave views of it and the layer wrote its new position
+        there itself (``layers._write_cache``); a leaf along the time axis
+        (``k``, ``v``, ``ckv``, ``kr``) resharded on the way in writes back
+        only its ``rows`` new rows at ``pos``, any other leaf its whole new
+        value."""
         if cache is None:
             return None
-        _, specs = cache
-        return {k: self.reshard(self.groups([n[k] for n in new]),
-                                self._compute_spec(k, specs[k], heads),
-                                specs[k]) for k in specs}
+        tree, specs = cache
+        for k in specs:
+            comp = self._compute_spec(k, specs[k], heads)
+            rest, vals = self.shards(tree[k]), [n[k] for n in new]
+            if any(spec_entry_axes(a) != spec_entry_axes(b)
+                   for a, b in zip(comp, specs[k])):
+                if k in ("k", "v", "ckv", "kr"):
+                    self._write_rows(vals, comp, specs[k], rest, pos, rows)
+                    continue
+                vals = self.shards(self.reshard(self.groups(vals), comp,
+                                                specs[k]))
+            for r, v in zip(rest, vals):
+                write_into(r, v)
+        return tree
+
+    def _write_rows(self, vals: PerShard, comp, spec, rest: PerShard,
+                    pos: int, n: int) -> None:
+        """The ``n`` rows at ``pos`` of the time axis (dim 1) of a cache
+        leaf in compute form (spec ``comp``), resharded on every other dim
+        to its spec at rest, written into each shard's block at rest where
+        that block's stretch of the time axis holds them (the hybrid
+        stack's shared-attention cache rests with the time axis on the
+        data axes)."""
+        whole_t = lambda sp: (sp[0], None) + tuple(sp[2:])
+        rows = self.shards(self.reshard(
+            self.groups([v.narrow(1, pos, n) for v in vals]), whole_t(comp),
+            whole_t(spec)))
+        for s, (r, x) in enumerate(zip(rest, rows)):
+            lo = self.mesh._block(spec[1], s)[0] * r.shape[1]
+            a, b = max(pos, lo), min(pos + n, lo + r.shape[1])
+            if a < b:
+                r.narrow(1, a - lo, b - a).copy_(x.narrow(1, a - pos, b - a))
 
     # -- layers ---------------------------------------------------------------
     def _kv_heads(self, spec_wk) -> Optional[List[Tuple[int, int]]]:
@@ -309,29 +390,35 @@ class Partitioned:
             return False, None
 
     def block(self, kind: str, lp: Tree, ls: Tree, xs: PerShard, pos,
-              cache=None, cache_pos=None, pos3=None):
+              cache=None, cache_pos=None, pos3=None, sp=False):
         """One block on every shard (``model._block_forward``'s program):
-        returns the new per-shard hidden state and the new placed cache."""
+        returns the new per-shard hidden state and the new placed cache.
+        ``sp``: the carry ``xs`` is each shard's sequence block
+        (``seq_sharded``); the norms and residual adds run on the block,
+        every layer on the normed input gathered whole along S, and its
+        output comes back as the block (a reduce-scatter of the TP
+        partials)."""
         if kind == "ssm":
-            return self.ssm(lp, ls, xs, cache)
+            return self.ssm(lp, ls, xs, cache, sp)
         cfg = self.cfg
         res = lambda a: weak(cfg.residual_scale, a.dtype)
         ln1, ln2 = self.use(lp["ln1"], ls["ln1"]), self.use(lp["ln2"],
                                                             ls["ln2"])
         attn, nc = self.attention(
-            lp["attn"], ls["attn"],
-            [rms_norm(x, w, cfg.norm_eps) for x, w in zip(xs, ln1)], pos,
-            cache, cache_pos, pos3)
+            lp["attn"], ls["attn"], self.whole_seq(
+                [rms_norm(x, w, cfg.norm_eps) for x, w in zip(xs, ln1)], sp),
+            pos, cache, cache_pos, pos3, sp)
         xs = [x + res(a) * a for x, a in zip(xs, attn)]
         hs = [rms_norm(x, w, cfg.norm_eps) for x, w in zip(xs, ln2)]
-        f = (self.moe(lp["ffn"], ls["ffn"], hs) if kind == "moe"
-             else self.ffn(lp["ffn"], ls["ffn"], hs))
+        f = (self.moe(lp["ffn"], ls["ffn"], hs, sp) if kind == "moe"
+             else self.ffn(lp["ffn"], ls["ffn"], hs, sp))
         return [x + res(y) * y for x, y in zip(xs, f)], nc
 
     def attention(self, lp: Tree, ls: Tree, hs: PerShard, pos, cache=None,
-                  cache_pos=None, pos3=None):
+                  cache_pos=None, pos3=None, sp=False):
         """The attention layer (GQA or MLA) on every shard's normed hidden
-        state: (per-shard output, the new placed cache)."""
+        state (whole along S): (per-shard output, its sequence block where
+        ``sp``; the placed cache, written in place)."""
         cfg, n = self.cfg, self.mesh.size
         tp, kv = self._attn_tp(ls)
         pa = self.use_tree(lp, ls, ("model",) if tp else (), whole=("wdq",))
@@ -350,15 +437,24 @@ class Partitioned:
                                      partial=tp)
             out.append(a)
             ncs.append(nc)
-        if tp:
-            out = self._sum_partials(out, hs)
-        return out, self.cache_out(cache, ncs, heads)
+        out = (self._sum_partials(out, hs, sp) if tp
+               else self.seq_block(out, sp))
+        return out, self.cache_out(cache, ncs, heads, cache_pos,
+                                   hs[0].shape[1])
 
-    def _sum_partials(self, parts: PerShard, like: PerShard) -> PerShard:
+    def _sum_partials(self, parts: PerShard, like: PerShard,
+                      sp: bool = False) -> PerShard:
         """The shards' partial outputs (float32, ``layers.out_proj``)
-        psum'd over ``model`` and rounded once to the hidden dtype."""
-        return [y.to(h.dtype) for y, h in zip(self.psum(parts, ("model",)),
-                                               like)]
+        summed over ``model`` and rounded once to the hidden dtype: a psum,
+        or with ``sp`` a reduce-scatter along S that leaves each shard its
+        sequence block (both sum the same stack over the mesh dims, so the
+        block is bitwise the psum's)."""
+        if sp:
+            summed = self.shards(self.mesh.reduce_scatter(
+                self.groups(parts), ("model",), 1, dim=0))
+        else:
+            summed = self.psum(parts, ("model",))
+        return [y.to(h.dtype) for y, h in zip(summed, like)]
 
     def _mamba_tp(self, ms) -> bool:
         """Whether mamba2 runs over its SSM heads: ``model`` splits them
@@ -367,23 +463,26 @@ class Partitioned:
                                                       "dt_bias"))
                 and self._split(ms["out_proj"], 0))
 
-    def ssm(self, lp: Tree, ls: Tree, xs: PerShard, cache):
+    def ssm(self, lp: Tree, ls: Tree, xs: PerShard, cache, sp=False):
         """A mamba2 block on every shard: over the shard's SSM heads where
-        ``model`` splits them, else replicated."""
+        ``model`` splits them, else replicated; its conv and SSD on the
+        normed input gathered whole along S where ``sp``."""
         cfg, n = self.cfg, self.mesh.size
         res = lambda a: weak(cfg.residual_scale, a.dtype)
         mp, ms = lp["mamba"], ls["mamba"]
-        hs = [rms_norm(x, w, cfg.norm_eps)
-              for x, w in zip(xs, self.use(lp["ln"], ls["ln"]))]
+        hs = self.whole_seq([rms_norm(x, w, cfg.norm_eps) for x, w in zip(
+            xs, self.use(lp["ln"], ls["ln"]))], sp)
         if not self._mamba_tp(ms):
             ps = self.use_tree(mp, ms)
             cs = self.cache_in(cache)
             out, ncs = [], []
             for i in range(n):
                 h, nc = mamba_forward(cfg, ps[i], hs[i], cs[i])
-                out.append(xs[i] + res(h) * h)
+                out.append(h)
                 ncs.append(nc)
-            return out, self.cache_out(cache, ncs)
+            out = self.seq_block(out, sp)
+            return ([x + res(h) * h for x, h in zip(xs, out)],
+                    self.cache_out(cache, ncs))
         col = self._split(ms["in_proj"], 1)
         w_in = self.use(mp["in_proj"], ms["in_proj"],
                         ("model",) if col else ())
@@ -417,7 +516,7 @@ class Partitioned:
                                              + cfg.norm_eps)
                  * w.float()).to(ys[i].dtype)
             out.append(out_proj("bsc,cd->bsd", y, own[i]["out_proj"], True))
-        out = self._sum_partials(out, xs)
+        out = self._sum_partials(out, xs, sp)
         xs = [x + res(h) * h for x, h in zip(xs, out)]
         if cache is None:
             return xs, None
@@ -430,63 +529,77 @@ class Partitioned:
                for i, (x, c, st) in enumerate(zip(xcols, convs, ssms))]
         return xs, self.cache_out(cache, new, "model")
 
-    def ffn(self, lp: Tree, ls: Tree, hs: PerShard) -> PerShard:
+    def ffn(self, lp: Tree, ls: Tree, hs: PerShard, sp=False) -> PerShard:
         """The dense FFN: column-parallel ``wu``/``wg``, row-parallel
         ``wd`` and a psum over ``model`` where ``model`` shards the hidden
-        width, else replicated."""
+        width, else replicated.  ``sp``: ``hs`` are the sequence blocks,
+        gathered whole first, and the output is the block."""
         tp = self._split(ls["wu"], -1)
         ps = self.use_tree(lp, ls, ("model",) if tp else ())
-        out = [ffn_forward(self.cfg, p, h, tp) for p, h in zip(ps, hs)]
-        return self._sum_partials(out, hs) if tp else out
+        out = [ffn_forward(self.cfg, p, h, tp)
+               for p, h in zip(ps, self.whole_seq(hs, sp))]
+        return (self._sum_partials(out, hs, sp) if tp
+                else self.seq_block(out, sp))
 
-    def moe(self, lp: Tree, ls: Tree, hs: PerShard) -> PerShard:
+    def moe(self, lp: Tree, ls: Tree, hs: PerShard, sp=False) -> PerShard:
         """The MoE block: the routed experts under EP where the step
         engaged it (``moe_ep.get_ep_mesh``), else the dropless layer over
         each shard's own experts where ``model`` splits them (else whole);
         the shared experts tensor-parallel where ``model`` splits their
-        hidden width.  The partial outputs take one psum over ``model``."""
+        hidden width.  The partial outputs take one psum over ``model``.
+        ``sp``: ``hs`` are the sequence blocks; EP routes them as they are,
+        the dropless and shared experts take them gathered whole, and the
+        output is the block."""
         cfg = self.cfg
         names = [k for k in ("wu", "wg", "wd") if k in lp]
         router = self.use(lp["router"], ls["router"])
         parts, wholes = [], []
-        if moe_ep.get_ep_mesh() is not None:
-            wholes.append(self._ep({k: lp[k] for k in names}, hs, router))
-        else:
+        ep = moe_ep.get_ep_mesh() is not None
+        if ep:
+            wholes.append(self._ep({k: lp[k] for k in names}, hs, router,
+                                   sp))
+        hw = self.whole_seq(hs, sp) if cfg.n_shared_experts or not ep else hs
+        if not ep:
             tp = self._split(ls["wu"], 0)
             pe = self.use_tree({k: lp[k] for k in names},
                                {k: ls[k] for k in names},
                                ("model",) if tp else ())
             eb = cfg.n_experts // self.msize
             out = []
-            for i, (p, h, r) in enumerate(zip(pe, hs, router)):
+            for i, (p, h, r) in enumerate(zip(pe, hw, router)):
                 blk = ((self.model_idx[i] * eb, (self.model_idx[i] + 1) * eb)
                        if tp else None)
                 out.append(moe_routed(cfg, dict(p, router=r), h, blk)
                            .reshape(h.shape))
-            (parts if tp else wholes).append(out)
+            (parts if tp else wholes).append(
+                out if tp else self.seq_block(out, sp))
         if cfg.n_shared_experts:
             sk = [k for k in lp if k.startswith("shared_")]
             tp = self._split(ls["shared_wu"], 1)
             ps = self.use_tree({k[len("shared_"):]: lp[k] for k in sk},
                                {k[len("shared_"):]: ls[k] for k in sk},
                                ("model",) if tp else ())
+            out = [ffn_forward(cfg, p, h, tp) for p, h in zip(ps, hw)]
             (parts if tp else wholes).append(
-                [ffn_forward(cfg, p, h, tp) for p, h in zip(ps, hs)])
+                out if tp else self.seq_block(out, sp))
         ys = (self._sum_partials([sum(t[1:], t[0]) for t in zip(*parts)],
-                                 hs) if parts else None)
+                                 hs, sp) if parts else None)
         for w in wholes:
             ys = w if ys is None else [a + b for a, b in zip(ys, w)]
         return [y.to(h.dtype) for y, h in zip(ys, hs)]
 
-    def _ep(self, experts: Tree, hs: PerShard, router: PerShard) -> PerShard:
+    def _ep(self, experts: Tree, hs: PerShard, router: PerShard,
+            sp=False) -> PerShard:
         """The routed experts under EP: each shard routes its block of the
-        sequence (all of it where ``model`` does not divide it), the
-        outputs gathered back over ``model``."""
+        sequence (``moe_ep.TokenLayout``'s; all of it where ``model`` does
+        not divide it), the outputs gathered back over ``model``.  ``sp``:
+        ``hs`` already are those blocks, and the output stays the block."""
         cfg, mesh = self.cfg, self.mesh
         b, s, d = hs[0].shape
-        ns = self.msize if s % self.msize == 0 and s >= self.msize else 1
-        sl = s // ns
-        xl = [(h.narrow(1, self.model_idx[i] * sl, sl) if ns > 1 else h)
+        cut = (not sp and s % self.msize == 0 and s >= self.msize
+               and self.msize > 1)
+        sl = s // self.msize if cut else s
+        xl = [(h.narrow(1, self.model_idx[i] * sl, sl) if cut else h)
               .reshape(b * sl, d) for i, h in enumerate(hs)]
         logits = [torch.einsum("td,de->te", x.float(), r.float())
                   for x, r in zip(xl, router)]
@@ -494,14 +607,16 @@ class Partitioned:
                                 self.groups(logits), experts)
         ys = [o.reshape(b, sl, d).to(hs[0].dtype)
               for o in self.shards(outs)]
-        return self.gather(ys, 1) if ns > 1 else ys
+        return self.gather(ys, 1) if cut else ys
 
     def run_stacks(self, params, specs, xs, pos, pos3, caches=None,
-                   cache_pos=None, remat="none"):
+                   cache_pos=None, remat="none", sp=False):
         """The layer stacks in order (``model._run_stacks``); returns the
-        per-shard hidden state and the new placed caches."""
+        per-shard hidden state.  ``caches`` (``{kind: (placed tree,
+        specs)}``): each layer writes its new position into them (the
+        decode step donates them).  ``sp``: the carry ``xs`` is each
+        shard's sequence block, and so is what comes back."""
         cfg = self.cfg
-        new = {} if caches is not None else None
         for kind, count in layer_plan(cfg):
             if count == 0:
                 continue
@@ -515,40 +630,24 @@ class Partitioned:
                 def body(h, lp, lc):
                     scs = (_unstack(lc[0]["ssm"], lc[1]["ssm"], per)
                            if lc is not None else [None] * per)
-                    ncs = []
-                    for sp, sc in zip(_unstack(lp[0], lp[1], per), scs):
-                        h, nc = self.block("ssm", sp[0], sp[1], h, pos, sc)
-                        ncs.append(nc)
-                    h, nat = self.block(
+                    for sl, sc in zip(_unstack(lp[0], lp[1], per), scs):
+                        h, _ = self.block("ssm", sl[0], sl[1], h, pos, sc,
+                                          sp=sp)
+                    h, _ = self.block(
                         "dense", params["shared_attn"], specs["shared_attn"],
                         h, pos, None if lc is None else (lc[0]["attn"],
                                                          lc[1]["attn"]),
-                        cache_pos, pos3)
-                    nc = (None if lc is None else
-                          dict(ssm=self._stack_layers(ncs), attn=nat))
-                    return list(_RecomputeHere.apply(*h)), nc
+                        cache_pos, pos3, sp)
+                    return list(_RecomputeHere.apply(*h))
             else:
                 def body(h, lp, lc, kind=kind):
-                    h, nc = self.block(kind, lp[0], lp[1], h, pos, lc,
-                                       cache_pos, pos3)
-                    return list(_RecomputeHere.apply(*h)), nc
+                    h, _ = self.block(kind, lp[0], lp[1], h, pos, lc,
+                                      cache_pos, pos3, sp)
+                    return list(_RecomputeHere.apply(*h))
             body = _maybe_remat(body, remat)
-            outs = []
             for lp, lc in zip(layers, lcs):
-                xs, nc = body(xs, lp, lc)
-                outs.append(nc)
-            if caches is not None:
-                new[kind] = self._stack_layers(outs)
-        return xs, new
-
-    def _stack_layers(self, outs):
-        """Per-layer placed caches -> one placed tree stacked on the
-        layer axis (dim 1 of each group tensor)."""
-        if isinstance(outs[0], dict):
-            return {k: self._stack_layers([o[k] for o in outs])
-                    for k in outs[0]}
-        return tuple(torch.stack([o[g] for o in outs], 1)
-                     for g in range(self.mesh.n_groups))
+                xs = body(xs, lp, lc)
+        return xs
 
     # -- inputs and outputs ---------------------------------------------------
     def _batch(self, batch) -> PerShard:
@@ -559,15 +658,19 @@ class Partitioned:
                 o[k] = x
         return out
 
-    def lookup(self, params, tokens: PerShard) -> PerShard:
+    def lookup(self, params, tokens: PerShard, sp: bool = False
+               ) -> PerShard:
         """Each shard's token embeddings: vocab-parallel where ``model``
         splits ``embed``'s rows (each shard looks up the tokens of its
         block, zero elsewhere, one psum over ``model``: bitwise the whole
-        lookup), else the whole table's."""
+        lookup), else the whole table's.  ``sp``: each shard's sequence
+        block of them (the psum a reduce-scatter along S; the whole table
+        looks up the block's tokens alone)."""
         spec = self.specs["embed"]
         if not self._split(spec, 0):
             return [F.embedding(t.long(), e) for t, e in zip(
-                tokens, self.use(params["embed"], spec))]
+                self.seq_block(tokens, sp),
+                self.use(params["embed"], spec))]
         out = []
         for i, (t, e) in enumerate(zip(tokens, self.use(
                 params["embed"], spec, ("model",)))):
@@ -575,16 +678,26 @@ class Partitioned:
             own = (ids >= 0) & (ids < e.shape[0])
             x = F.embedding(torch.where(own, ids, 0), e)
             out.append(torch.where(own[..., None], x, 0.0))
-        return self.psum(out, ("model",))
+        return self._sum_partials(out, out, sp)
 
-    def embed(self, params, batch: PerShard):
-        """Each shard's ``model.embed_inputs``: (hidden, pos, pos3)."""
-        if self.cfg.frontend == "audio":         # frames in: no lookup
-            got = [embed_inputs(self.cfg, {}, b) for b in batch]
+    def embed(self, params, batch: PerShard, sp: bool = False):
+        """Each shard's ``model.embed_inputs``: (hidden, pos, pos3); with
+        ``sp`` the hidden state is the shard's sequence block (the
+        positions stay whole: attention runs on the whole sequence)."""
+        cfg = self.cfg
+        if cfg.frontend == "audio":              # frames in: no lookup
+            got = [embed_inputs(cfg, {}, b) for b in batch]
+            xs = self.seq_block([g[0] for g in got], sp)
         else:
-            got = [finish_inputs(self.cfg, x, b) for x, b in zip(
-                self.lookup(params, [b["tokens"] for b in batch]), batch)]
-        return [g[0] for g in got], [g[1] for g in got], [g[2] for g in got]
+            # the patch scatter takes the whole sequence's embeddings
+            early = sp and cfg.frontend != "vision"
+            got = [finish_inputs(cfg, x, b) for x, b in zip(
+                self.lookup(params, [b["tokens"] for b in batch], early),
+                batch)]
+            xs = [g[0] for g in got]
+            if not early:
+                xs = self.seq_block(xs, sp)
+        return xs, [g[1] for g in got], [g[2] for g in got]
 
     def _head(self, params, hs: PerShard) -> PerShard:
         """The logits: each shard's vocab block where ``vocab_tp``."""
@@ -625,9 +738,11 @@ class Partitioned:
         ``mesh.device``)."""
         cfg = self.cfg
         bs = self._batch(batch)
-        xs, pos, pos3 = self.embed(params, bs)
-        hs, _ = self.run_stacks(params, self.specs, xs, pos, pos3,
-                                remat=self.remat)
+        sp = self.seq_sharded(bs[0]["labels"].shape[1])
+        xs, pos, pos3 = self.embed(params, bs, sp)
+        hs = self.run_stacks(params, self.specs, xs, pos, pos3,
+                             remat=self.remat, sp=sp)
+        hs = self.whole_seq(hs, sp)     # the head, the CE and MTP: whole
         labels = [b["labels"] for b in bs]
         masks = [lab >= 0 for lab in labels]
         ce = self._ce(self._head(params, hs), labels, masks)
@@ -660,15 +775,19 @@ class Partitioned:
     def prefill(self, params, batch, logits_spec):
         """``model.forward`` partitioned: the logits placed by their spec."""
         bs = self._batch(batch)
-        xs, pos, pos3 = self.embed(params, bs)
-        hs, _ = self.run_stacks(params, self.specs, xs, pos, pos3)
-        return self._own_logits(self._head(params, hs), logits_spec)
+        key = "frames" if self.cfg.frontend == "audio" else "tokens"
+        sp = self.seq_sharded(bs[0][key].shape[1])
+        xs, pos, pos3 = self.embed(params, bs, sp)
+        hs = self.run_stacks(params, self.specs, xs, pos, pos3, sp=sp)
+        return self._own_logits(self._head(params, self.whole_seq(hs, sp)),
+                                logits_spec)
 
     def decode(self, params, caches, cache_specs, tokens, pos: int,
                logits_spec, batch_entry):
-        """``model.decode_step`` partitioned: (placed logits, new placed
-        caches).  ``batch_entry``: the tokens' batch spec entry (the data
-        axes, or None where they do not divide the batch)."""
+        """``model.decode_step`` partitioned: (placed logits, the placed
+        ``caches``, the new position written into them in place: the step
+        donates them).  ``batch_entry``: the tokens' batch spec entry (the
+        data axes, or None where they do not divide the batch)."""
         cfg = self.cfg
         self.batch_entry = batch_entry
         xs = self.lookup(params, self.shards(tokens))
@@ -677,9 +796,9 @@ class Partitioned:
         pos3 = [p[:, None, :].expand(x.shape[0], 3, 1) if cfg.mrope else None
                 for p, x in zip(posv, xs)]
         paired = {k: (caches[k], cache_specs[k]) for k in caches}
-        hs, new = self.run_stacks(params, self.specs, xs, posv, pos3,
-                                  caches=paired, cache_pos=int(pos))
-        return self._own_logits(self._head(params, hs), logits_spec), new
+        hs = self.run_stacks(params, self.specs, xs, posv, pos3,
+                             caches=paired, cache_pos=int(pos))
+        return self._own_logits(self._head(params, hs), logits_spec), caches
 
     # -- the train step -------------------------------------------------------
     def loss_and_grads(self, params, batch):

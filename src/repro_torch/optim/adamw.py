@@ -15,7 +15,7 @@ from typing import Any, Tuple
 
 import torch
 
-from ..ckpt.checkpoint import _flatten, _unflatten
+from ..ckpt.checkpoint import _flatten, _unflatten, clone_tree
 
 Tree = Any
 
@@ -67,8 +67,19 @@ def _global_norm(leaves) -> torch.Tensor:
 def adamw_update(params: Tree, grads: Tree, state: Tree, cfg: AdamWConfig,
                  lr_scale=1.0, gnorm=None) -> Tuple[Tree, Tree]:
     """One step.  Returns ``(new_params, new_state)``; neither input is
-    written.  ``gnorm``: the gradients' global norm where the caller counts
-    it (a partitioned step counts each placed block once,
+    written (``adamw_update_`` on copies of them)."""
+    return adamw_update_(clone_tree(params), grads, clone_tree(state), cfg,
+                         lr_scale=lr_scale, gnorm=gnorm)
+
+
+def adamw_update_(params: Tree, grads: Tree, state: Tree, cfg: AdamWConfig,
+                  lr_scale=1.0, gnorm=None) -> Tuple[Tree, Tree]:
+    """One step with ``params`` and ``state`` donated (the reference's
+    ``donate_argnums=(0, 1)``): each leaf (each group tensor of a placed
+    tree) and its moments are written in place, one leaf at a time, so at
+    most one leaf's temporaries exist at once.  Returns ``(params,
+    state)``, the same trees.  ``gnorm``: the gradients' global norm where
+    the caller counts it (a partitioned step counts each placed block once,
     ``models/partitioned.Partitioned.global_norm``); else ``_global_norm``
     of the gradient leaves."""
     step = state["step"] + 1
@@ -84,7 +95,6 @@ def adamw_update(params: Tree, grads: Tree, state: Tree, cfg: AdamWConfig,
     lr = cfg.lr * lr_scale
 
     scalars = {step.device: (clip, bc1, bc2, lr)}
-    new_p, new_m, new_v = [], [], []
     for p, g, m, v in zip(_leaves(params), g_leaves, _leaves(state["m"]),
                           _leaves(state["v"])):
         if p.device not in scalars:      # a leaf of another device group
@@ -95,13 +105,12 @@ def adamw_update(params: Tree, grads: Tree, state: Tree, cfg: AdamWConfig,
         g = g.float() * clip
         m32 = m.float() * cfg.b1 + (1 - cfg.b1) * g
         v32 = v.float() * cfg.b2 + (1 - cfg.b2) * g * g
-        mhat = m32 / bc1
-        vhat = v32 / bc2
-        delta = mhat / (torch.sqrt(vhat) + cfg.eps) \
+        del g                   # fewer of the leaf's temporaries live at once
+        delta = (m32 / bc1) / (torch.sqrt(v32 / bc2) + cfg.eps) \
             + cfg.weight_decay * p.float()
-        new_p.append((p.float() - lr * delta).to(p.dtype))
-        new_m.append(m32.to(m.dtype))
-        new_v.append(v32.to(v.dtype))
-    return (_unflatten(params, iter(new_p)),
-            dict(m=_unflatten(params, iter(new_m)),
-                 v=_unflatten(params, iter(new_v)), step=step))
+        p.copy_(p.float() - lr * delta)
+        del delta
+        m.copy_(m32)
+        v.copy_(v32)
+    state["step"].copy_(step)
+    return params, state

@@ -25,8 +25,10 @@ bitwise, TP to 1e-5).  The model: moonshot's smoke config drawn on the card
 from a CUDA generator has a finite gradient in every leaf of its first
 step (C6).  The launch layer: expert-parallel MoE on the card
 keeps the CPU's choices bit for bit at the default capacity, the padded
-decode matches the unpadded one, and a chunk's traced cost
-(``chunk_cost``) on the card equals the CPU's.  The kernel-dispatch search
+decode matches the unpadded one, the donating decode step writes its
+cache in place (bitwise with ``decode_step``, its peak under one layer's
+cache), and a chunk's traced cost (``chunk_cost``) on the card equals the
+CPU's.  The kernel-dispatch search
 (``kernels/autotune``) benches every candidate on a key's first call,
 counts and traces nothing of it, reuses the decision, and reads it back
 from the disk cache; its winner equals the default bit for bit.
@@ -1035,6 +1037,51 @@ def test_padded_decode_on_card_matches_unpadded():
             l0, c0 = decode_step(cfg, params, c0, tokens, pos)
         l1, c1 = fn(pp, c1, tokens, pos)
         torch.testing.assert_close(l1, l0, rtol=2e-4, atol=2e-4)
+
+
+def test_donated_decode_on_card_peak_under_one_layer():
+    """``build_decode_step``'s step writes the new position into the cache
+    it is given (the reference's ``donate_argnums=(1,)``): its logits and
+    every cache leaf bitwise with ``models.decode_step`` on a copy, on the
+    card, and its peak allocation above the allocation before it under one
+    layer's cache (``decode_step`` copies the whole cache first)."""
+    from repro_torch.ckpt.checkpoint import _flatten
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.steps import StepConfig, build_decode_step
+    from repro_torch.models import ShapeCfg, decode_step, init_cache, \
+        init_params
+    dev = need_card()
+    cfg = get_arch("minicpm-2b").smoke()
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(4),
+                         device=dev)
+    fn, _ = build_decode_step(cfg, ShapeCfg("d", 4096, 2, "decode"),
+                              make_host_mesh(device=dev),
+                              StepConfig(serving_head_pad=False))
+    cache = init_cache(cfg, 2, 4096, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(4)
+    for _, x in _flatten(cache):
+        x.copy_(torch.randn(x.shape, generator=gen, device=dev))
+    layer = sum(x.numel() * x.element_size()
+                for _, x in _flatten(cache)) // cfg.n_layers
+    tokens = torch.randint(0, cfg.vocab, (2, 1), generator=gen, device=dev,
+                           dtype=torch.int32)
+    for pos in (100, 101):
+        with torch.no_grad():
+            want, new = decode_step(cfg, params, cache, tokens, pos)
+        ptrs = [x.data_ptr() for _, x in _flatten(cache)]
+        torch.cuda.synchronize(dev)
+        base = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        got, out = fn(params, cache, tokens, pos)
+        torch.cuda.synchronize(dev)
+        extra = torch.cuda.max_memory_allocated(dev) - base
+        assert [x.data_ptr() for _, x in _flatten(out)] == ptrs
+        assert extra < layer, (extra, layer)
+        assert torch.equal(got, want)
+        for (path, a), (_, b) in zip(_flatten(out), _flatten(new)):
+            assert torch.equal(a, b), path
+        del new
 
 
 @pytest.mark.parametrize("app_name,method", [("gs", "megakernel"),

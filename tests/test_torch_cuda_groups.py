@@ -30,6 +30,10 @@ imports no JAX.  On a machine with four cards:
   bf16; TP and FSDP) over the same groupings: step 0's loss and every
   gradient bitwise with one group, none NaN, and three steps' losses,
   params and state bitwise.
+* The sequence-sharded carry (minicpm-2b's and zamba2-2.7b's smoke
+  configs) against the whole carry over the same groupings: step 0's loss
+  bitwise, every gradient within 2e-2 of its norm; sharded, every grouping
+  bitwise with one group.
 """
 import numpy as np
 import pytest
@@ -289,7 +293,8 @@ def test_grouped_ep_on_cards_matches_one_group(card, ep_devices):
         assert _same_bits(wg[k], w1[k]), k
 
 
-def _partitioned_runs(card, devices, cfg, params, batch, steps):
+def _partitioned_runs(card, devices, cfg, params, batch, steps,
+                      step_cfg=None):
     """Step 0's loss and gradients of the partitioned train step on a
     (2, 4) mesh in one group on ``card`` and in ``devices``, then
     ``steps`` steps: (loss, whole grads, losses, whole params and state,
@@ -305,7 +310,7 @@ def _partitioned_runs(card, devices, cfg, params, batch, steps):
             mesh = _ep_mesh(devs)
             step, structs = build_train_step(
                 cfg, ShapeCfg("t", batch["tokens"].shape[1], 8, "train"),
-                mesh, StepConfig())
+                mesh, step_cfg or StepConfig())
             ps = param_specs(structs[0], mesh)
             ss = param_specs(structs[1], mesh)
             p = place_params(params, mesh, ps)
@@ -364,6 +369,41 @@ def test_partitioned_train_step_on_cards(card, ep_devices):
         assert _same_bits(a.reshape(-1), b.reshape(-1)), path
     for path, x in _flatten(placed):
         assert x.device == mesh.devices[int(path[-1])], path
+
+
+@pytest.mark.parametrize("arch", ["minicpm-2b", "zamba2-2.7b"])
+def test_seq_sharded_carry_on_cards(card, ep_devices, arch):
+    """The sequence-sharded carry (``seq_shard_acts``, the default) against
+    the whole carry over the same groupings, bf16: step 0's loss bitwise,
+    every gradient within the bf16 bar (2e-2 of its norm: the backward sums
+    the shards' gradients at other points); with the carry sharded, the
+    groups bitwise with one group (loss, gradients, two steps)."""
+    from repro_torch.ckpt.checkpoint import _flatten
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.steps import StepConfig
+    from repro_torch.models import init_params
+    cfg = get_arch(arch).smoke()
+    params = init_params(cfg, torch.Generator(device=card).manual_seed(7),
+                         device=card)
+    toks = torch.randint(0, cfg.vocab, (8, 33), generator=torch.Generator(
+        device=card).manual_seed(7), device=card, dtype=torch.int32)
+    batch = dict(tokens=toks[:, :-1].contiguous(),
+                 labels=toks[:, 1:].contiguous())
+    on = _partitioned_runs(card, ep_devices, cfg, params, batch, 2)
+    off = _partitioned_runs(card, ep_devices, cfg, params, batch, 0,
+                            StepConfig(seq_shard_acts=False))
+    (l1, g1, ls1, p1, s1, _, _), (lg, gg, lsg, pg, sg, _, _) = on
+    assert torch.equal(lg, l1)
+    assert torch.equal(torch.stack(lsg), torch.stack(ls1))
+    for (path, a), (_, b) in zip(_flatten([gg, pg, sg]),
+                                 _flatten([g1, p1, s1])):
+        assert _same_bits(a.reshape(-1), b.reshape(-1)), path
+    for run_on, run_off in zip(on, off):
+        assert torch.equal(run_on[0], run_off[0])
+        for (path, a), (_, b) in zip(_flatten(run_on[1]),
+                                     _flatten(run_off[1])):
+            a, b = a.double(), b.double()
+            assert float((a - b).norm()) <= 2e-2 * float(b.norm()), path
 
 
 def test_grouped_compressed_psum_on_cards(card, ep_devices):

@@ -36,7 +36,7 @@ import pytest
 import torch
 
 from repro_torch.ckpt import load_checkpoint, save_checkpoint
-from repro_torch.ckpt.checkpoint import _flatten, _unflatten
+from repro_torch.ckpt.checkpoint import _flatten, _unflatten, clone_tree
 from repro_torch.configs import get_arch
 from repro_torch.core.mesh import ShardMesh
 from repro_torch.launch.sharding import (cache_specs, gather_params,
@@ -149,7 +149,8 @@ def _whole_step(cfg, params, state, batch, opt=OPT):
     leaves = [x.detach().requires_grad_() for _, x in _flatten(params)]
     loss = loss_fn(cfg, _unflatten(params, iter(leaves)), batch)
     grads = _unflatten(params, iter(torch.autograd.grad(loss, leaves)))
-    p1, s1, loss1 = fn(params, state, batch)
+    # the step donates params and state: it takes copies
+    p1, s1, loss1 = fn(clone_tree(params), clone_tree(state), batch)
     moe_ep.set_ep_mesh(None, ("data",))
     return loss.detach(), grads, p1, s1, loss1
 
@@ -406,7 +407,7 @@ def test_one_shard_mesh_places_nothing():
                              StepConfig(optimizer=OPT))
     assert fn.plan is None
     state = _state(params)
-    p1, s1, loss = fn(params, state, batch)
+    p1, s1, loss = fn(clone_tree(params), state, batch)
     assert torch.equal(loss, loss_fn(cfg, params, batch))
     assert all(not isinstance(x, tuple) for _, x in _flatten(p1))
 

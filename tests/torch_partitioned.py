@@ -15,7 +15,7 @@ import sys
 import numpy as np
 import torch
 
-from repro_torch.ckpt.checkpoint import _flatten, _unflatten
+from repro_torch.ckpt.checkpoint import _flatten, _unflatten, clone_tree
 from repro_torch.configs import get_arch
 from repro_torch.core.mesh import ShardMesh
 from repro_torch.launch.sharding import (cache_specs, gather_params,
@@ -145,7 +145,8 @@ def whole_step(cfg, params, st, bt, step_cfg=None):
     leaves = [x.detach().requires_grad_() for _, x in _flatten(params)]
     loss = loss_fn(cfg, _unflatten(params, iter(leaves)), bt)
     grads = _unflatten(params, iter(torch.autograd.grad(loss, leaves)))
-    p1, s1, loss1 = fn(params, st, bt)
+    # the step donates params and state: it takes copies
+    p1, s1, loss1 = fn(clone_tree(params), clone_tree(st), bt)
     moe_ep.set_ep_mesh(None, ("data",))
     return loss.detach(), grads, p1, s1, loss1
 
