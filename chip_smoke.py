@@ -3,7 +3,7 @@
 
 Run from the repository root:  python3 chip_smoke.py [--seed N]
 (``--phase NAME`` runs one model-layer phase alone: mamba, ep, partitioned,
-partitioned_hybrid, sp, decode_donated or serve_padded.)
+partitioned_hybrid, sp, decode_donated, serve_padded or dryrun.)
 
 1. Prints the card (nvidia-smi name and power limit, torch's device name).
 2. Builds the CUDA kernels from ``src/repro_torch/csrc`` (timed as set-up).
@@ -190,9 +190,17 @@ partitioned_hybrid, sp, decode_donated or serve_padded.)
    ``build_decode_step`` on ``MeshSpec({"data": 1, "model": 16})`` pads 36
    heads to 48, each step's logits within 2e-4 of the unpadded decode, with
    tokens/s of both and decode_32k's per-device KV-cache bytes from
-   ``cache_specs`` (``e2e serve padded``).  The dry run on the host:
-   minicpm-2b x train_4k and deepseek-v3-671b x decode_32k (multi pod)
-   (``dryrun`` lines).  The GS service (K = 8, megakernel) over 40
+   ``cache_specs`` (``e2e serve padded``).  The dry run on the host, one
+   shard's program of the partitioned step on the production mesh:
+   minicpm-2b x train_4k and deepseek-v3-671b x decode_32k (multi pod),
+   per-device FLOPs, collective bytes by kind, wire bytes a device
+   (``dryrun`` lines; a train cell must show an all-gather and a
+   reduce-scatter); and its card cross-check: the partitioned phase's
+   train step once on the card under the program trace, every shard
+   executing, against the same step traced on the one-shard meta mesh,
+   collective records equal as multisets and dot FLOPs a device equal to
+   the card's over 4, with the peer-copy bytes the records imply for a
+   group a card on four cards (``dryrun card`` line).  The GS service (K = 8, megakernel) over 40
    intervals with ``hlo_attribution=True``: bitwise with the run without,
    every execute span carrying its cost fields, no fraction of the peak
    above 1.05 (``e2e service attribution``).
@@ -3498,9 +3506,14 @@ def serve_padded_phase(card, cuda, seed) -> None:
     print(f"serve padded phase: {time.perf_counter() - t0:.1f} s")
 
 
-def dryrun_phase() -> None:
-    """The dry run (host only, meta tensors): minicpm-2b x train_4k on the
-    single pod and deepseek-v3-671b x decode_32k on the multi pod."""
+def dryrun_phase(card, cuda, seed) -> None:
+    """The dry run (host only, meta tensors) of the partitioned step, one
+    shard's program on the production mesh: minicpm-2b x train_4k on the
+    single pod and deepseek-v3-671b x decode_32k on the multi pod, each
+    with its per-device FLOPs, collective bytes by kind, ring wire bytes a
+    device and trace time (a train cell without an all-gather or a
+    reduce-scatter fails); then its cross-check on the card
+    (``dryrun_card_check``)."""
     from repro_torch.launch.dryrun import run_cell
     from repro_torch.models import moe_ep
     t0 = time.perf_counter()
@@ -3508,19 +3521,135 @@ def dryrun_phase() -> None:
         for arch, shape, mp in (("minicpm-2b", "train_4k", False),
                                 ("deepseek-v3-671b", "decode_32k", True)):
             r = run_cell(arch, shape, mp, verbose=False)
-            if r["skipped"] or not r["hlo_flops"] > 0:
+            coll = r.get("collective_bytes") or {}
+            if r["skipped"] or not r["hlo_flops"] > 0 or (
+                    shape.startswith("train") and not (
+                        coll.get("all-gather") and coll.get("reduce-scatter"))):
                 raise AssertionError(f"dryrun {arch} x {shape}: {r}")
             print(f"dryrun {arch} x {shape} x "
                   f"{'multi-pod' if mp else 'single-pod'} ({r['n_devices']} "
-                  f"devices, host only): trace_s={r['trace_s']} hlo_flops="
-                  f"{r['hlo_flops']} (global) argument_bytes_per_device="
+                  f"devices, one shard's program of the partitioned step, "
+                  f"host only): hlo_flops_per_device={r['hlo_flops']} "
+                  f"hlo_bytes_written_per_device={r['hlo_bytes_written']} "
+                  f"collective_bytes={json.dumps(coll, sort_keys=True)} "
+                  f"wire_bytes_per_device={r['wire_bytes_per_device']} "
+                  f"trace_s={r['trace_s']} argument_bytes_per_device="
                   f"{r['mem']['argument_bytes']} output_bytes_per_device="
-                  f"{r['mem']['output_bytes']} wire_bytes_per_device="
-                  f"{r['wire_bytes_per_device']} model_params="
+                  f"{r['mem']['output_bytes']} model_params="
                   f"{r['model_params']}")
     finally:
         moe_ep.set_ep_mesh(None, ("data",))
+    dryrun_card_check(card, cuda, seed)
     print(f"dryrun phase: {time.perf_counter() - t0:.1f} s")
+
+
+def joined_peer_bytes(records, n: int) -> float:
+    """The bytes the port's collectives copy between cards with n groups
+    of one shard each, one on a card: each call joins the other n - 1
+    shards' operands on the first card and sends their results back
+    (``core/mesh.ShardMesh._stacked``).  ``records``: a program trace's
+    ``(kind, one shard's result bytes, group)``; a shard's operand is the
+    result over the group for a gather, times it for a reduce-scatter."""
+    total = 0.0
+    for kind, b, g in records:
+        operand = (b / g if kind == "all-gather" else
+                   b * g if kind == "reduce-scatter" else b)
+        total += (n - 1) * (operand + b)
+    return total
+
+
+def dryrun_card_check(card, cuda, seed) -> None:
+    """The partitioned phase's train step (minicpm-2b at its widths, 2
+    layers, bf16 params, f32 AdamW state, batch 8 x 128, a (data 2, model
+    2) mesh in four device groups, ``partitioned_groups``) once on the card
+    under ``ProgramTrace``, every shard executing, and the same step traced
+    on the one-shard meta mesh (``MeshSpec``, as the dry run builds it):
+    the collective records (kind, shard bytes, group) equal as multisets,
+    and the dot FLOPs a device equal to the card trace's over 4, exactly.
+    Prints the peer-copy bytes those records imply for the port's joins on
+    card 0 with a group a card on four cards (``joined_peer_bytes``) beside
+    the peer bytes one such step moves, measured (``card_trace``) where
+    four cards hold the groups (``dryrun card`` line; a printed pair, no
+    bar)."""
+    from collections import Counter
+    from repro_torch.launch.dryrun import place_inputs
+    from repro_torch.launch.hlo_analysis import ProgramTrace, analyze
+    from repro_torch.launch.mesh import MeshSpec, make_host_mesh
+    from repro_torch.launch.sharding import (param_specs, place_batch,
+                                             place_params)
+    from repro_torch.launch.steps import StepConfig, build_train_step
+    from repro_torch.models import ShapeCfg, init_params, moe_ep
+    from repro_torch.optim import AdamWConfig, adamw_init
+    t0 = time.perf_counter()
+    cfg = cut("minicpm-2b", 2)
+    devs = partitioned_groups(cuda)
+    mesh = make_host_mesh(model=2, data=2, devices=devs)
+    step_cfg = StepConfig(optimizer=AdamWConfig(state_dtype=torch.float32))
+    shape = ShapeCfg("train", PART_SEQ, PART_BATCH, "train")
+    rng = np.random.default_rng(seed)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab, (
+        PART_BATCH, PART_SEQ + 1)).astype(np.int32)).to(cuda)
+    batch = dict(tokens=toks[:, :-1].contiguous(),
+                 labels=toks[:, 1:].contiguous())
+    try:
+        fn, structs = build_train_step(cfg, shape, mesh, step_cfg)
+        params = init_params(cfg, torch.Generator(device=cuda).manual_seed(
+            seed), device=cuda)
+        pm = place_params(params, mesh, param_specs(structs[0], mesh))
+        st = place_params(adamw_init(params, step_cfg.optimizer), mesh,
+                          param_specs(structs[1], mesh))
+        pb = place_batch(batch, mesh)
+        del params
+        sync()
+        t1 = time.perf_counter()
+        with ProgramTrace() as on_card:
+            fn(pm, st, pb)
+        sync()
+        card_s = time.perf_counter() - t1
+        t1 = time.perf_counter()
+        spec = MeshSpec({"data": 2, "model": 2})
+        mfn, mstructs = build_train_step(cfg, shape, spec, step_cfg)
+        placed = place_inputs("train", mfn.plan, spec, PART_BATCH,
+                              list(mstructs))
+        with ProgramTrace() as one:
+            mfn(*placed)
+        meta_s = time.perf_counter() - t1
+        n_cards = len(set(devs))
+        peer = (card_trace(lambda: fn(pm, st, pb))[2] if n_cards >= 4
+                else None)
+        del pm, st, pb
+    finally:
+        moe_ep.set_ep_mesh(None, ("data",))
+    label = f"G={mesh.n_groups} devices={[str(d) for d in devs]}"
+    if Counter(one.collectives) != Counter(on_card.collectives):
+        raise AssertionError(
+            f"dryrun card {label}: collective records differ: card "
+            f"{sorted(Counter(on_card.collectives).items())} one-shard "
+            f"{sorted(Counter(one.collectives).items())}")
+    got, want = analyze(one), analyze(on_card)
+    if got["dot_flops"] != want["dot_flops"] / mesh.size:
+        raise AssertionError(f"dryrun card {label}: one-shard dot FLOPs "
+                             f"{got['dot_flops']} against the card's "
+                             f"{want['dot_flops']} / {mesh.size}")
+    kinds = dict(sorted(Counter(k for k, _, _ in one.collectives).items()))
+    implied = joined_peer_bytes(one.collectives, 4)
+    measured = (f"{peer} (one profiled step, a group a card on {n_cards} "
+                f"cards)" if peer is not None else
+                f"not measured ({n_cards} card(s) hold the groups; needs "
+                f"four)")
+    print(f"dryrun card {label} {widths(cfg)}, bf16 params, f32 AdamW "
+          f"state, remat full) on a (data 2, model 2) mesh batch "
+          f"{PART_BATCH} x seq {PART_SEQ}, the train step: "
+          f"{len(one.collectives)} collective records {kinds} equal as "
+          f"multisets, the card's trace (every shard executing, "
+          f"{card_s:.2f} s) and the one-shard meta trace ({meta_s:.2f} s) | "
+          f"dot_flops_per_device={got['dot_flops']} = card total "
+          f"{want['dot_flops']} / {mesh.size} | collective_bytes="
+          f"{json.dumps(got['coll_bytes'], sort_keys=True)} "
+          f"wire_bytes_per_device={got['wire_bytes_per_device']} | peer "
+          f"bytes a step implied by the records for a group a card on four "
+          f"cards {implied}; measured {measured} | {card}")
+    print(f"dryrun card check: {time.perf_counter() - t0:.1f} s")
 
 
 def service_attribution_phase(stream, card, cuda, launches) -> None:
@@ -3761,7 +3890,7 @@ ALONE = {"mamba": mamba_phase, "ep": ep_phase,
          "partitioned": partitioned_phase,
          "partitioned_hybrid": partitioned_hybrid_phase,
          "sp": sp_phase, "decode_donated": donate_decode_phase,
-         "serve_padded": serve_padded_phase}
+         "serve_padded": serve_padded_phase, "dryrun": dryrun_phase}
 
 
 def main() -> int:
@@ -3820,7 +3949,7 @@ def main() -> int:
     sp_phase(card, cuda, args.seed)
     donate_decode_phase(card, cuda, args.seed)
     serve_padded_phase(card, cuda, args.seed)
-    dryrun_phase()
+    dryrun_phase(card, cuda, args.seed)
     service_attribution_phase(stream, card, cuda, launches)
     examples_phase(card)
     autotune_phase(search, card)

@@ -38,6 +38,15 @@ results' gradients; a traced backward pass counts them too.  ``place``
 and ``assemble`` cut a whole value into every shard's block under a
 partition spec (the reference's ``PartitionSpec``, a tuple of axis names)
 and put it back together.
+
+**The one-shard form** (``ShardMesh.one_shard``, the dry run's): a mesh of
+the production shape over ``meta`` tensors whose values hold shard 0 alone,
+a one-tuple of ``[1, *block]`` stacks.  Blocks and group sizes come from the
+mesh's shape as on any mesh, and each collective returns shard 0's result
+shape (a tiled gather over g shards multiplies the gathered axis by g, a
+reduce-scatter divides it by g; the reductions and ``all_to_all`` keep it),
+recorded under a trace as on a mesh of every shard: one shard's program of
+a mesh whose other shards run the same program on blocks of the same shapes.
 """
 from __future__ import annotations
 
@@ -99,6 +108,7 @@ class ShardMesh:
         if min(self.shape) < 1 or len(set(self.axis_names)) != len(
                 self.axis_names):
             raise ValueError(f"bad mesh {self.shape} {self.axis_names}")
+        self.one_shard = False
         if devices is None:
             self.devices = (resolve_device(device),)
         else:
@@ -119,6 +129,16 @@ class ShardMesh:
         mesh.devices = (torch.device("meta"),)
         return mesh
 
+    @classmethod
+    def one_shard(cls, shape: Sequence[int], axis_names: Sequence[str]
+                  ) -> "ShardMesh":
+        """The one-shard form of a ``meta`` mesh of ``shape``: its values
+        hold shard 0 alone (``held`` is 1), whose program the dry run traces
+        as one device's of the whole mesh (module docstring)."""
+        mesh = cls.meta(shape, axis_names)
+        mesh.one_shard = True
+        return mesh
+
     @property
     def size(self) -> int:
         return math.prod(self.shape)
@@ -134,9 +154,15 @@ class ShardMesh:
         return len(self.devices)
 
     @property
+    def held(self) -> int:
+        """Shards whose values the mesh holds: every shard, or shard 0
+        alone in the one-shard form."""
+        return 1 if self.one_shard else self.size
+
+    @property
     def per_group(self) -> int:
         """Shards in one device group."""
-        return self.size // len(self.devices)
+        return self.held // len(self.devices)
 
     def shards(self, g: int) -> range:
         """The flat shard indices of device group ``g``."""
@@ -230,6 +256,9 @@ class ShardMesh:
     def assemble(self, xs: Groups, spec) -> torch.Tensor:
         """``place``'s inverse: the whole value on ``device``, each block
         from the first shard that holds it."""
+        if self.one_shard:
+            raise ValueError("the one-shard form holds one block: nothing "
+                             "to assemble")
         stack = self.join(xs)
         blk = stack.shape[1:]
         shape = [n * self._block(e, 0)[1] for n, e in zip(
@@ -279,8 +308,19 @@ class ShardMesh:
             return fn()
         with trace.opaque():
             out = fn()
-        trace.collective(kind, out, self.size, self.group_size(axes))
+        trace.collective(kind, out, self.held, self.group_size(axes))
         return out
+
+    def _shard0(self, kind: str, axes: Axes, xs: Groups, shape) -> Groups:
+        """A collective in the one-shard form: shard 0's result, of
+        ``shape`` (its stack's, the shard axis included)."""
+        return self._traced(kind, axes, lambda: (xs[0].new_empty(shape),))
+
+    @staticmethod
+    def _at(axis: int, dim: int) -> int:
+        """Position, in a stack whose shard axis is ``dim``, of a shard's
+        own ``axis``."""
+        return axis if axis < dim else axis + 1
 
     # -- collectives ---------------------------------------------------------
     def all_to_all(self, xs: Groups, axes: Axes, split_axis: int,
@@ -297,6 +337,12 @@ class ShardMesh:
         xs = self._groups(xs, dim)
         if _needs_grad(xs):
             return _AllToAll.apply(self, axes, split_axis, dim, *xs)
+        if self.one_shard:
+            n = xs[0].shape[self._at(split_axis, dim)]
+            if n != self.group_size(axes):
+                raise ValueError(f"split axis of size {n} is not the group "
+                                 f"size {self.group_size(axes)}")
+            return self._shard0("all-to-all", axes, xs, xs[0].shape)
         return self._traced("all-to-all", axes, lambda: self._stacked(
             xs, dim, lambda x: self._all_to_all_stack(x, axes, split_axis,
                                                       dim)))
@@ -328,6 +374,14 @@ class ShardMesh:
         xs = self._groups(xs, dim)
         if _needs_grad(xs):
             return _AllGather.apply(self, axis, gather_axis, dim, tiled, *xs)
+        if self.one_shard:
+            shape, p = list(xs[0].shape), self._at(gather_axis, dim)
+            g = self.group_size(axis)
+            if tiled:
+                shape[p] *= g
+            else:
+                shape.insert(p, g)
+            return self._shard0("all-gather", axis, xs, shape)
         if tiled:
             fn = lambda x: self._gather_tiled_stack(x, axis, gather_axis,
                                                     dim)
@@ -379,6 +433,17 @@ class ShardMesh:
         if _needs_grad(xs):
             return _ReduceScatter.apply(self, axes, scatter_axis, dim, tiled,
                                         *xs)
+        if self.one_shard:
+            shape, p = list(xs[0].shape), self._at(scatter_axis, dim)
+            g = self.group_size(axes)
+            if shape[p] % g or (not tiled and shape[p] != g):
+                raise ValueError(f"scatter axis of size {shape[p]} does not "
+                                 f"divide into {g} blocks")
+            if tiled:
+                shape[p] //= g
+            else:
+                del shape[p]
+            return self._shard0("reduce-scatter", axes, xs, shape)
         out_dim = dim - 1 if not tiled and scatter_axis < dim else dim
 
         def fn(x):
@@ -431,6 +496,8 @@ class ShardMesh:
 
     def _reduce(self, xs, axes, dim, op):
         xs = self._groups(xs, dim)
+        if self.one_shard:
+            return self._shard0("all-reduce", axes, xs, xs[0].shape)
         return self._traced("all-reduce", axes, lambda: self._stacked(
             xs, dim, lambda x: self._reduce_stack(x, axes, dim, op)))
 

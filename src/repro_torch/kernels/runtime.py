@@ -13,7 +13,7 @@ it went through the kernels (``chip_smoke.py`` reads it).
 wrapper's call counts once, at the bytes and operations of its kernel's
 ``cost()``, and none of the aten ops inside it (the twin's on the CPU, the
 output allocations on the card) is recorded.  With no trace it adds nothing
-but one thread-local read.
+but one thread-local read and a read of the dispatch mode stack's depth.
 """
 from __future__ import annotations
 
@@ -91,8 +91,19 @@ _ACTIVE = threading.local()
 
 
 def active_trace():
-    """The program trace recording on this thread, or None."""
-    return getattr(_ACTIVE, "trace", None)
+    """The program trace recording on this thread, or None.  A backward
+    pass on a card runs on the autograd engine's thread of that card, which
+    inherits the trace's dispatch mode but not this module's thread-local:
+    there the trace is the innermost of the thread's dispatch modes that
+    records a program (``records_program``)."""
+    trace = getattr(_ACTIVE, "trace", None)
+    if trace is not None or not torch._C._len_torch_dispatch_stack():
+        return trace
+    from torch.utils._python_dispatch import _get_current_dispatch_mode_stack
+    for mode in reversed(_get_current_dispatch_mode_stack()):
+        if getattr(mode, "records_program", False):
+            return mode
+    return None
 
 
 def set_active_trace(trace) -> None:

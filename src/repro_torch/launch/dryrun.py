@@ -1,28 +1,46 @@
 """Dry run of one (arch x shape x mesh) cell at full size, with no device
 (reference: ``repro/launch/dryrun.py``).
 
-The reference AOT-compiles each cell on 512 forced host devices and reads
-XLA's partitioned program.  The port has no partitioner and no compiler: it
-builds the params, optimizer state, batch and cache as shape-only ``meta``
-tensors, runs the step once under ``launch/hlo_analysis.ProgramTrace`` on
-the production ``MeshSpec``, and takes the per-device argument and output
-bytes from the sharding specs (each leaf's bytes over the product of the
-axis sizes its spec shards it on).  The MoE path takes equal expert groups
-on meta tensors (``layers.group_sizes``), since a shape-only program has no
-routing counts to read.
+The reference AOT-compiles each cell on 256 or 512 forced host devices and
+reads XLA's partitioned program, a per-device SPMD program.  The port has no
+partitioner and no compiler: it builds the params, optimizer state, batch
+and cache as shape-only ``meta`` tensors and traces **one shard's program
+of the partitioned step** (``models/partitioned.Partitioned``) on the
+production mesh, (data 16, model 16) or (pod 2, data 16, model 16), under
+``launch/hlo_analysis.ProgramTrace``.  The step builders take the
+production ``MeshSpec`` to its one-shard form (``core/mesh.ShardMesh.
+one_shard``): the inputs are placed by the reference's specs as shard 0's
+blocks (``launch/sharding.place_params`` / ``place_batch`` /
+``place_cache``), the program runs shard 0's part, and each collective
+returns shard 0's result and is recorded with its group.  Shard 0's
+coordinates are all 0, so its blocks have every shard's shapes, and the
+trace is the per-device program the reference reads:
 
-What needs XLA's partitioner or allocator has no counterpart and is None:
-``xla_flops`` and ``xla_bytes_accessed`` (XLA's own cost analysis),
-``mem.temp_bytes`` and ``mem.peak_bytes`` (its buffer assignment).  FLOPs
-and bytes written are of the global program; the ``*_per_device`` keys
-divide them by the device count.  The collectives counted are the
-program's own (the EP all-to-alls, forward and backward); the partitioner's
-implicit ones (FSDP gathers, gradient reductions) are not in an eager
-program and are not counted.  ``trace_s`` takes the place of ``lower_s``
-and ``compile_s``.  The traced program is the one-device one (a
-``MeshSpec`` has no shards to run), which has a single layer carry:
-``seq_shard_acts`` is reported, and changes nothing traced (the
-partitioned program shards the carry, ``models/partitioned.py``).
+* ``hlo_flops`` and ``hlo_bytes_written`` are per device (one shard's
+  matmul FLOPs and bytes written), as in XLA's per-device HLO.  The train
+  step's global norm counts each gradient block on its first replica
+  (``Partitioned.global_norm``); shard 0 is the first replica of every
+  block, so its norm terms are the most any shard writes;
+* ``collective_bytes`` (by kind, shard 0's result bytes) and
+  ``wire_bytes_per_device`` (the ring formulas over each group) cover every
+  collective shard 0 runs: the FSDP gathers over the data axes and their
+  reduce-scatters in the backward, the TP and vocab-parallel psums over
+  ``model``, the sequence-parallel gathers and reduce-scatters along S
+  (``seq_shard_acts``), the EP all-to-alls, the replicated leaves'
+  gradient psums (``ShardMesh.psum_replicas``) and the loss's psums over
+  the data axes; under remat "full" a layer's gathers count in its forward
+  and again in the backward's recompute;
+* ``mem.argument_bytes`` and ``mem.output_bytes`` are per device from the
+  specs (each leaf's bytes over the product of the axis sizes its spec
+  shards it on; the prefill and decode logits, shard 0's block of them).
+
+The MoE path takes equal expert groups on meta tensors
+(``layers.group_sizes``), since a shape-only program has no routing counts
+to read.  What needs XLA's compiler or allocator has no counterpart and is
+None: ``xla_flops`` and ``xla_bytes_accessed`` (XLA's own cost analysis),
+``mem.temp_bytes`` and ``mem.peak_bytes`` (its buffer assignment: eager
+PyTorch assigns no buffers ahead of the run).  ``trace_s`` (building,
+placing and tracing) takes the place of ``lower_s`` and ``compile_s``.
 
 Usage:
   python -m repro_torch.launch.dryrun --arch granite-34b --shape train_4k
@@ -45,37 +63,81 @@ from ..optim import AdamWConfig
 from .hlo_analysis import ProgramTrace, analyze
 from .mesh import make_production_mesh
 from .sharding import (batch_specs, cache_specs, param_specs,
-                       per_device_bytes)
-from .steps import StepConfig, build_step, logits_spec
+                       per_device_bytes, place_batch, place_cache,
+                       place_params)
+from .steps import StepConfig, build_step
 
 
-def _arg_out_bytes(kind, cfg, shape, mesh, args, out):
-    """(argument, output) bytes per device from the specs."""
+_SCALAR = 4.0                           # the step counter / pos / loss
+
+
+def argument_bytes(kind, shape, mesh, args) -> float:
+    """The step's argument bytes per device from the specs on ``mesh``
+    (the whole ``meta`` inputs ``args``)."""
     gb = shape.global_batch
-    scalar = 4.0                           # the step counter / pos / loss
+    params = args[0]
+    total = per_device_bytes(params, param_specs(params, mesh), mesh)
+    if kind == "train":
+        _, opt, batch = args
+        return (total + _state_bytes(opt, mesh)
+                + per_device_bytes(batch, batch_specs(batch, mesh, gb), mesh))
+    if kind == "prefill":
+        return total + per_device_bytes(args[1], batch_specs(
+            args[1], mesh, gb), mesh)
+    _, cache, tokens, _ = args
+    tok = dict(tokens=tokens)
+    return (total + per_device_bytes(cache, cache_specs(cache, mesh, gb),
+                                     mesh)
+            + per_device_bytes(tok, batch_specs(tok, mesh, gb), mesh)
+            + _SCALAR)
+
+
+def _state_bytes(opt, mesh) -> float:
+    """AdamW's moments per device and its step counter."""
+    return (per_device_bytes(opt["m"], param_specs(opt["m"], mesh), mesh)
+            + per_device_bytes(opt["v"], param_specs(opt["v"], mesh), mesh)
+            + _SCALAR)
+
+
+def _block_bytes(groups) -> float:
+    """Bytes of shard 0's block of a value in the one-shard form."""
+    return float(groups[0][0].numel() * groups[0].element_size())
+
+
+def output_bytes(kind, shape, mesh, args, out) -> float:
+    """The step's output bytes per device: the new params and AdamW state
+    and the loss (train), from the specs; the logits, shard 0's block of
+    them (their spec's per-device bytes), and the decode cache."""
+    if kind == "train":
+        params, opt, _ = args
+        return (per_device_bytes(params, param_specs(params, mesh), mesh)
+                + _state_bytes(opt, mesh) + _SCALAR)
+    if kind == "prefill":
+        return _block_bytes(out)
+    cache = args[1]
+    return _block_bytes(out[0]) + per_device_bytes(
+        cache, cache_specs(cache, mesh, shape.global_batch), mesh)
+
+
+def place_inputs(kind, plan, mesh, global_batch: int, args) -> list:
+    """The step's whole ``meta`` inputs at rest on the plan's mesh (the
+    one-shard form of ``mesh``: shard 0's blocks), by the reference's specs
+    read on ``mesh``."""
+    pm = plan.mesh
     if kind == "train":
         params, opt, batch = args
-        state = (per_device_bytes(params, param_specs(params, mesh), mesh)
-                 + per_device_bytes(opt["m"], param_specs(opt["m"], mesh),
-                                    mesh)
-                 + per_device_bytes(opt["v"], param_specs(opt["v"], mesh),
-                                    mesh) + scalar)
-        batch_b = per_device_bytes(batch, batch_specs(batch, mesh, gb), mesh)
-        return state + batch_b, state + scalar
+        return [place_params(params, pm, plan.specs),
+                place_params(opt, pm, param_specs(opt, mesh)),
+                place_batch(batch, pm, global_batch)]
     if kind == "prefill":
         params, batch = args
-        arg = (per_device_bytes(params, param_specs(params, mesh), mesh)
-               + per_device_bytes(batch, batch_specs(batch, mesh, gb), mesh))
-        return arg, per_device_bytes(dict(logits=out), dict(
-            logits=logits_spec(cfg, shape, mesh)), mesh)
-    params, cache, tokens, _ = args
-    cache_b = per_device_bytes(cache, cache_specs(cache, mesh, gb), mesh)
-    tok = dict(tokens=tokens)
-    arg = (per_device_bytes(params, param_specs(params, mesh), mesh) + cache_b
-           + per_device_bytes(tok, batch_specs(tok, mesh, gb), mesh) + scalar)
-    logits = per_device_bytes(dict(logits=out[0]), dict(
-        logits=logits_spec(cfg, shape, mesh, decode=True)), mesh)
-    return arg, logits + cache_b
+        return [place_params(params, pm, plan.specs),
+                place_batch(batch, pm, global_batch)]
+    params, cache, tokens, pos = args
+    return [place_params(params, pm, plan.specs),
+            place_cache(cache, pm, global_batch),
+            place_batch(dict(tokens=tokens), pm, global_batch)["tokens"],
+            pos]
 
 
 def run_cell(arch: str, shape_name: str, multi_pod: bool, *, remat="full",
@@ -101,22 +163,23 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool, *, remat="full",
     args = list(specs)
     if shape.kind == "decode":
         args[-1] = shape.seq_len - 1     # the last slot of the cache
+    placed = place_inputs(shape.kind, fn.plan, mesh, shape.global_batch,
+                          args)
     with ProgramTrace() as trace:
-        out = fn(*args)
+        out = fn(*placed)
     t_trace = time.perf_counter() - t0
-    cost = analyze(trace, n_dev)
-    arg_b, out_b = _arg_out_bytes(shape.kind, cfg, shape, mesh, args, out)
+    cost = analyze(trace)
+    arg_b = argument_bytes(shape.kind, shape, mesh, args)
+    out_b = output_bytes(shape.kind, shape, mesh, args, out)
 
     result = dict(
         arch=arch, shape=shape_name, multi_pod=multi_pod, skipped=False,
         n_devices=n_dev, trace_s=round(t_trace, 1),
         # XLA's own cost analysis: no counterpart without XLA
         xla_flops=None, xla_bytes_accessed=None,
-        # the traced program (global; see the module docstring)
+        # one shard's traced program: per device (module docstring)
         hlo_flops=cost["dot_flops"],
         hlo_bytes_written=cost["bytes_written"],
-        hlo_flops_per_device=cost["dot_flops_per_device"],
-        hlo_bytes_written_per_device=cost["bytes_written_per_device"],
         collective_bytes=cost["coll_bytes"],
         wire_bytes_per_device=cost["wire_bytes_per_device"],
         seq_shard_acts=seq_shard,

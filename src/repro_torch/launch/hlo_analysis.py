@@ -31,8 +31,9 @@ plain twin on the CPU, its output allocations on the card) are not
 recorded, so the CPU and the card count the same for the same call.  Eager
 execution has no while loops, so the reference's trip-count weighting is
 implicit: a loop's body is recorded once per trip.  FLOPs and bytes are of
-the whole program as it ran (over every shard of a stacked mesh); keys
-ending in ``_per_device`` divide them by ``n_devices``.
+the whole program as it ran (over every shard of a stacked mesh; on the
+one-shard form of a mesh, ``ShardMesh.one_shard``, shard 0's program, one
+device's); keys ending in ``_per_device`` divide them by ``n_devices``.
 
 A recording failure never breaks the traced program: it is kept in
 ``ProgramTrace.error`` and ``analyze`` raises it.
@@ -41,6 +42,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import threading
 from collections import defaultdict
 from typing import Dict, List, Sequence, Tuple
 
@@ -100,7 +102,11 @@ class ProgramTrace(TorchDispatchMode):
     ProgramTrace() as trace: ...``): ``ops`` (aten ops, kernel calls as
     ``kernel:<name>``, collectives as their kind), ``kernels`` [(name,
     bytes, operations)] and ``collectives`` [(kind, one shard's result
-    bytes, group size)]."""
+    bytes, group size)].  A backward pass run on another thread (the
+    autograd engine's thread of a card) is recorded too: that thread
+    inherits the mode (``kernels/runtime.active_trace``)."""
+
+    records_program = True
 
     def __init__(self):
         super().__init__()
@@ -108,7 +114,7 @@ class ProgramTrace(TorchDispatchMode):
         self.kernels: List[Tuple[str, float, float]] = []
         self.collectives: List[Tuple[str, float, int]] = []
         self.error = None
-        self._opaque = 0
+        self._opaque = threading.local()  # per thread: the depth
         self._outer = None
 
     def __enter__(self):
@@ -122,7 +128,7 @@ class ProgramTrace(TorchDispatchMode):
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         out = func(*args, **(kwargs or {}))
-        if not self._opaque:
+        if not getattr(self._opaque, "depth", 0):
             try:
                 self._record(func, args, out)
             except Exception as e:       # never break the traced program
@@ -139,13 +145,14 @@ class ProgramTrace(TorchDispatchMode):
 
     @contextlib.contextmanager
     def opaque(self):
-        """Record none of the aten ops run inside (a kernel call or a
-        collective is recorded as itself)."""
-        self._opaque += 1
+        """Record none of the aten ops this thread runs inside (a kernel
+        call or a collective is recorded as itself)."""
+        depth = getattr(self._opaque, "depth", 0)
+        self._opaque.depth = depth + 1
         try:
             yield
         finally:
-            self._opaque -= 1
+            self._opaque.depth = depth
 
     def kernel(self, name: str, nbytes: float, n_ops: float) -> None:
         self.kernels.append((name, float(nbytes), float(n_ops)))

@@ -199,8 +199,10 @@ def place_params(params: PyTree, mesh, specs: PyTree = None) -> PyTree:
     whose axis ``sanitize_spec`` dropped is whole in every block; the
     routed experts fall under the EP rule ``spec(ep, None, None)``).  A 0-d
     leaf (AdamW's ``step``) stays one tensor on ``mesh.device``.  With G =
-    ``mesh.size`` each group's bytes are ``per_device_bytes``.  On a
-    one-shard mesh, or a ``MeshSpec``, the tree as given."""
+    ``mesh.size`` each group's bytes are ``per_device_bytes``; on the
+    one-shard form (``ShardMesh.one_shard``) the one group holds shard 0's
+    block, whose bytes are ``per_device_bytes``.  On a mesh of one shard, or a
+    ``MeshSpec``, the tree as given."""
     if not _partitioned(mesh):
         return params
     return _place(params, mesh, param_specs(params, mesh)
@@ -220,7 +222,7 @@ def gather_params(params: PyTree, mesh, specs: PyTree) -> PyTree:
 def place_batch(batch: PyTree, mesh, global_batch: int = None) -> PyTree:
     """A batch at rest by ``batch_specs``: the rows over the data axes
     where they divide the global batch, else whole in every shard.  On a
-    one-shard mesh the batch as given."""
+    mesh of one shard the batch as given."""
     if not _partitioned(mesh):
         return batch
     if global_batch is None:
@@ -231,7 +233,8 @@ def place_batch(batch: PyTree, mesh, global_batch: int = None) -> PyTree:
 def place_cache(caches: PyTree, mesh, global_batch: int) -> PyTree:
     """A decode cache at rest by ``cache_specs``: the batch over the data
     axes, kv heads (or a latent, the conv channels, the SSM heads) over
-    ``model`` where they divide.  On a one-shard mesh the cache as given."""
+    ``model`` where they divide.  On a mesh of one shard the cache as
+    given."""
     if not _partitioned(mesh):
         return caches
     return _place(caches, mesh, cache_specs(caches, mesh, global_batch))

@@ -23,16 +23,19 @@ partitioned program (``models/partitioned.py``: FSDP over the data axes,
 TP over ``model``, EP for the routed experts, each group's share on its
 group's device) and return params, state, caches and logits placed.  Given
 whole params they run the one-device program, with EP over the mesh where
-it is engaged.  On a one-shard mesh (``make_host_mesh(device=...)``'s
+it is engaged.  On a mesh of one shard (``make_host_mesh(device=...)``'s
 default) there is nothing to place and the program is that one-device
-program.  On a ``MeshSpec`` (the dry run) the builders trace it too, and
-the dry run reads per-device bytes from the specs.  ``seq_shard_acts``
-(the reference's Megatron sequence sharding of the layer carry) applies to
-the partitioned train and prefill steps: between blocks each shard keeps
-its ``[B/dp, S/m, D]`` block of the carry (``Partitioned``), where the
-reference's rule admits it (``model`` divides S and S >= m).  The one-device
-program, and so the dry run's trace on a ``MeshSpec``, has one carry and
-nothing to shard; the dry run reports the setting.
+program.  On a device-free mesh (a ``MeshSpec``, the dry run's production
+mesh) the plan is the partitioned program on the mesh's one-shard form
+(``ShardMesh.one_shard``): given inputs placed on ``fn.plan.mesh`` (shard
+0's blocks, ``launch/dryrun.place_inputs``) the step runs shard 0's part of
+the partitioned program on ``meta`` tensors, which the dry run traces as
+one device's program; given whole inputs, the one-device program.
+``seq_shard_acts`` (the reference's Megatron sequence sharding of the layer
+carry) applies to the partitioned train and prefill steps, the dry run's
+too: between blocks each shard keeps its ``[B/dp, S/m, D]`` block of the
+carry (``Partitioned``), where the reference's rule admits it (``model``
+divides S and S >= m).
 """
 from __future__ import annotations
 
@@ -137,10 +140,16 @@ def logits_spec(cfg: ArchConfig, shape: ShapeCfg, mesh,
 
 
 def _plan(cfg: ArchConfig, mesh, params_s, step_cfg: StepConfig):
-    """The partitioned program on a ``ShardMesh`` of more than one shard
-    (its specs read the EP mesh ``_configure_ep`` just set), else None."""
-    if not isinstance(mesh, ShardMesh) or mesh.size == 1:
+    """The partitioned program on a mesh of more than one shard (its specs
+    read the EP mesh ``_configure_ep`` just set): on a ``ShardMesh`` itself;
+    on a device-free mesh (``MeshSpec``, the dry run's) on its one-shard
+    form (``ShardMesh.one_shard``).  None on a mesh of one shard."""
+    if mesh.size == 1:
         return None
+    if not isinstance(mesh, ShardMesh):
+        sizes = axis_sizes(mesh)
+        mesh = ShardMesh.one_shard([sizes[a] for a in mesh.axis_names],
+                                   mesh.axis_names)
     return Partitioned(cfg, mesh, param_specs(params_s, mesh),
                        remat=step_cfg.remat,
                        seq_shard=step_cfg.seq_shard_acts)
@@ -248,7 +257,8 @@ def build_decode_step(cfg: ArchConfig, shape: ShapeCfg, mesh,
         with torch.no_grad():
             if _placed(plan, params):
                 if not is_placed(caches):
-                    caches = place_cache(caches, mesh, shape.global_batch)
+                    caches = place_cache(caches, plan.mesh,
+                                         shape.global_batch)
                 tokens = _batch_in(plan, dict(tokens=tokens),
                                    shape.global_batch)["tokens"]
                 return plan.decode(params, caches, cspecs, tokens, int(pos),

@@ -351,7 +351,8 @@ def group_sizes(ids: torch.Tensor, n: int):
     """Rows of each group ``0..n-1`` in ``ids`` as host ints (a read that
     waits for the device); ``None`` for ``meta`` tensors, whose shape-only
     program (the dry run) has no counts to read: ``grouped_matmul`` then
-    takes equal groups."""
+    counts every row through one expert, and a block of experts takes its
+    equal share of the rows."""
     if ids.is_meta:
         return None
     return torch.bincount(ids.reshape(-1), minlength=n)[:n].tolist()
@@ -361,12 +362,10 @@ def grouped_matmul(xs: torch.Tensor, w: torch.Tensor, sizes) -> torch.Tensor:
     """``lax.ragged_dot``: rows ``xs`` [T, K] in contiguous groups of
     ``sizes`` (one per expert), each times its expert's ``w[e]`` [K, N];
     rows past the groups' sum give zeros.  ``sizes=None`` (meta tensors
-    only, see ``group_sizes``) takes T // E rows a group, as one batched
-    matmul."""
-    e = w.shape[0]
+    only, see ``group_sizes``): every row through one expert's weight, as
+    one matmul, the work of T rows each through its own expert."""
     if sizes is None:
-        g = xs.shape[0] // e
-        ys = torch.bmm(xs[:e * g].reshape(e, g, -1), w).reshape(e * g, -1)
+        ys = xs @ w[0]
     else:
         outs, start = [], 0
         for i, n in enumerate(sizes):
@@ -423,8 +422,12 @@ def moe_routed(cfg: ArchConfig, p: dict, x: torch.Tensor,
     if experts is not None:
         # the block's experts hold one contiguous run of the sorted rows
         lo, hi = experts
-        start, rows = sum(sizes[:lo]), sum(sizes[lo:hi])
-        xs, sizes = xs[start:start + rows], sizes[lo:hi]
+        if sizes is None:                    # meta: equal groups
+            start, rows = t * lo // e, t * (hi - lo) // e
+        else:
+            start, rows = sum(sizes[:lo]), sum(sizes[lo:hi])
+            sizes = sizes[lo:hi]
+        xs = xs[start:start + rows]
 
     f = act_fn(cfg.act)
     if cfg.gated_ffn:

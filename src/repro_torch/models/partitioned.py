@@ -93,6 +93,14 @@ a copy per shard, and its gradient is the sum over its copies
 replicas stay bitwise equal after every step.  The global norm counts each
 block once (its first replica), a per-block sum of squares summed on the
 first device in shard order.
+
+On the one-shard form of a mesh (``ShardMesh.one_shard``, the dry run's:
+``mesh.held`` is 1) every per-shard list holds shard 0 alone and each
+collective returns shard 0's result, so the program run is shard 0's part
+of the partitioned step on the production mesh, traced as one device's
+program (``launch/dryrun.py``).  Shard 0's coordinates are all 0: its
+blocks have every shard's shapes, its ``model`` slices are the first, and it
+is the first replica of every block.
 """
 from __future__ import annotations
 
@@ -176,7 +184,7 @@ class Partitioned:
                    else ("data",))
         self.msize = axis_sizes(mesh)["model"]
         mi = mesh.axis_names.index("model")
-        self.model_idx = [mesh.coords(s)[mi] for s in range(mesh.size)]
+        self.model_idx = [mesh.coords(s)[mi] for s in range(mesh.held)]
         self.vocab_tp = self._split(specs["lm_head"], 1)
         # the spec entry of the batch the decode caches serve (the data
         # axes, or None where they do not divide it): ``decode`` sets it
@@ -221,8 +229,8 @@ class Partitioned:
         """``use`` over a dict of placed leaves: one dict a shard; the
         leaves named in ``whole`` are gathered over every axis."""
         if tree is None:
-            return [None] * self.mesh.size
-        out = [dict() for _ in range(self.mesh.size)]
+            return [None] * self.mesh.held
+        out = [dict() for _ in range(self.mesh.held)]
         for k, v in tree.items():
             kk = () if k in whole else keep
             vals = (self.use_tree(v, specs[k], kk, whole)
@@ -299,9 +307,9 @@ class Partitioned:
         """A layer's placed cache ``(tree, specs)`` in its compute form
         (``_compute_spec``): one dict a shard."""
         if cache is None:
-            return [None] * self.mesh.size
+            return [None] * self.mesh.held
         tree, specs = cache
-        out = [dict() for _ in range(self.mesh.size)]
+        out = [dict() for _ in range(self.mesh.held)]
         for k in tree:
             vals = self.shards(self.reshard(
                 tree[k], specs[k], self._compute_spec(k, specs[k], heads)))
@@ -419,7 +427,7 @@ class Partitioned:
         """The attention layer (GQA or MLA) on every shard's normed hidden
         state (whole along S): (per-shard output, its sequence block where
         ``sp``; the placed cache, written in place)."""
-        cfg, n = self.cfg, self.mesh.size
+        cfg, n = self.cfg, self.mesh.held
         tp, kv = self._attn_tp(ls)
         pa = self.use_tree(lp, ls, ("model",) if tp else (), whole=("wdq",))
         heads = "model" if tp and kv is None and not cfg.mla else None
@@ -467,7 +475,7 @@ class Partitioned:
         """A mamba2 block on every shard: over the shard's SSM heads where
         ``model`` splits them, else replicated; its conv and SSD on the
         normed input gathered whole along S where ``sp``."""
-        cfg, n = self.cfg, self.mesh.size
+        cfg, n = self.cfg, self.mesh.held
         res = lambda a: weak(cfg.residual_scale, a.dtype)
         mp, ms = lp["mamba"], ls["mamba"]
         hs = self.whole_seq([rms_norm(x, w, cfg.norm_eps) for x, w in zip(
@@ -652,7 +660,7 @@ class Partitioned:
     # -- inputs and outputs ---------------------------------------------------
     def _batch(self, batch) -> PerShard:
         """A placed batch as one dict a shard."""
-        out = [dict() for _ in range(self.mesh.size)]
+        out = [dict() for _ in range(self.mesh.held)]
         for k, v in batch.items():
             for o, x in zip(out, self.shards(v)):
                 o[k] = x
@@ -821,7 +829,7 @@ class Partitioned:
         on its shard's device, summed on the first device in (shard, leaf)
         order."""
         mesh = self.mesh
-        terms = [[] for _ in range(mesh.size)]
+        terms = [[] for _ in range(mesh.held)]
         for _, groups, spec in _pairs(grads, self.specs):
             for g, grp in enumerate(groups):
                 for j, s in enumerate(mesh.shards(g)):

@@ -4,13 +4,17 @@ mesh (data 16, model 16), the traced FLOPs against XLA's, and the sweep.
 Held here and in ``tests/test_torch_dryrun_b.py`` / ``_c.py`` (each file
 runs the cells of one slice of the archs, ``torch_dryrun.ARCH_SLICES``):
 ``run_cell`` for all 40 (arch x shape) cells: the 31 cells the reference
-runs trace at full size on meta tensors, and the 9 it skips are skipped
-with its reasons; ``model_params`` and ``active_params`` equal the
-reference's; ``mem.argument_bytes`` equals the per-device count from the
-reference's specs and ``jax.eval_shape`` exactly (``tests/torch_dryrun.py``).
+runs trace one shard's program of the partitioned step at full size on
+meta tensors, and the 9 it skips are skipped with its reasons;
+``model_params`` and ``active_params`` equal the reference's;
+``mem.argument_bytes`` equals the per-device count from the reference's
+specs and ``jax.eval_shape`` exactly; FLOPs are per device, every train
+cell all-gathers and reduce-scatters, and only the MoE train and prefill
+cells run EP all-to-alls (``tests/torch_dryrun.check_cell``).
 The traced ``dot_flops`` of the train and prefill steps of two dense smoke
-archs (granite-34b, minicpm-2b) equal the reference's ``analyze_hlo`` of the
-same step compiled on one CPU device: the stated tolerance is 2%, and the
+archs (granite-34b, minicpm-2b) on a (1, 1) mesh (no partitioned plan: the
+one-device program) equal the reference's ``analyze_hlo`` of the same step
+compiled on one CPU device: the stated tolerance is 2%, and the
 counts agree exactly (MoE archs are not held: XLA may lower ``ragged_dot``
 over every expert).  The sweep writes one JSON per cell and skips cached
 cells on a rerun.  The multi-pod cells are in
