@@ -193,14 +193,21 @@ partitioned_hybrid, sp, decode_donated, serve_padded or dryrun.)
    ``cache_specs`` (``e2e serve padded``).  The dry run on the host, one
    shard's program of the partitioned step on the production mesh:
    minicpm-2b x train_4k and deepseek-v3-671b x decode_32k (multi pod),
-   per-device FLOPs, collective bytes by kind, wire bytes a device
-   (``dryrun`` lines; a train cell must show an all-gather and a
-   reduce-scatter); and its card cross-check: the partitioned phase's
-   train step once on the card under the program trace, every shard
-   executing, against the same step traced on the one-shard meta mesh,
-   collective records equal as multisets and dot FLOPs a device equal to
-   the card's over 4, with the peer-copy bytes the records imply for a
-   group a card on four cards (``dryrun card`` line).  The GS service (K = 8, megakernel) over 40
+   per-device FLOPs, collective bytes by kind, wire bytes a device, temp
+   and peak bytes a device (``dryrun`` lines; a train cell must show an
+   all-gather and a reduce-scatter); and its card cross-check: the
+   partitioned phase's train step once on the card under the program
+   trace, every shard executing, against the same step traced on the
+   one-shard meta mesh, collective records equal as multisets and dot
+   FLOPs a device equal to the card's over 4, with the peer-copy bytes the
+   records imply for a group a card on four cards (``dryrun card`` line);
+   the memory count against the card's allocator: the same train step's
+   one-device program and the donated decode of phase 12's configuration,
+   each after a warm-up call, and, on four cards, each card's share of the
+   partitioned step with a group a card: the meta trace's temp bytes
+   within 10% + 64 MiB of the peak allocation above what the call found
+   (``dryrun card memory`` lines; card 0, which also holds the joins,
+   printed beside cards 1-3).  The GS service (K = 8, megakernel) over 40
    intervals with ``hlo_attribution=True``: bitwise with the run without,
    every execute span carrying its cost fields, no fraction of the peak
    above 1.05 (``e2e service attribution``).
@@ -3511,18 +3518,21 @@ def dryrun_phase(card, cuda, seed) -> None:
     shard's program on the production mesh: minicpm-2b x train_4k on the
     single pod and deepseek-v3-671b x decode_32k on the multi pod, each
     with its per-device FLOPs, collective bytes by kind, ring wire bytes a
-    device and trace time (a train cell without an all-gather or a
-    reduce-scatter fails); then its cross-check on the card
-    (``dryrun_card_check``)."""
+    device, temp and peak bytes a device beside the card's memory, and
+    trace time (a train cell without an all-gather or a reduce-scatter
+    fails); then its cross-check on the card (``dryrun_card_check``)."""
     from repro_torch.launch.dryrun import run_cell
     from repro_torch.models import moe_ep
     t0 = time.perf_counter()
+    card_total = torch.cuda.get_device_properties(cuda).total_memory
     try:
         for arch, shape, mp in (("minicpm-2b", "train_4k", False),
                                 ("deepseek-v3-671b", "decode_32k", True)):
             r = run_cell(arch, shape, mp, verbose=False)
             coll = r.get("collective_bytes") or {}
-            if r["skipped"] or not r["hlo_flops"] > 0 or (
+            fits = r["mem"]["peak_bytes"] <= card_total
+            if r["skipped"] or not r["hlo_flops"] > 0 or not (
+                    r["mem"]["temp_bytes"] > 0) or (
                     shape.startswith("train") and not (
                         coll.get("all-gather") and coll.get("reduce-scatter"))):
                 raise AssertionError(f"dryrun {arch} x {shape}: {r}")
@@ -3535,7 +3545,10 @@ def dryrun_phase(card, cuda, seed) -> None:
                   f"wire_bytes_per_device={r['wire_bytes_per_device']} "
                   f"trace_s={r['trace_s']} argument_bytes_per_device="
                   f"{r['mem']['argument_bytes']} output_bytes_per_device="
-                  f"{r['mem']['output_bytes']} model_params="
+                  f"{r['mem']['output_bytes']} temp_bytes_per_device="
+                  f"{r['mem']['temp_bytes']} peak_bytes_per_device="
+                  f"{r['mem']['peak_bytes']} (this card holds {card_total}: "
+                  f"{'fits' if fits else 'does not fit'}) model_params="
                   f"{r['model_params']}")
     finally:
         moe_ep.set_ep_mesh(None, ("data",))
@@ -3558,6 +3571,86 @@ def joined_peer_bytes(records, n: int) -> float:
     return total
 
 
+MEM_SLACK = 64 << 20                    # cuBLAS workspaces, 512 B rounding
+
+
+def memory_pair(label, predicted: int, measured: int) -> tuple:
+    """The live-bytes count's temp bytes against the card's: (the line's
+    text, whether |predicted - measured| <= 10% of measured + 64 MiB)."""
+    off = predicted - measured
+    ok = abs(off) <= 0.1 * measured + MEM_SLACK
+    return (f"{label}: predicted {predicted} measured {measured} (off "
+            f"{off}, {off / max(measured, 1):+.2%}, "
+            f"{'within' if ok else 'BEYOND'} 10% + 64 MiB)", ok)
+
+
+def meta_temp(fn, args) -> int:
+    """The meta trace's temp bytes of ``fn(*args)``: its peak live bytes
+    above the inputs it was called on (``ProgramTrace.hold``)."""
+    from repro_torch.launch.hlo_analysis import ProgramTrace
+    with ProgramTrace() as trace:
+        held = trace.hold(list(args))
+        fn(*args)
+    return trace.peak_bytes - held
+
+
+def card_temp(fn, cuda) -> int:
+    """``fn()``'s peak allocation on ``cuda`` above what it found."""
+    _, base, peak = peak_over(fn, [cuda])
+    return peak[0] - base[0]
+
+
+def one_device_memory(card, cuda, seed) -> list:
+    """The live-bytes count against the card's allocator on one card, each
+    step after a warm-up call: the partitioned phase's train step as the
+    one-device program (minicpm-2b at its widths, 2 layers, bf16 params,
+    f32 AdamW, batch 8 x 128) and the donated decode of the decode-donated
+    phase (4 layers, batch 4, a 32,768-deep cache), each beside its meta
+    trace on the same shapes: ``memory_pair``s."""
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.steps import (StepConfig, build_decode_step,
+                                          build_train_step)
+    from repro_torch.models import ShapeCfg, init_cache, init_params
+    from repro_torch.optim import AdamWConfig, adamw_init
+    flat = make_host_mesh(device=cuda)
+    cfg = cut("minicpm-2b", 2)
+    step_cfg = StepConfig(optimizer=AdamWConfig(state_dtype=torch.float32))
+    fn, structs = build_train_step(cfg, ShapeCfg(
+        "train", PART_SEQ, PART_BATCH, "train"), flat, step_cfg)
+    params = init_params(cfg, torch.Generator(device=cuda).manual_seed(seed),
+                         device=cuda)
+    state = adamw_init(params, step_cfg.optimizer)
+    toks = torch.randint(0, cfg.vocab, (PART_BATCH, PART_SEQ + 1),
+                         generator=torch.Generator(device=cuda).manual_seed(
+                             seed), device=cuda, dtype=torch.int32)
+    batch = dict(tokens=toks[:, :-1].contiguous(),
+                 labels=toks[:, 1:].contiguous())
+    fn(params, state, batch)
+    train = card_temp(lambda: fn(params, state, batch), cuda)
+    del params, state
+    lines = [memory_pair(f"train step, one-device program ({widths(cfg)}, "
+                         f"bf16 params, f32 AdamW state, remat full, batch "
+                         f"{PART_BATCH} x {PART_SEQ})",
+                         meta_temp(fn, structs), train)]
+    dcfg = cut("minicpm-2b", DON_LAYERS)
+    serve, ds = build_decode_step(dcfg, ShapeCfg(
+        "decode_32k", DON_CACHE, DON_BATCH, "decode"), flat,
+        StepConfig(serving_head_pad=False))
+    params = init_params(dcfg, torch.Generator(device=cuda).manual_seed(
+        seed), device=cuda)
+    cache = init_cache(dcfg, DON_BATCH, DON_CACHE, device=cuda)
+    tok = toks[:DON_BATCH, :1].contiguous()
+    pos = DON_CACHE // 2
+    serve(params, cache, tok, pos)
+    decode = card_temp(lambda: serve(params, cache, tok, pos + 1), cuda)
+    del params, cache
+    lines.append(memory_pair(
+        f"donated decode (minicpm-2b, {depth(dcfg)}, bf16, batch "
+        f"{DON_BATCH}, cache {DON_CACHE} deep)",
+        meta_temp(serve, [ds[0], ds[1], ds[2], pos + 1]), decode))
+    return lines
+
+
 def dryrun_card_check(card, cuda, seed) -> None:
     """The partitioned phase's train step (minicpm-2b at its widths, 2
     layers, bf16 params, f32 AdamW state, batch 8 x 128, a (data 2, model
@@ -3570,7 +3663,12 @@ def dryrun_card_check(card, cuda, seed) -> None:
     card 0 with a group a card on four cards (``joined_peer_bytes``) beside
     the peer bytes one such step moves, measured (``card_trace``) where
     four cards hold the groups (``dryrun card`` line; a printed pair, no
-    bar)."""
+    bar).  Then the memory count against the card's allocator
+    (``dryrun card memory`` lines): on one card, ``one_device_memory``;
+    where four cards hold the groups, the one-shard trace's temp bytes
+    against each card's peak above what the partitioned step (warm: it ran
+    above) found, cards 1-3 held to the bar, card 0 (the joins of
+    ``core/mesh.py`` too) printed beside them."""
     from collections import Counter
     from repro_torch.launch.dryrun import place_inputs
     from repro_torch.launch.hlo_analysis import ProgramTrace, analyze
@@ -3612,12 +3710,17 @@ def dryrun_card_check(card, cuda, seed) -> None:
         placed = place_inputs("train", mfn.plan, spec, PART_BATCH,
                               list(mstructs))
         with ProgramTrace() as one:
+            held = one.hold(placed)
             mfn(*placed)
         meta_s = time.perf_counter() - t1
         n_cards = len(set(devs))
         peer = (card_trace(lambda: fn(pm, st, pb))[2] if n_cards >= 4
                 else None)
+        if n_cards >= 4:
+            _, base, peak = peak_over(lambda: fn(pm, st, pb), devs)
+            per_card = [p - b for p, b in zip(peak, base)]
         del pm, st, pb
+        memory = one_device_memory(card, cuda, seed)
     finally:
         moe_ep.set_ep_mesh(None, ("data",))
     label = f"G={mesh.n_groups} devices={[str(d) for d in devs]}"
@@ -3649,6 +3752,23 @@ def dryrun_card_check(card, cuda, seed) -> None:
           f"wire_bytes_per_device={got['wire_bytes_per_device']} | peer "
           f"bytes a step implied by the records for a group a card on four "
           f"cards {implied}; measured {measured} | {card}")
+    temp = one.peak_bytes - held
+    if n_cards >= 4:
+        memory += [memory_pair(
+            f"partitioned train step, a group a card, {devs[g]}", temp,
+            per_card[g]) for g in range(1, 4)]
+        memory.append((f"{devs[0]} (group 0 and the joins): predicted for "
+                       f"its shard {temp} measured {per_card[0]} (no bar)",
+                       True))
+    else:
+        memory.append((f"partitioned train step, a group a card: not "
+                       f"measured ({n_cards} card(s); needs four), the "
+                       f"one-shard trace's temp {temp}", True))
+    for text, _ in memory:
+        print(f"dryrun card memory {text} | {card}")
+    beyond = [text for text, ok in memory if not ok]
+    if beyond:
+        raise AssertionError(f"dryrun card memory beyond the bar: {beyond}")
     print(f"dryrun card check: {time.perf_counter() - t0:.1f} s")
 
 

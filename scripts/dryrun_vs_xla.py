@@ -14,8 +14,11 @@ beside the port's step traced on the one-shard form of the same mesh
 test_torch_dryrun_partitioned_ref.py`` holds to).  Prints one line a cell:
 dot FLOPs a device (both, their ratio, the port's extra work counted from
 the config, ``port_extra_flops``), then the collective bytes by kind and
-the ring wire bytes a device (both and their ratio), and last a JSON line
-of the same numbers.
+the ring wire bytes a device (both and their ratio), then the memory a
+device, the reference's ``compiled.memory_analysis()`` (argument, temp and
+peak bytes, as its dry run reads them) beside the port's live-bytes count
+of the trace (eager buffers against XLA's fused buffer assignment: no
+bar), and last a JSON line of the same numbers.
 """
 from __future__ import annotations
 
@@ -68,7 +71,10 @@ def main(argv=None) -> dict:
                 port=port["wire_bytes_per_device"],
                 xla=ref["wire_bytes_per_device"],
                 ratio=_ratio(port["wire_bytes_per_device"],
-                             ref["wire_bytes_per_device"])))
+                             ref["wire_bytes_per_device"])),
+            mem={k: dict(port=port[k], xla=ref[k],
+                         ratio=_ratio(port[k], ref[k]))
+                 for k in ("argument_bytes", "temp_bytes", "peak_bytes")})
         rows[f"{arch}:{kind}"] = row
         f = row["dot_flops"]
         print(f"{arch} x {kind} (smoke, batch {args.batch} x seq "
@@ -79,7 +85,9 @@ def main(argv=None) -> dict:
                          f"{v['ratio']}" for k, v in coll.items())
               + f" | wire_bytes_per_device port "
                 f"{row['wire_bytes_per_device']['port']} xla "
-                f"{row['wire_bytes_per_device']['xla']}")
+                f"{row['wire_bytes_per_device']['xla']} | "
+              + " ".join(f"{k} port {v['port']} xla {v['xla']} ratio "
+                         f"{v['ratio']}" for k, v in row["mem"].items()))
     print(json.dumps(rows))
     return rows
 

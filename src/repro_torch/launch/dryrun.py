@@ -32,15 +32,27 @@ trace is the per-device program the reference reads:
   and again in the backward's recompute;
 * ``mem.argument_bytes`` and ``mem.output_bytes`` are per device from the
   specs (each leaf's bytes over the product of the axis sizes its spec
-  shards it on; the prefill and decode logits, shard 0's block of them).
+  shards it on; the prefill and decode logits, shard 0's block of them);
+* ``mem.peak_bytes`` is the most live bytes shard 0's traced program
+  reaches, its inputs included (``ProgramTrace.peak_bytes``), and
+  ``mem.temp_bytes`` is ``peak_bytes - argument_bytes``, the reference's
+  relation; both ints, per device.  They are eager PyTorch's footprint of
+  one shard's program, every op's output its own buffer, freed when the
+  program drops its last reference to it: what a card running the port
+  holds for the step, not XLA's fused buffer assignment.  A collective
+  counts its result at one device's size (the one-shard form returns shard
+  0's); an op's internal workspace (cuBLAS's) is not seen.  The live bytes
+  at the call (the placed inputs, ``ProgramTrace.hold``) equal
+  ``argument_bytes`` in every train and prefill cell; in a decode cell
+  they are 4 bytes short, since the position is a host int in the port
+  and an int32 argument in the reference.
 
 The MoE path takes equal expert groups on meta tensors
 (``layers.group_sizes``), since a shape-only program has no routing counts
-to read.  What needs XLA's compiler or allocator has no counterpart and is
-None: ``xla_flops`` and ``xla_bytes_accessed`` (XLA's own cost analysis),
-``mem.temp_bytes`` and ``mem.peak_bytes`` (its buffer assignment: eager
-PyTorch assigns no buffers ahead of the run).  ``trace_s`` (building,
-placing and tracing) takes the place of ``lower_s`` and ``compile_s``.
+to read.  What needs XLA's compiler has no counterpart and is None:
+``xla_flops`` and ``xla_bytes_accessed`` (XLA's own cost analysis).
+``trace_s`` (building, placing and tracing) takes the place of ``lower_s``
+and ``compile_s``.
 
 Usage:
   python -m repro_torch.launch.dryrun --arch granite-34b --shape train_4k
@@ -166,6 +178,7 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool, *, remat="full",
     placed = place_inputs(shape.kind, fn.plan, mesh, shape.global_batch,
                           args)
     with ProgramTrace() as trace:
+        trace.hold(placed)
         out = fn(*placed)
     t_trace = time.perf_counter() - t0
     cost = analyze(trace)
@@ -184,7 +197,8 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool, *, remat="full",
         wire_bytes_per_device=cost["wire_bytes_per_device"],
         seq_shard_acts=seq_shard,
         mem=dict(argument_bytes=arg_b, output_bytes=out_b,
-                 temp_bytes=None, peak_bytes=None),
+                 temp_bytes=int(trace.peak_bytes - arg_b),
+                 peak_bytes=trace.peak_bytes),
         model_params=cfg.param_count(),
         active_params=cfg.active_param_count(),
     )

@@ -26,6 +26,21 @@ reference's keys:
   all-to-all b·(g-1)/g.  A group of one shard moves nothing and is not
   recorded.
 
+The trace also counts the program's **live bytes** (``live_bytes``, and
+their most, ``peak_bytes``), the counterpart of the peak XLA's buffer
+assignment gives (``compiled.memory_analysis()``): the summed ``nbytes`` of
+the distinct storages alive while it records.  A storage counts once
+however many views it has; it enters the count when an op's output first
+shows it (a view's or an in-place op's output, which aliases an input,
+adds nothing) or when ``hold`` is given the inputs it lies under, and
+leaves it when it is freed (its weakref callback).  Storages allocated
+inside ``opaque()`` count too: a collective's result and a kernel
+wrapper's outputs are buffers the program holds.  So the count is eager
+PyTorch's footprint of the traced program, every op's output its own
+buffer, freed when the program drops its last reference: what a card's
+allocator holds for it, short of an op's internal workspace (cuBLAS's),
+which no aten op shows.
+
 A kernel call counts once at its ``cost()``; the aten ops inside it (its
 plain twin on the CPU, its output allocations on the card) are not
 recorded, so the CPU and the card count the same for the same call.  Eager
@@ -42,7 +57,9 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 import threading
+import weakref
 from collections import defaultdict
 from typing import Dict, List, Sequence, Tuple
 
@@ -85,9 +102,17 @@ def _is_transfer(func, args, out) -> bool:
     return False
 
 
+@functools.cache
 def _is_view(func) -> bool:
     return any(r.alias_info is not None and not r.alias_info.is_write
                for r in func._schema.returns)
+
+
+@functools.cache
+def _aliases(func) -> bool:
+    """Whether an op's outputs alias its inputs (a view or an in-place
+    op): they show no new storage."""
+    return any(r.alias_info is not None for r in func._schema.returns)
 
 
 @dataclasses.dataclass
@@ -102,9 +127,11 @@ class ProgramTrace(TorchDispatchMode):
     ProgramTrace() as trace: ...``): ``ops`` (aten ops, kernel calls as
     ``kernel:<name>``, collectives as their kind), ``kernels`` [(name,
     bytes, operations)] and ``collectives`` [(kind, one shard's result
-    bytes, group size)].  A backward pass run on another thread (the
-    autograd engine's thread of a card) is recorded too: that thread
-    inherits the mode (``kernels/runtime.active_trace``)."""
+    bytes, group size)]; ``live_bytes`` and ``peak_bytes`` (module
+    docstring), the inputs counted through ``hold``.  A backward pass run
+    on another thread (the autograd engine's thread of a card) is recorded
+    too: that thread inherits the mode (``kernels/runtime.active_trace``),
+    and a lock guards the count."""
 
     records_program = True
 
@@ -114,6 +141,10 @@ class ProgramTrace(TorchDispatchMode):
         self.kernels: List[Tuple[str, float, float]] = []
         self.collectives: List[Tuple[str, float, int]] = []
         self.error = None
+        self.live_bytes = 0
+        self.peak_bytes = 0
+        self._storages = {}               # id -> (weakref, nbytes)
+        self._lock = threading.RLock()    # a free may come mid-registration
         self._opaque = threading.local()  # per thread: the depth
         self._outer = None
 
@@ -128,12 +159,40 @@ class ProgramTrace(TorchDispatchMode):
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         out = func(*args, **(kwargs or {}))
-        if not getattr(self._opaque, "depth", 0):
-            try:
+        try:
+            if not _aliases(func):
+                self._hold(out)
+            if not getattr(self._opaque, "depth", 0):
                 self._record(func, args, out)
-            except Exception as e:       # never break the traced program
-                self.error = self.error or e
+        except Exception as e:           # never break the traced program
+            self.error = self.error or e
         return out
+
+    def hold(self, tree) -> int:
+        """Count the storages of ``tree``'s tensors (the inputs a step is
+        called on) as live; the live bytes after."""
+        self._hold(tree)
+        return self.live_bytes
+
+    def _hold(self, out) -> None:
+        for t in tree_leaves(out):
+            if isinstance(t, torch.Tensor):
+                self._add(t.untyped_storage())
+
+    def _add(self, s) -> None:
+        key, n = id(s), s.nbytes()
+        with self._lock:
+            if key in self._storages:
+                return
+            self._storages[key] = (weakref.ref(
+                s, lambda _, key=key, n=n: self._free(key, n)), n)
+            self.live_bytes += n
+            self.peak_bytes = max(self.peak_bytes, self.live_bytes)
+
+    def _free(self, key, n) -> None:
+        with self._lock:
+            self._storages.pop(key, None)
+            self.live_bytes -= n
 
     def _record(self, func, args, out) -> None:
         if _is_view(func) or _is_transfer(func, args, out):

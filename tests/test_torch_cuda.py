@@ -27,7 +27,9 @@ step (C6).  The launch layer: expert-parallel MoE on the card
 keeps the CPU's choices bit for bit at the default capacity, the padded
 decode matches the unpadded one, the donating decode step writes its
 cache in place (bitwise with ``decode_step``, its peak under one layer's
-cache), and a chunk's traced cost (``chunk_cost``) on the card equals the
+cache), the dry run's live-bytes count of the train step and the donated
+decode on meta matches the card's peak allocation within 10% + 64 MiB,
+and a chunk's traced cost (``chunk_cost``) on the card equals the
 CPU's.  The kernel-dispatch search
 (``kernels/autotune``) benches every candidate on a key's first call,
 counts and traces nothing of it, reuses the decision, and reads it back
@@ -1082,6 +1084,81 @@ def test_donated_decode_on_card_peak_under_one_layer():
         for (path, a), (_, b) in zip(_flatten(out), _flatten(new)):
             assert torch.equal(a, b), path
         del new
+
+
+def card_temp(dev, fn) -> int:
+    """``fn()``'s peak allocation on ``dev`` above the allocation before
+    it."""
+    import gc
+    gc.collect()
+    torch.cuda.synchronize(dev)
+    base = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    fn()
+    torch.cuda.synchronize(dev)
+    return torch.cuda.max_memory_allocated(dev) - base
+
+
+def meta_temp(fn, args) -> int:
+    """The dry run's count: ``fn(*args)``'s peak live bytes on meta above
+    the inputs."""
+    from repro_torch.launch.hlo_analysis import ProgramTrace
+    with ProgramTrace() as trace:
+        held = trace.hold(list(args))
+        fn(*args)
+    return trace.peak_bytes - held
+
+
+def within_memory_bar(predicted, measured) -> bool:
+    """|predicted - measured| <= 10% of measured + 64 MiB (cuBLAS
+    workspaces and the allocator's rounding)."""
+    return abs(predicted - measured) <= 0.1 * measured + (64 << 20)
+
+
+@pytest.mark.parametrize("kind", ["train", "decode"])
+def test_dryrun_memory_count_matches_the_card(kind):
+    """The dry run's live-bytes count of a step on meta tensors against the
+    card's allocator on the same shapes, after a warm-up call (its peak
+    above what it found): minicpm-2b's smoke config, the one-device train
+    step (f32 AdamW, batch 16 x 2,048) and the donated decode (batch 8, a
+    16,384-deep cache), within 10% + 64 MiB."""
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.steps import (StepConfig, build_decode_step,
+                                          build_train_step)
+    from repro_torch.models import ShapeCfg, init_cache, init_params
+    from repro_torch.optim import AdamWConfig, adamw_init
+    dev = need_card()
+    cfg = get_arch("minicpm-2b").smoke()
+    flat = make_host_mesh(device=dev)
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(6),
+                         device=dev)
+    gen = torch.Generator(device=dev).manual_seed(6)
+    if kind == "train":
+        step_cfg = StepConfig(optimizer=AdamWConfig(
+            state_dtype=torch.float32))
+        fn, structs = build_train_step(cfg, ShapeCfg("t", 2048, 16, "train"),
+                                       flat, step_cfg)
+        toks = torch.randint(0, cfg.vocab, (16, 2049), generator=gen,
+                             device=dev, dtype=torch.int32)
+        args = [params, adamw_init(params, step_cfg.optimizer),
+                dict(tokens=toks[:, :-1].contiguous(),
+                     labels=toks[:, 1:].contiguous())]
+        meta = list(structs)
+    else:
+        fn, structs = build_decode_step(cfg, ShapeCfg("d", 16384, 8,
+                                                      "decode"),
+                                        flat, StepConfig(
+                                            serving_head_pad=False))
+        toks = torch.randint(0, cfg.vocab, (8, 1), generator=gen,
+                             device=dev, dtype=torch.int32)
+        args = [params, init_cache(cfg, 8, 16384, device=dev), toks, 9000]
+        meta = [*structs[:3], 9000]
+    fn(*args)
+    measured = card_temp(dev, lambda: fn(*args))
+    predicted = meta_temp(fn, meta)
+    assert measured > 0
+    assert within_memory_bar(predicted, measured), (predicted, measured)
 
 
 @pytest.mark.parametrize("app_name,method", [("gs", "megakernel"),

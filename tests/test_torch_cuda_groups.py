@@ -34,6 +34,9 @@ imports no JAX.  On a machine with four cards:
   configs) against the whole carry over the same groupings: step 0's loss
   bitwise, every gradient within 2e-2 of its norm; sharded, every grouping
   bitwise with one group.
+* The dry run's live-bytes count with a group a card on four cards: each
+  of cards 1-3 peaks, in the partitioned train step, within 10% + 64 MiB
+  of the one-shard meta trace's temp bytes.
 """
 import numpy as np
 import pytest
@@ -404,6 +407,71 @@ def test_seq_sharded_carry_on_cards(card, ep_devices, arch):
                                      _flatten(run_off[1])):
             a, b = a.double(), b.double()
             assert float((a - b).norm()) <= 2e-2 * float(b.norm()), path
+
+
+def test_dryrun_memory_count_matches_each_card(card):
+    """The dry run's one-shard count against the card's allocator with a
+    group a card on four cards: minicpm-2b's smoke config, the partitioned
+    train step on a (data 2, model 2) mesh, batch 8 x 2,048, after a
+    warm-up step; each of cards 1-3 peaks above what it found within 10% +
+    64 MiB of the one-shard meta trace's temp bytes (card 0 also holds the
+    collectives' joins, ``core/mesh.ShardMesh.join``, and is not held)."""
+    import gc
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.dryrun import place_inputs
+    from repro_torch.launch.hlo_analysis import ProgramTrace
+    from repro_torch.launch.mesh import MeshSpec, make_host_mesh
+    from repro_torch.launch.sharding import (param_specs, place_batch,
+                                             place_params)
+    from repro_torch.launch.steps import StepConfig, build_train_step
+    from repro_torch.models import ShapeCfg, init_params, moe_ep
+    from repro_torch.optim import adamw_init
+    n = torch.cuda.device_count()
+    if n < 4:
+        pytest.skip(f"needs four CUDA cards ({n} present)")
+    devs = card_groups(4, card)
+    cfg = get_arch("minicpm-2b").smoke()
+    shape = ShapeCfg("t", 2048, 8, "train")
+    params = init_params(cfg, torch.Generator(device=card).manual_seed(8),
+                         device=card)
+    toks = torch.randint(0, cfg.vocab, (8, 2049), generator=torch.Generator(
+        device=card).manual_seed(8), device=card, dtype=torch.int32)
+    batch = dict(tokens=toks[:, :-1].contiguous(),
+                 labels=toks[:, 1:].contiguous())
+    try:
+        mesh = make_host_mesh(model=2, data=2, devices=devs)
+        fn, structs = build_train_step(cfg, shape, mesh)
+        p = place_params(params, mesh, param_specs(structs[0], mesh))
+        st = place_params(adamw_init(params, StepConfig().optimizer), mesh,
+                          param_specs(structs[1], mesh))
+        pb = place_batch(batch, mesh)
+        del params
+        fn(p, st, pb)
+        gc.collect()
+        for d in devs:
+            torch.cuda.synchronize(d)
+        base = [torch.cuda.memory_allocated(d) for d in devs]
+        for d in devs:
+            torch.cuda.reset_peak_memory_stats(d)
+        fn(p, st, pb)
+        for d in devs:
+            torch.cuda.synchronize(d)
+        measured = [torch.cuda.max_memory_allocated(d) - b
+                    for d, b in zip(devs, base)]
+        spec = MeshSpec({"data": 2, "model": 2})
+        mfn, mstructs = build_train_step(cfg, shape, spec)
+        placed = place_inputs("train", mfn.plan, spec, 8, list(mstructs))
+        with ProgramTrace() as one:
+            held = one.hold(placed)
+            mfn(*placed)
+    finally:
+        moe_ep.set_ep_mesh(None, ("data",))
+    predicted = one.peak_bytes - held
+    for g in range(1, 4):
+        m = measured[g]
+        assert m > 0
+        assert abs(predicted - m) <= 0.1 * m + (64 << 20), (g, predicted,
+                                                             measured)
 
 
 def test_grouped_compressed_psum_on_cards(card, ep_devices):

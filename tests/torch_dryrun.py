@@ -1,7 +1,8 @@
 """Helpers for the dry run's parity tests (``tests/test_torch_dryrun*.py``):
 the reference's per-device argument bytes of a cell, counted from JAX's
 ``param_specs`` / ``batch_specs`` / ``cache_specs`` and ``jax.eval_shape``,
-the check of one ``run_cell`` result against the reference, the step traced
+the check of one ``run_cell`` result against the reference (the memory fields'
+identities too), the step traced
 as the dry run traces it (``traced``), and the reference's partitioned step
 compiled on 8 forced host devices in a subprocess (``xla_partitioned_costs``,
 beside the port's own ``port_partitioned_costs``; also read by
@@ -12,6 +13,7 @@ import math
 import os
 import subprocess
 import sys
+from unittest import mock
 
 import jax
 
@@ -132,9 +134,19 @@ def check_cell(arch, shape_name, multi_pod):
     (at least the shard's share of the forward's matmuls, its tokens
     through the non-embedding params over ``model``), an all-gather (FSDP)
     and a reduce-scatter (their gradients) in every train cell, EP
-    all-to-alls exactly in the MoE train and prefill cells."""
+    all-to-alls exactly in the MoE train and prefill cells; ``mem``'s
+    temp and peak bytes ints with ``peak = argument + temp``, and the live
+    bytes at the call (``ProgramTrace.hold``) the argument bytes."""
+    held = []
+    hold = ProgramTrace.hold
+
+    def spy(trace, tree):
+        held.append(hold(trace, tree))
+        return held[-1]
+
     try:
-        res = run_cell(arch, shape_name, multi_pod, verbose=False)
+        with mock.patch.object(ProgramTrace, "hold", spy):
+            res = run_cell(arch, shape_name, multi_pod, verbose=False)
     finally:
         moe_ep.set_ep_mesh(None, ("data",))
     jcfg, shape = jax_arch(arch), J_SHAPES[shape_name]
@@ -150,8 +162,14 @@ def check_cell(arch, shape_name, multi_pod):
     assert res["mem"]["argument_bytes"] == reference_argument_bytes(
         arch, shape_name, multi_pod)
     assert res["mem"]["output_bytes"] > 0
-    for k in ("temp_bytes", "peak_bytes"):
-        assert res["mem"][k] is None
+    mem = res["mem"]
+    assert all(type(mem[k]) is int for k in ("temp_bytes", "peak_bytes"))
+    assert mem["peak_bytes"] == mem["argument_bytes"] + mem["temp_bytes"]
+    assert mem["temp_bytes"] > 0
+    # the live bytes at the call: the placed inputs, short of decode's
+    # position (a host int in the port, an int32 argument in the reference)
+    assert held == [mem["argument_bytes"] - (4 if shape.kind == "decode"
+                                             else 0)]
     assert res["xla_flops"] is None and res["xla_bytes_accessed"] is None
     assert res["hlo_flops"] > 0 and res["hlo_bytes_written"] > 0
     assert not [k for k in res if k.startswith("hlo") and
@@ -177,7 +195,8 @@ def check_cell(arch, shape_name, multi_pod):
 def traced(cfg, shape, mesh, step_cfg=StepConfig()):
     """The step of ``shape`` built on ``mesh`` and traced once on its
     inputs placed on the plan's mesh, as ``run_cell`` traces it (decode at
-    the cache's last slot): (trace, plan)."""
+    the cache's last slot): (trace, plan); ``trace.held``, the live bytes
+    at the call."""
     try:
         fn, structs = build_step(cfg, shape, mesh, step_cfg)
         args = list(structs)
@@ -186,6 +205,7 @@ def traced(cfg, shape, mesh, step_cfg=StepConfig()):
         placed = place_inputs(shape.kind, fn.plan, mesh, shape.global_batch,
                               args)
         with ProgramTrace() as trace:
+            trace.held = trace.hold(placed)
             fn(*placed)
         return trace, fn.plan
     finally:
@@ -215,10 +235,17 @@ for cell in cells:
         with mesh:
             fn, specs = steps.build_step(get_arch(arch).smoke(),
                                          ShapeCfg("t", s, b, kind), mesh)
-            got = analyze_hlo(fn.lower(*specs).compile().as_text(), 8)
+            compiled = fn.lower(*specs).compile()
+            got = analyze_hlo(compiled.as_text(), 8)
+            mem = compiled.memory_analysis()
         res[cell] = dict(dot_flops=got["dot_flops"],
                          coll_bytes=got["coll_bytes"],
-                         wire_bytes_per_device=got["wire_bytes_per_device"])
+                         wire_bytes_per_device=got["wire_bytes_per_device"],
+                         argument_bytes=mem.argument_size_in_bytes,
+                         temp_bytes=mem.temp_size_in_bytes,
+                         peak_bytes=getattr(mem, "peak_memory_in_bytes",
+                                            mem.argument_size_in_bytes
+                                            + mem.temp_size_in_bytes))
     finally:
         moe_ep.set_ep_mesh(None, ("data",))
     print(cell, "REF_OK", flush=True)
@@ -232,7 +259,9 @@ def xla_partitioned_costs(cells, batch, seq, workdir) -> dict:
     kind)`` of ``cells`` (smoke configs, batch x seq), jitted with its
     shardings on a (data 2, model 4) mesh of Auto axes over 8 forced host
     devices and compiled, in one subprocess: ``{(arch, kind): {dot_flops,
-    coll_bytes, wire_bytes_per_device}}``, per device."""
+    coll_bytes, wire_bytes_per_device, argument_bytes, temp_bytes,
+    peak_bytes}}``, per device (the memory from ``memory_analysis()``, as
+    the reference's dry run reads it)."""
     script = os.path.join(workdir, "xla_worker.py")
     out = os.path.join(workdir, "xla_costs.json")
     with open(script, "w") as f:
@@ -250,11 +279,15 @@ def xla_partitioned_costs(cells, batch, seq, workdir) -> dict:
 
 
 def port_partitioned_costs(arch, kind, batch, seq) -> dict:
-    """``analyze`` of the port's dry-run trace of the same step: one
-    shard's program on the one-shard form of the (data 2, model 4) mesh."""
+    """``analyze`` of the port's dry-run trace of the same step, one
+    shard's program on the one-shard form of the (data 2, model 4) mesh,
+    with its live-bytes count: ``argument_bytes`` (held at the call),
+    ``temp_bytes`` (the peak above them) and ``peak_bytes``."""
     trace, _ = traced(get_arch(arch).smoke(), ShapeCfg("t", seq, batch, kind),
                       MeshSpec(dict(zip(("data", "model"), XLA_MESH))))
-    return analyze(trace)
+    return dict(analyze(trace), argument_bytes=trace.held,
+                temp_bytes=trace.peak_bytes - trace.held,
+                peak_bytes=trace.peak_bytes)
 
 
 def port_extra_flops(cfg, kind, batch, seq) -> float:
