@@ -31,7 +31,10 @@ so K-chunked execution is the monolithic run's schedule, bit for bit;
 ``ensure_variant`` binds a scheme/rung plan variant for the controller.  On
 a sharded engine the carry is the ownership-block layout
 (``carry_in``/``carry_out``), and ``apply_resharding`` migrates it live onto
-a new placement between chunks.
+a new placement between chunks.  Under a traced service the fused driver's
+parts emit ``dispatch.compute``, ``.restructure``, ``.scan`` and
+``.intervals`` spans to the tracer the service binds to its executor thread
+(``kernels/runtime.span``); without one they read no clock.
 """
 from __future__ import annotations
 
@@ -46,7 +49,7 @@ from .. import convert
 from ..kernels import autotune
 from ..kernels.megakernel.ops import fused_chain_eval
 from ..kernels.megakernel.ref import fused_chain_stream_ref
-from ..kernels.runtime import resolve_device, smem_optin
+from ..kernels.runtime import resolve_device, smem_optin, span
 from .blotter import AppSpec, build_opbatch
 from .engines import (CHAIN_SCHEMES, EngineStats, evaluate,
                       simple_affine_luts, tstream_scan_coefs,
@@ -439,7 +442,8 @@ def _fused_impl(values, events_b, ts0: int, *, app: AppSpec,
     # compute mode for ALL intervals at once (interval-parallel)
     ts_bases = ts0 + torch.arange(n_intervals, dtype=torch.int32,
                                   device=values.device) * interval
-    ops_all, ebs_all = build_opbatch(app, store, events_b, ts_bases)
+    with span("dispatch.compute"):
+        ops_all, ebs_all = build_opbatch(app, store, events_b, ts_bases)
 
     if (cfg.scheme in ("tstream", "tstream_scan") and app.associative_only
             and not (cfg.abort_repass and app.may_abort)):
@@ -456,18 +460,20 @@ def _fused_impl(values, events_b, ts0: int, *, app: AppSpec,
         rung = restructure_path(n_rows, store.pad_uid, rowmajor_ts=True,
                                 method=cfg.restructure_method,
                                 device_kind=autotune.kind_of(store.device))
-        pres_all = restructure(ops_all, store.pad_uid, rowmajor_ts=True,
-                               method=cfg.restructure_method,
-                               use_kernels=cfg.use_kernels,
-                               threads=cfg.block_param("radix_partition"))
+        with span("dispatch.restructure", rung=rung):
+            pres_all = restructure(ops_all, store.pad_uid, rowmajor_ts=True,
+                                   method=cfg.restructure_method,
+                                   use_kernels=cfg.use_kernels,
+                                   threads=cfg.block_param("radix_partition"))
     res_l, stats = [], []
-    for i in range(n_intervals):
-        st = dataclasses.replace(store, values=values)
-        res, values, s = _eval_interval(st, tree_index(ops_all, i), app=app,
-                                        cfg=cfg,
-                                        prestructured=tree_index(pres_all, i))
-        res_l.append(res)
-        stats.append(s)
+    with span("dispatch.intervals"):
+        for i in range(n_intervals):
+            st = dataclasses.replace(store, values=values)
+            res, values, s = _eval_interval(
+                st, tree_index(ops_all, i), app=app, cfg=cfg,
+                prestructured=tree_index(pres_all, i))
+            res_l.append(res)
+            stats.append(s)
     return _stack(res_l), ebs_all, values, stats, rung
 
 
@@ -510,23 +516,26 @@ def _fused_assoc(store: StateStore, ops_all, *, app: AppSpec,
     if rung == "megakernel":
         return (*_fused_assoc_mega(store, ops_all, cfg=cfg, app=app), rung)
 
-    pres_all = restructure(ops_all, store.pad_uid, rowmajor_ts=True,
-                           light=True, method=cfg.restructure_method,
-                           use_kernels=cfg.use_kernels,
-                           threads=cfg.block_param("radix_partition"))
-    plan_all = tstream_scan_plan(store, ops_all, app.funs,
-                                 prestructured=pres_all,
-                                 use_kernels=cfg.use_kernels)
-    plan_all = tstream_scan_coefs(plan_all, use_kernels=cfg.use_kernels,
-                                  threads=cfg.block_param("segscan"))
+    with span("dispatch.restructure", rung=rung):
+        pres_all = restructure(ops_all, store.pad_uid, rowmajor_ts=True,
+                               light=True, method=cfg.restructure_method,
+                               use_kernels=cfg.use_kernels,
+                               threads=cfg.block_param("radix_partition"))
+    with span("dispatch.scan"):
+        plan_all = tstream_scan_plan(store, ops_all, app.funs,
+                                     prestructured=pres_all,
+                                     use_kernels=cfg.use_kernels)
+        plan_all = tstream_scan_coefs(plan_all, use_kernels=cfg.use_kernels,
+                                      threads=cfg.block_param("segscan"))
 
     values = store.values
     res_l, stats = [], []
-    for i in range(ops_all.uid.shape[0]):
-        res, values, s = tstream_scan_execute(values, tree_index(plan_all, i),
-                                              store.pad_uid)
-        res_l.append(res)
-        stats.append(s)
+    with span("dispatch.intervals"):
+        for i in range(ops_all.uid.shape[0]):
+            res, values, s = tstream_scan_execute(
+                values, tree_index(plan_all, i), store.pad_uid)
+            res_l.append(res)
+            stats.append(s)
     return _stack(res_l), values, stats, rung
 
 
@@ -541,14 +550,16 @@ def _fused_assoc_mega(store: StateStore, ops_all, *, app: AppSpec,
     results come back in flat layout.
     """
     a_lut, b_lut = simple_affine_luts(app.funs, store.device)
-    sops_all, ch_all = restructure(
-        ops_all, store.pad_uid, rowmajor_ts=True, light=True,
-        method="partition", use_kernels=cfg.use_kernels, geometry=False,
-        threads=cfg.block_param("radix_partition"))
+    with span("dispatch.restructure", rung="megakernel"):
+        sops_all, ch_all = restructure(
+            ops_all, store.pad_uid, rowmajor_ts=True, light=True,
+            method="partition", use_kernels=cfg.use_kernels, geometry=False,
+            threads=cfg.block_param("radix_partition"))
     if cfg.use_kernels:
         evaluate_chains = functools.partial(
             fused_chain_eval, threads=cfg.block_param("megakernel"))
     else:
         evaluate_chains = fused_chain_stream_ref
-    return evaluate_chains(store.values, sops_all, ch_all, store.pad_uid,
-                           a_lut=a_lut, b_lut=b_lut)
+    with span("dispatch.intervals"):
+        return evaluate_chains(store.values, sops_all, ch_all, store.pad_uid,
+                               a_lut=a_lut, b_lut=b_lut)

@@ -14,6 +14,10 @@ wrapper's call counts once, at the bytes and operations of its kernel's
 ``cost()``, and none of the aten ops inside it (the twin's on the CPU, the
 output allocations on the card) is recorded.  With no trace it adds nothing
 but one thread-local read and a read of the dispatch mode stack's depth.
+
+``span`` is the engine's hook into the service's tracer: a span of the
+tracer the service binds to the calling thread, or the shared null span,
+which reads no clock, where none is bound.
 """
 from __future__ import annotations
 
@@ -128,3 +132,42 @@ def costed(name: str, cost_fn: Callable[..., Tuple[float, float]]):
             return out
         return wrapper
     return wrap
+
+
+# -- the service tracer's hook ------------------------------------------------
+class _NullSpan:
+    """The span of no tracer: reads no clock, allocates nothing."""
+
+    __slots__ = ()
+
+    def set(self, **kw) -> "_NullSpan":
+        return self
+
+    def __enter__(self) -> "_NullSpan":
+        return self
+
+    def __exit__(self, *exc) -> bool:
+        return False
+
+
+NULL_SPAN = _NullSpan()
+
+
+class _Spans(threading.local):
+    """This thread's bound tracer (``runtime/telemetry.Tracer.bound``) and
+    its innermost open span; the class attributes answer for a thread that
+    set neither."""
+
+    tracer = None
+    open = None
+
+
+SPANS = _Spans()
+
+
+def span(name: str, **args):
+    """A span of the tracer bound to this thread, or the shared null span:
+    code under the service (the engine's pure functions) emits spans
+    without a tracer passed through it."""
+    tr = SPANS.tracer
+    return NULL_SPAN if tr is None else tr.span(name, **args)

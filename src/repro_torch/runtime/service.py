@@ -124,7 +124,13 @@ Unified telemetry plane (DESIGN.md §2.11, ``runtime/telemetry.py``):
   (source pull → assembly → admission → dispatch → execute → commit →
   ``controller.decide`` → snapshot publish → ``reshard.apply``) emits a
   Chrome-trace/Perfetto span; ``profile_dir`` adds per-chunk
-  ``torch.profiler`` windows.
+  ``torch.profiler`` windows.  Six spans tile each chunk's life, each
+  carrying ``chunk`` (its global index) and meeting the next on one stamp:
+  ``chunk.fill`` (first admission -> submit), ``chunk.submit``,
+  ``chunk.wait`` (the work queue), ``chunk.dispatch`` (with the engine's
+  ``dispatch.*`` parts and, on one device, the lockstep walk's ``swept``
+  rounds and ``residue`` ops), ``chunk.hold`` (until the next chunk is in
+  flight) and ``chunk.commit``.
 * Replay-safety contract: telemetry never feeds ``decide()`` — a
   tracing-enabled run is bitwise identical to a tracing-off run,
   including crash → restore → replay (tests/test_torch_telemetry.py).  The
@@ -158,7 +164,6 @@ from .telemetry import (ChunkProfiler, CostAttributor, Telemetry,
                         TelemetryConfig, empty_stats, make_tracer, stats_view)
 
 log = logging.getLogger(__name__)
-
 
 @dataclasses.dataclass(frozen=True)
 class StragglerPolicy:
@@ -523,9 +528,13 @@ class StreamService:
 
         def commit_oldest(check_crash: bool = True):
             (g0, kk, res, ebs, infos, xst, item_plan, qfill,
-             t_disp, cost) = in_flight.popleft()
-            commit_span = tracer.span("chunk.commit", g0=g0, k=kk)
+             t_disp, cost, ci, t_dispatched) = in_flight.popleft()
+            commit_span = tracer.span("chunk.commit", g0=g0, k=kk, chunk=ci)
             commit_span.__enter__()
+            if tracer.enabled:
+                tracer.complete_ns("chunk.hold", t_dispatched,
+                                   commit_span.t0, "chunk.hold", g0=g0,
+                                   k=kk, chunk=ci)
             outs = eng.post_outputs(res, ebs, kk)
             t_commit = time.perf_counter()
             rec.t_last_commit = t_commit
@@ -535,10 +544,11 @@ class StreamService:
             # extra clock reads on the replay path); cost attribution
             # and roofline fractions ride on its args
             if tracer.enabled:
-                xargs = dict(g0=g0, k=kk)
+                xargs = dict(g0=g0, k=kk, chunk=ci)
                 if cost is not None and cost_attr is not None:
                     xargs.update(cost_attr.annotate(cost, now - t_disp))
-                tracer.complete_at("chunk.execute", t_disp, now, **xargs)
+                tracer.complete_ns("chunk.execute", int(t_disp * 1e9),
+                                   int(now * 1e9), **xargs)
             if progress["last_commit"] is not None:
                 progress["lat"].append(now - progress["last_commit"])
             progress["last_commit"] = now
@@ -654,7 +664,8 @@ class StreamService:
 
         seen_shapes = set()     # (variant-key, chunk size) already compiled
 
-        def dispatch(batched, kk: int, infos, plan, qfill):
+        def dispatch(batched, kk: int, infos, plan, qfill, ci: int,
+                     t_submitted):
             nonlocal vals, g_next
             if state["err"] is not None:
                 raise _Aborted()
@@ -724,8 +735,9 @@ class StreamService:
             vals_ok["safe"] = False     # the carry is being replaced
             t_disp = time.monotonic()
             ts0 = ts_base_for(g_next, interval)
-            with tracer.span("chunk.dispatch", g0=g_next, k=kk):
-                with profiler.chunk(g_next):
+            with tracer.span("chunk.dispatch", g0=g_next, k=kk, chunk=ci,
+                             cpu=True) as dsp:
+                with profiler.chunk(g_next), tracer.bound():
                     if cost_attr is not None and shape not in costs:
                         # opt-in per-chunk-shape attribution: this chunk
                         # runs once, under the trace, on this thread
@@ -735,11 +747,21 @@ class StreamService:
                     else:
                         res, ebs, new_vals, xst = eng.run_stream_chunk(
                             vals, batched, ts0, variant=variant)
+                if tracer.enabled and (xst or {}).get("engine") is not None:
+                    # the lockstep walk's rounds and residue ops: host ints
+                    est = xst["engine"]
+                    dsp.set(swept=int(est.swept), residue=int(est.residue))
+            t_dispatched = None
+            if tracer.enabled:
+                tracer.complete_ns("chunk.wait", t_submitted, dsp.t0,
+                                   "chunk.wait", g0=g_next, k=kk, chunk=ci)
+                t_dispatched = dsp.t1
             vals = new_vals
             vals_ok["safe"] = True
             progress["t"] = time.monotonic()
             in_flight.append((g_next, kk, res, ebs, infos, xst, plan,
-                              qfill, t_disp, costs.get(shape)))
+                              qfill, t_disp, costs.get(shape), ci,
+                              t_dispatched))
             g_next += kk
             if faults is not None:
                 faults.on_executor_chunk()
@@ -844,12 +866,22 @@ class StreamService:
             # in_flight, or aborted here) is executed-but-uncommitted and
             # must land in the stats as unprocessed, not vanish
             executed += kk
+            ci = chunks_done0 + chn["j"]    # global chunk index
             chn["j"] += 1
-            with tracer.span("chunk.submit", g0=g0, k=kk, qfill=qfill):
+            with tracer.span("chunk.submit", g0=g0, k=kk, qfill=qfill,
+                             chunk=ci) as ssp:
                 batched = convert.events_to_torch(
                     {k: np.stack([c[0][k] for c in chunk])
                      for k in chunk[0][0]}, eng.device)
-            item = (batched, kk, [c[1] for c in chunk], plan, qfill)
+            t_submitted = None
+            if tracer.enabled:
+                # the chunk fills from its first interval's first admission
+                t_first = tracer.perf_ns(float(chunk[0][1].enqueue_s.min()))
+                tracer.complete_ns("chunk.fill", t_first, ssp.t0,
+                                   "chunk.fill", g0=g0, k=kk, chunk=ci)
+                t_submitted = ssp.t1
+            item = (batched, kk, [c[1] for c in chunk], plan, qfill, ci,
+                    t_submitted)
             while state["err"] is None:
                 try:
                     work_q.put(item, timeout=0.05)

@@ -47,6 +47,7 @@ snapshot so the old surface survives as a compatibility view.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import logging
 import os
@@ -56,6 +57,9 @@ from dataclasses import dataclass
 from typing import Any, Dict, Iterable, List, Optional, Sequence, Tuple
 
 import numpy as np
+
+from ..kernels.runtime import NULL_SPAN as _NULL_SPAN
+from ..kernels.runtime import SPANS, span  # noqa: F401  (re-exported)
 
 log = logging.getLogger(__name__)
 
@@ -524,46 +528,55 @@ class TraceWriter:
                 self._f.close()
 
 
+# spans the port emits beyond the reference's: the stages that tile a
+# chunk's life between the shared ones, the dispatch's parts
+# (core/scheduler.py), and the clock event that maps the trace onto
+# ``time.monotonic_ns``.  Every one but ``trace.clock`` also lands as a
+# ``span.<name>`` histogram.
+PORT_ONLY_SPANS = ("trace.clock", "chunk.fill", "chunk.wait", "chunk.hold",
+                   "dispatch.compute", "dispatch.restructure",
+                   "dispatch.scan", "dispatch.intervals")
+
+
 class _Span:
     """A ``ph="X"`` complete event; ``set(**args)`` attaches arguments
-    any time before exit (cost attribution lands this way)."""
+    any time before exit (cost attribution lands this way).  It records
+    ``parent``, the open span it nests in on its thread, and, where opened
+    with ``cpu=True``, ``cpu_us``, the thread's CPU time inside it;
+    ``t0``/``t1`` keep its stamps for the stages that meet it."""
 
-    __slots__ = ("_tr", "name", "cat", "args", "_t0")
+    __slots__ = ("_tr", "name", "cat", "args", "t0", "t1", "_cpu", "_cpu0",
+                 "_up")
 
-    def __init__(self, tracer, name, cat, args):
+    def __init__(self, tracer, name, cat, args, cpu=False):
         self._tr = tracer
         self.name = name
         self.cat = cat
         self.args = dict(args)
+        self._cpu = cpu
 
     def set(self, **kw) -> "_Span":
         self.args.update(kw)
         return self
 
     def __enter__(self) -> "_Span":
-        self._t0 = time.monotonic_ns()
+        self._up, SPANS.open = SPANS.open, self
+        if self._up is not None:
+            self.args["parent"] = self._up.name
+        if self._cpu:
+            # 0 where the thread has used no CPU time yet: not the flag
+            self._cpu0 = time.thread_time_ns()
+        self.t0 = time.monotonic_ns()
         return self
 
     def __exit__(self, *exc) -> bool:
-        self._tr._emit_complete(self.name, self.cat, self._t0,
-                                time.monotonic_ns(), self.args)
+        self.t1 = time.monotonic_ns()
+        if self._cpu:
+            self.args["cpu_us"] = (time.thread_time_ns() - self._cpu0) / 1e3
+        SPANS.open = self._up
+        self._tr._emit_complete(self.name, self.cat, self.t0, self.t1,
+                                self.args)
         return False
-
-
-class _NullSpan:
-    __slots__ = ()
-
-    def set(self, **kw) -> "_NullSpan":
-        return self
-
-    def __enter__(self) -> "_NullSpan":
-        return self
-
-    def __exit__(self, *exc) -> bool:
-        return False
-
-
-_NULL_SPAN = _NullSpan()
 
 
 class NullTracer:
@@ -575,10 +588,11 @@ class NullTracer:
     def span(self, name, cat="pipeline", **args):
         return _NULL_SPAN
 
-    def complete_at(self, name, t0_s, t1_s, cat="pipeline", **args):
-        pass
+    def bound(self):
+        return _NULL_SPAN
 
-    def instant(self, name, cat="pipeline", **args):
+    def complete_ns(self, name, t0_ns, t1_ns, track=None, cat="pipeline",
+                    **args):
         pass
 
     def close(self):
@@ -590,9 +604,11 @@ NULL_TRACER = NullTracer()
 
 class Tracer:
     """Span emitter over a :class:`TraceWriter`.  Timestamps come from
-    ``time.monotonic_ns`` anchored at construction; span durations also
-    land in the registry as ``span.<name>`` histograms (observability
-    only — nothing on the decision path reads them)."""
+    ``time.monotonic_ns`` anchored at construction, which the first event,
+    ``trace.clock``, records (``args.epoch_monotonic_ns``): a span's
+    monotonic time is that plus its ``ts``.  Span durations also land in
+    the registry as ``span.<name>`` histograms (observability only —
+    nothing on the decision path reads them)."""
 
     enabled = True
 
@@ -602,53 +618,84 @@ class Tracer:
         self._reg = registry
         self.pid = os.getpid()
         self.epoch_ns = time.monotonic_ns()
-        self._tids: Dict[int, int] = {}
+        # ``time.perf_counter`` stamps (the admission's) onto this clock
+        self._perf_ns = self.epoch_ns - time.perf_counter_ns()
+        self._tids: Dict[Any, int] = {}
+        self._lanes: Dict[str, List[int]] = {}
         self._tlock = threading.Lock()
         self._w.emit(dict(name="process_name", ph="M", ts=0, pid=self.pid,
                           tid=0, args=dict(name=process_name)))
+        self._w.emit(dict(name="trace.clock", cat="clock", ph="X", ts=0,
+                          dur=0, pid=self.pid, tid=self._tid(),
+                          args=dict(epoch_monotonic_ns=self.epoch_ns)))
 
-    def _tid(self) -> int:
-        ident = threading.get_ident()
+    def _tid(self, track: Optional[str] = None) -> int:
+        """The calling thread's track, or the named ``track``."""
+        key = threading.get_ident() if track is None else track
         with self._tlock:
-            tid = self._tids.get(ident)
+            tid = self._tids.get(key)
             if tid is None:
-                tid = self._tids[ident] = len(self._tids) + 1
+                tid = self._tids[key] = len(self._tids) + 1
                 self._w.emit(dict(
                     name="thread_name", ph="M", ts=0, pid=self.pid, tid=tid,
-                    args=dict(name=threading.current_thread().name)))
+                    args=dict(name=(threading.current_thread().name
+                                    if track is None else track))))
         return tid
 
-    def span(self, name: str, cat: str = "pipeline", **args) -> _Span:
-        return _Span(self, name, cat, args)
+    def _lane(self, track: str, t0_ns: int, t1_ns: int) -> str:
+        """The first lane of ``track`` whose events all end by ``t0_ns``:
+        ``track``, then ``track 2``, ... (events of one track never
+        overlap, as a trace viewer nests those of one thread)."""
+        with self._tlock:
+            ends = self._lanes.setdefault(track, [])
+            j = next((j for j, e in enumerate(ends) if e <= t0_ns),
+                     len(ends))
+            if j == len(ends):
+                ends.append(0)
+            ends[j] = max(t0_ns, t1_ns)
+        return track if j == 0 else f"{track} {j + 1}"
 
-    def _emit_complete(self, name, cat, t0_ns, t1_ns, args) -> None:
+    def span(self, name: str, cat: str = "pipeline", cpu: bool = False,
+             **args) -> _Span:
+        return _Span(self, name, cat, args, cpu)
+
+    @contextlib.contextmanager
+    def bound(self):
+        """Bind this tracer to the entering thread: the engine's
+        ``kernels/runtime.span`` emits here."""
+        prev, SPANS.tracer = SPANS.tracer, self
+        try:
+            yield
+        finally:
+            SPANS.tracer = prev
+
+    def perf_ns(self, t_s: float) -> int:
+        """A ``time.perf_counter`` stamp on this tracer's clock."""
+        return int(t_s * 1e9) + self._perf_ns
+
+    def _emit_complete(self, name, cat, t0_ns, t1_ns, args,
+                       track: Optional[str] = None) -> None:
         ev = dict(name=name, cat=cat, ph="X",
                   ts=(t0_ns - self.epoch_ns) / 1e3,
                   dur=max((t1_ns - t0_ns) / 1e3, 0.0),
-                  pid=self.pid, tid=self._tid())
+                  pid=self.pid, tid=self._tid(track))
         if args:
             ev["args"] = args
         self._w.emit(ev)
         if self._reg is not None:
             self._reg.observe("span." + name, (t1_ns - t0_ns) / 1e9)
 
-    def complete_at(self, name: str, t0_s: float, t1_s: float,
-                    cat: str = "pipeline", **args) -> None:
-        """Emit a complete event from two ``time.monotonic()`` stamps the
-        caller already took for its own accounting — the execute span is
-        reconstructed this way so tracing adds no clock read of its own
-        to the dispatch/commit path."""
-        t0_ns = int(t0_s * 1e9)
-        t1_ns = int(t1_s * 1e9)
-        self._emit_complete(name, cat, t0_ns, t1_ns, args)
-
-    def instant(self, name: str, cat: str = "pipeline", **args) -> None:
-        ev = dict(name=name, cat=cat, ph="i", s="t",
-                  ts=(time.monotonic_ns() - self.epoch_ns) / 1e3,
-                  pid=self.pid, tid=self._tid())
-        if args:
-            ev["args"] = args
-        self._w.emit(ev)
+    def complete_ns(self, name: str, t0_ns: int, t1_ns: int,
+                    track: Optional[str] = None, cat: str = "pipeline",
+                    **args) -> None:
+        """Emit a complete event between two ``time.monotonic_ns`` stamps
+        the caller already took for its own accounting, so tracing adds no
+        clock read of its own: on the calling thread's track, or on a lane
+        of the named ``track`` for a stage that runs from one thread's
+        stamp to another's (neighbours may overlap; ``_lane``)."""
+        if track is not None:
+            track = self._lane(track, t0_ns, t1_ns)
+        self._emit_complete(name, cat, t0_ns, t1_ns, args, track=track)
 
     def close(self) -> None:
         self._w.close()

@@ -1,8 +1,9 @@
 """The port's telemetry plane (``repro_torch/runtime/telemetry.py``).
 
 Held here: one service run in each package, with tracing and snapshots on,
-emits the same counter, gauge, histogram, record and span names, and the
-same deterministic counter values; tracing changes no bit of the run;
+emits the same counter, gauge, histogram, record and span names (the port's
+adding exactly ``PORT_ONLY_SPANS`` and their histograms), and the same
+deterministic counter values; tracing changes no bit of the run;
 ``ChunkProfiler`` writes a ``torch.profiler`` trace with one
 ``service_chunk`` range per chunk on the CPU.  The cost attribution
 (``hlo_attribution=True``) is held in ``tests/test_torch_cost.py``.
@@ -79,12 +80,16 @@ def test_same_names_as_the_jax_service(tmp_path):
     jsnap, tsnap = jrec.telemetry.snapshot(), trec.telemetry.snapshot()
     assert tsnap["schema"] == jsnap["schema"]
     assert tsnap["schema_version"] == jsnap["schema_version"]
-    assert _names(tsnap) == _names(jsnap)
+    # the port's own spans, and their histograms (not the clock event's)
+    want = _names(jsnap)
+    want["histograms"] |= {"span." + n for n in tt.PORT_ONLY_SPANS
+                           if n != "trace.clock"}
+    assert _names(tsnap) == want
     for c in jsnap["counters"]:
         if not c["name"].startswith(TIMED):
             assert tt.counter_value(tsnap, c["name"], **c["labels"]) == \
                 c["value"], c
-    assert _spans(ttrace) == _spans(jtrace)
+    assert _spans(ttrace) == _spans(jtrace) | set(tt.PORT_ONLY_SPANS)
     ok, why, _ = tt.validate_trace(ttrace, require_stages=tt.PIPELINE_STAGES)
     assert ok, why
     assert set(trec.stats) == set(jrec.stats)
