@@ -3,10 +3,10 @@
 
 Runs the GS workload through ``StreamService`` on the CUDA card: an
 out-of-order replayable source, watermarked interval assembly,
-double-buffered chunked execution over the fused driver,
-punctuation-aligned snapshots, and — with ``--inject-restart`` — a
-crash/restore/replay drill that asserts the recovered run is bitwise
-identical to the uninterrupted one.
+chunked execution over the fused driver (each chunk committed as soon as
+it has run), punctuation-aligned snapshots, and — with
+``--inject-restart`` — a crash/restore/replay drill that asserts the
+recovered run is bitwise identical to the uninterrupted one.
 
 With ``--corrupt-latest`` on top, the newest snapshot is damaged on disk
 after the crash (torn-write simulation): ``resume`` must fall back to the

@@ -9,9 +9,9 @@ policy, controller and drop accounting.  What differs:
   device as one copy of each stacked column;
 * the port's fused driver reads the host inside a chunk (the rung, each
   lockstep sweep's round sizes), so ``run_stream_chunk`` returns after the
-  chunk ran: the double buffer still overlaps the main thread's pulls,
-  assembly and staging with the executor's chunk, not two chunks with
-  each other;
+  chunk ran: holding a finished chunk until the next one is dispatched
+  would overlap nothing, so the executor commits it at once instead of
+  the reference's one-behind double buffer;
 * on the card the kernels are built before the first chunk (nvcc takes
   longer than ``watchdog_grace_s`` is meant to cover);
 * ``ChunkProfiler`` windows are ``torch.profiler``'s, opened and closed on
@@ -28,10 +28,11 @@ pipeline over an unbounded arrival source:
              call, the state carry threaded chunk to chunk)
              -> commit (post-process + D2H) -> outputs + latency record
 
-* **Double-buffered feed**: chunks are dispatched and committed in order
-  on a dedicated executor thread while the main thread pulls, assembles
-  and stages (H2D) the next chunk; the executor commits chunk *i* only
-  after chunk *i+1* is dispatched.
+* **Commit as soon as run**: chunks are dispatched and committed in
+  order on a dedicated executor thread while the main thread pulls,
+  assembles and stages (H2D) the next chunk.  The executor commits each
+  chunk right after its dispatch, before it takes the next one from the
+  work queue.
 * **Chunked == monolithic**: chunk boundaries are punctuation boundaries
   and the carry is the state buffer, so K-chunked execution is
   bit-identical to one ``run_stream`` over the same events, on both the
@@ -91,7 +92,10 @@ Adaptive control plane (DESIGN.md §2.9, ``runtime/controller.py``):
 * **Per-chunk time series**: the service keeps a ring buffer of the last
   ``chunk_record_ring`` chunk records (latency, failed ops, chain stats,
   exchange drop/fill, queue fill) — the controller's observation window,
-  exposed as ``stats["chunks"]``.
+  exposed as ``stats["chunks"]``.  A record's ``lat_s`` runs from the
+  chunk's dispatch to its commit, the chunk's own run.  Only the
+  controller's wall-clock timing tier reads it, which is off under
+  snapshots and never on the replay path.
 
 Elastic resharding (DESIGN.md §2.10):
 
@@ -129,8 +133,8 @@ Unified telemetry plane (DESIGN.md §2.11, ``runtime/telemetry.py``):
   ``chunk.fill`` (first admission -> submit), ``chunk.submit``,
   ``chunk.wait`` (the work queue), ``chunk.dispatch`` (with the engine's
   ``dispatch.*`` parts and, on one device, the lockstep walk's ``swept``
-  rounds and ``residue`` ops), ``chunk.hold`` (until the next chunk is in
-  flight) and ``chunk.commit``.
+  rounds and ``residue`` ops), ``chunk.hold`` (until the commit starts:
+  the fault hook's time, about 0) and ``chunk.commit``.
 * Replay-safety contract: telemetry never feeds ``decide()`` — a
   tracing-enabled run is bitwise identical to a tracing-off run,
   including crash → restore → replay (tests/test_torch_telemetry.py).  The
@@ -294,7 +298,9 @@ class ServiceRun:
     snapshots: List[int] = dataclasses.field(default_factory=list)
     # adaptive control plane: live alias of the controller's decision
     # trace (monotone in g; includes any restored prefix) and the final
-    # chunk-record ring (per-chunk time series, newest last)
+    # chunk-record ring (per-chunk time series, newest last; a record's
+    # ``lat_s`` is dispatch -> commit, the chunk's own run, and feeds only
+    # the controller's timing tier)
     decisions: List[Dict] = dataclasses.field(default_factory=list)
     chunk_records: List[Dict] = dataclasses.field(default_factory=list)
     # elastic resharding: one dict per applied live migration (boundary
@@ -379,7 +385,7 @@ class StreamService:
         interval, K = cfg.punct_interval, cfg.chunk_intervals
         asm = IntervalAssembler(interval, cfg.watermark)
         ready = collections.deque()
-        in_flight = collections.deque()
+        in_flight = collections.deque()    # dispatched, not yet committed
         rec = ServiceRun()
         self.last_run = rec
         # -- observability plane (DESIGN.md §2.11) ---------------------
@@ -455,7 +461,7 @@ class StreamService:
         progress = dict(busy=False, t=time.monotonic(), last_commit=None,
                         lat=collections.deque(maxlen=8))
         # staged chunks queued for the executor thread; maxsize=1 plus the
-        # executor's depth-2 in_flight window bounds the pipeline
+        # one chunk the executor runs bounds the pipeline
         work_q: queue.Queue = queue.Queue(maxsize=1)
 
         def drain_asm():
@@ -684,14 +690,12 @@ class StreamService:
                         prev.slack, plan.slack, g_next,
                         logger=log, limit=-1)
                 if eng._sharded is not None and plan.owners != prev.owners:
-                    # live migration (DESIGN.md §2.10): drain the pipe so
-                    # the carry is exactly this punctuation boundary's
-                    # state, ship only the rows whose owner changed
-                    # through the owner-routed all_to_all, rebind the plan
-                    # to the new ownership and resume — the stream never
-                    # stops
-                    while in_flight:
-                        commit_oldest()
+                    # live migration (DESIGN.md §2.10): every earlier chunk
+                    # has committed, so the carry is exactly this
+                    # punctuation boundary's state; ship only the rows
+                    # whose owner changed through the owner-routed
+                    # all_to_all, rebind the plan to the new ownership and
+                    # resume — the stream never stops
                     vals_ok["safe"] = False
                     t0m = time.monotonic()
                     with tracer.span("reshard.apply", g=g_next,
@@ -765,15 +769,12 @@ class StreamService:
             g_next += kk
             if faults is not None:
                 faults.on_executor_chunk()
-            # double buffer depth 2: block on the oldest chunk only once a
-            # newer one is in flight (its assembly/H2D already overlapped)
-            while len(in_flight) > 1:
-                commit_oldest()
+            # commit at once: the chunk has already run (the driver reads
+            # the host inside it), so holding it would overlap nothing
+            commit_oldest()
             if cfg.snapshot_every and g_next % cfg.snapshot_every == 0:
-                # punctuation-aligned snapshot: drain the pipe so the carry
-                # is this boundary's state, then publish through ckpt/
-                while in_flight:
-                    commit_oldest()
+                # punctuation-aligned snapshot: every chunk has committed,
+                # so the carry is this boundary's state; publish via ckpt/
                 if state["err"] is not None:    # abandoned run: never write
                     raise _Aborted()
                 take_snapshot(g_next)
@@ -800,14 +801,6 @@ class StreamService:
                     progress["t"] = time.monotonic()
                     try:
                         dispatch(*item)
-                    finally:
-                        progress["busy"] = False
-                if state["err"] is None:
-                    progress["busy"] = True
-                    progress["t"] = time.monotonic()
-                    try:
-                        while in_flight:
-                            commit_oldest()
                     finally:
                         progress["busy"] = False
             except _Aborted:
